@@ -1,0 +1,518 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on a failed check (nothing is caught):
+
+  1. the card (``nvidia-smi`` name and power limit) and the build of the
+     three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc`` each,
+     started together);
+  2. each kernel at the shapes the main path gives it, plus a ragged one:
+     held against its plain PyTorch version on the card, with its time,
+     the plain version's time, the least time the card could take
+     (``bound_ms``) and, where one PyTorch call computes the same function,
+     that call's time (``library_ms``, timed only); kernels 2 and 3 are
+     also held to f32 accuracy at their main-path shapes: their residual
+     against an f64 reference is at most twice that of the same function
+     computed in plain f32;
+  3. the paper's check: at 2048^3, kernel 1's x6 residual against an f64
+     product is at most twice that of an f32 ``torch.matmul``;
+  4. the main path: the serving engine at the full width of qwen3-0.6b with
+     random weights from a seed, 8 greedy requests; every kernel's launch
+     count is zeroed before and read after, and each must be > 0.  The
+     prompts (512, 512, 200, 200, 64, 64, 17, 17 tokens) arrive so that each
+     admission prefills two prompts of one padded length together: the
+     prefills are 2 x 512, 2 x 208, 2 x 64 and 2 x 32, the shapes phase 2
+     times;
+  5. one 64-token prefill through the kernels against the same prefill with
+     ``dispatch.use_plain()`` (relative logits difference <= 1e-3);
+  6. where the time goes: a second engine with four slots (512, 512, 200
+     and 64 tokens) times decode steps with the profiler off, then profiles
+     as many steps and one 2 x 512 prefill under ``torch.profiler``: each
+     window's wall time, the device time of its kernels, the device's idle
+     share and its largest kernels.
+
+Every line of output is one JSON object, except the ``nvidia-smi`` line.
+The last line is ``{"ok": true, "device": {...}}``.  The full record is
+also written to ``chiprun_out/chip_smoke.json``.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
+H100_BF16_OPS = 989e12          # dense bf16 tensor-core peak
+H100_F32_OPS = 67e12            # f32 outside the tensor cores
+U24 = 2.0 ** -24
+RECORD: dict = {"kernel_checks": []}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def time_ms(fn, reps, warmup=1):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rotating(fn_of_i):
+    """fn(i) for timed runs, fn(0) for warm-up."""
+    return lambda i=0: fn_of_i(i)
+
+
+def bound(nbytes, ops, rate):
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ------------------------------------------------------------- kernel 1
+
+def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
+                plain_reps=2, policy="tcec_bf16x6"):
+    from repro_torch.core import get_policy
+    from repro_torch.kernels import ops, tcec_matmul as tm
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    a = torch.randn(M, K, generator=g, device=dev)
+    # `copies` weight copies of more than the 50 MB L2 in all, so a timed
+    # launch reads its weight cold, as each layer of a decode step does
+    shape = (N, K) if trans_b else (K, N)
+    ws = [torch.randn(shape, generator=g, device=dev) * K ** -0.5
+          for _ in range(copies)]
+    bs = [w.T if trans_b else w for w in ws]
+    out = ops.tcec_matmul(a, bs[0], policy)
+    ref = tm.tcec_matmul_plain(a, bs[0], policy)
+    tol = 8 * K * U24 * (a.abs() @ bs[0].abs())
+    err = (out - ref).abs()
+    check(bool((err <= tol).all()), f"{name}: kernel 1 vs plain beyond "
+          "8 K 2^-24 (|A| @ |B|)")
+    ms = time_ms(rotating(lambda i: ops.tcec_matmul(a, bs[i % copies],
+                                                    policy)), reps)
+    plain_ms = time_ms(rotating(lambda i: tm.tcec_matmul_plain(
+        a, bs[i % copies], policy)), plain_reps)
+    lib_ms = time_ms(rotating(lambda i: torch.matmul(a, bs[i % copies])),
+                     reps)
+    passes = get_policy(policy).passes
+    b_ms, by = bound(4 * (M * K + K * N + M * N), passes * 2 * M * N * K,
+                     H100_BF16_OPS)
+    row = {"kernel": "tcec_matmul", "shape": name, "M": M, "N": N, "K": K,
+           "max_abs_err": float(err.max()),
+           "tolerance": "8*K*2^-24*(|A|@|B|) elementwise",
+           "max_err_over_tol": float((err / tol).max()),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": lib_ms, "library": "torch.matmul f32, TF32 off"}
+    emit(row)
+    RECORD["kernel_checks"].append(row)
+    del ws, bs, out, ref, tol, err
+    torch.cuda.empty_cache()
+    return row
+
+
+def matmul_epilogue_check(dev):
+    from repro_torch.kernels import ops, tcec_matmul as tm
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randn(3, 1000, 1000, generator=g, device=dev)
+    b = torch.randn(3, 1000, 1000, generator=g, device=dev) * 0.03
+    bias = torch.randn(1000, generator=g, device=dev)
+    out = ops.tcec_matmul(a, b, "tcec_bf16x6", bias=bias, activation="gelu",
+                          out_scale=0.5)
+    ref = tm.tcec_matmul_plain(a, b, "tcec_bf16x6", bias=bias,
+                               activation="gelu", out_scale=0.5)
+    tol = 1.2 * 0.5 * 8 * 1000 * U24 * (a.abs() @ b.abs()) + 8 * U24 * ref.abs()
+    err = (out - ref).abs()
+    check(bool((err <= tol).all()), "kernel 1 batched epilogue vs plain")
+    row = {"kernel": "tcec_matmul", "shape": "batched 3x1000^3 bias+gelu",
+           "max_abs_err": float(err.max()),
+           "max_err_over_tol": float((err / tol).max())}
+    emit(row)
+    RECORD["kernel_checks"].append(row)
+
+
+def residual(ref, x):
+    """Norm-wise relative residual of ``x`` against an f64 ``ref``."""
+    return float(torch.linalg.norm(ref - x.double()) / torch.linalg.norm(ref))
+
+
+def f32_gate(row, ref64, out, plain_f32):
+    """Hold a kernel to f32 accuracy: its residual against the f64 reference
+    is at most twice that of the same function in plain f32.  A kernel that
+    dropped a scale group (x3 arithmetic) sits ~15x above the f32 one."""
+    row["residual_f64"] = residual(ref64, out)
+    row["f32_residual_f64"] = residual(ref64, plain_f32)
+    check(row["residual_f64"] <= 2 * row["f32_residual_f64"],
+          f"{row['shape']}: residual vs f64 <= 2x that of plain f32")
+
+
+# ------------------------------------------------------------- kernel 2
+
+def attention_direct(q, k, v, dtype):
+    """Causal GQA attention computed directly in ``dtype`` (no split)."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    qs = q.to(dtype).transpose(1, 2)
+    ks = k.to(dtype).repeat_interleave(rep, 2).transpose(1, 2)
+    vs = v.to(dtype).repeat_interleave(rep, 2).transpose(1, 2)
+    sc = qs @ ks.transpose(-1, -2) / math.sqrt(hd)
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    sc = sc.masked_fill(~keep, -math.inf)
+    return (torch.softmax(sc, -1) @ vs).transpose(1, 2)
+
+
+def attention_case(name, B, S, H, Hkv, hd, dev, reps=5):
+    from repro_torch.kernels import tcec_attention as ta
+    g = torch.Generator(device=dev).manual_seed(S + B)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev)
+    k = torch.randn(B, S, Hkv, hd, generator=g, device=dev)
+    v = torch.randn(B, S, Hkv, hd, generator=g, device=dev)
+    out = ta.tcec_attention(q, k, v)
+    ref = ta.tcec_attention_plain(q, k, v)
+    err = float((out - ref).abs().max())
+    tol = 1e-5 * float(v.abs().max())
+    check(err <= tol, f"{name}: kernel 2 vs plain beyond 1e-5 max|v|")
+    ms = time_ms(rotating(lambda i: ta.tcec_attention(q, k, v)), reps)
+    plain_ms = time_ms(rotating(lambda i: ta.tcec_attention_plain(q, k, v)),
+                       2)
+    rep = H // Hkv
+    qs, ks, vs = (q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(
+        1, 2), v.repeat_interleave(rep, 2).transpose(1, 2))
+    lib_ms = time_ms(rotating(lambda i: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  qs, ks, vs, is_causal=True)), reps)
+    pairs = S * (S + 1) // 2                    # causal (q, k) pairs
+    ops = 6 * 2 * (hd + hd) * pairs * H * B     # x6: 6 passes, QK^T and PV
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd) + 8 * S
+    b_ms, by = bound(nbytes, ops, H100_BF16_OPS)
+    row = {"kernel": "tcec_attention", "shape": name, "B": B, "S": S,
+           "T": S, "H": H, "Hkv": Hkv, "hd": hd, "max_abs_err": err,
+           "tolerance": "1e-5*max|v|", "tol": tol, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": lib_ms,
+           "library": "scaled_dot_product_attention f32 causal"}
+    f32_gate(row, attention_direct(q, k, v, torch.float64), out,
+             attention_direct(q, k, v, torch.float32))
+    emit(row)
+    RECORD["kernel_checks"].append(row)
+    return row
+
+
+# ------------------------------------------------------------- kernel 3
+
+def paged_direct(q, kp, vp, bt, ln, dtype):
+    """Paged decode attention computed directly in ``dtype``, slot by slot
+    (no window, no split)."""
+    B, H, hd = q.shape
+    ps, Hkv = kp.shape[1], kp.shape[2]
+    outs = []
+    for b in range(B):
+        n = int(ln[b])
+        pages = bt[b, :-(-n // ps)].long()
+        kk = kp[pages].reshape(-1, Hkv, hd)[:n].to(dtype)
+        vv = vp[pages].reshape(-1, Hkv, hd)[:n].to(dtype)
+        kk = kk.repeat_interleave(H // Hkv, 1)
+        vv = vv.repeat_interleave(H // Hkv, 1)
+        sc = torch.einsum("hd,thd->ht", q[b].to(dtype), kk) / math.sqrt(hd)
+        outs.append(torch.einsum("ht,thd->hd", torch.softmax(sc, -1), vv))
+    return torch.stack(outs)
+
+
+def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20):
+    from repro_torch.kernels import tcec_paged_attention as tp
+    B = len(lengths)
+    NP = 1 + B * maxp
+    g = torch.Generator(device=dev).manual_seed(sum(lengths) + maxp)
+    kp = torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16()
+    vp = torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16()
+    q = torch.randn(B, H, hd, generator=g, device=dev)
+    perm = torch.randperm(NP - 1, generator=g, device=dev) + 1
+    bt = perm.reshape(B, maxp).to(torch.int32).contiguous()
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    out = tp.tcec_paged_attention(q, kp, vp, bt, ln, window=window)
+    ref = tp.tcec_paged_attention_plain(q, kp, vp, bt, ln, window=window)
+    err = float((out - ref).abs().max())
+    tol = 1e-5 * float(vp.float().abs().max())
+    check(err <= tol, f"{name}: kernel 3 vs plain beyond 1e-5 max|v|")
+    check(bool((out[ln <= 0] == 0).all()),
+          f"{name}: empty slots must return zeros")
+    ms = time_ms(rotating(lambda i: tp.tcec_paged_attention(
+        q, kp, vp, bt, ln, window=window)), reps)
+    plain_ms = time_ms(rotating(lambda i: tp.tcec_paged_attention_plain(
+        q, kp, vp, bt, ln, window=window)), 2)
+    valid = sum(min(n, window) if window else max(n, 0) for n in lengths)
+    nbytes = (4 * B * H * hd * 2 + 2 * valid * Hkv * 2 * hd
+              + 4 * B * (maxp + 1))
+    ops = 3 * 2 * 2 * hd * valid * H            # 3 (i, 0) passes, QK and PV
+    b_ms, by = bound(nbytes, ops, H100_F32_OPS)
+    row = {"kernel": "tcec_paged_attention", "shape": name,
+           "lengths": lengths, "window": window, "H": H, "Hkv": Hkv,
+           "hd": hd, "page_size": ps, "maxp": maxp, "max_abs_err": err,
+           "tolerance": "1e-5*max|v|", "tol": tol, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": None}
+    if not window:
+        f32_gate(row, paged_direct(q, kp, vp, bt, ln, torch.float64), out,
+                 paged_direct(q, kp, vp, bt, ln, torch.float32))
+    emit(row)
+    RECORD["kernel_checks"].append(row)
+    return row
+
+
+# ------------------------------------------------------------ phase 3
+
+def paper_check(dev):
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(2048)
+    n = 2048
+    a = torch.rand(n, n, generator=g, device=dev) * 2 - 1
+    b = torch.rand(n, n, generator=g, device=dev) * 2 - 1
+    ref = a.double() @ b.double()
+
+    def resid(c):
+        return float(torch.linalg.norm(ref - c.double())
+                     / torch.linalg.norm(ref))
+
+    r6 = resid(ops.tcec_matmul(a, b, "tcec_bf16x6"))
+    r32 = resid(a @ b)
+    row = {"paper_check": "2048^3 uniform[-1,1): x6 vs f32 SGEMM residual",
+           "x6_residual": r6, "sgemm_residual": r32, "ratio": r6 / r32}
+    emit(row)
+    RECORD["paper_check"] = row
+    check(r6 <= 2 * r32, "x6 residual <= 2x the f32 SGEMM residual")
+
+
+# ------------------------------------------------------------ phase 4/5
+
+def main_path(dev):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (dispatch, tcec_attention as ta,
+                                     tcec_matmul as tm,
+                                     tcec_paged_attention as tp)
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import param_count
+    from repro_torch.serving import Engine, SamplingParams
+    cfg = get_config("qwen3-0.6b")
+    model = get_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
+                    page_size=16, max_pages_per_slot=40, device=dev)
+    rng = np.random.default_rng(0)
+    # two prompts of each length, in a row, so each admission of four
+    # prefills two batches of two (all finish on one step, so the second
+    # four are admitted together too)
+    lens = [512, 512, 200, 200, 64, 64, 17, 17]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    mods = (tm, ta, tp)
+    for m in mods:
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = engine.run(prompts, SamplingParams(max_tokens=16))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+    stats = engine.stats()
+    tokens = sum(len(v) for v in out.values())
+    row = {"engine": "qwen3-0.6b full width, random weights (seed 0)",
+           "params": param_count(params), "init_s": init_s,
+           "requests": len(prompts), "prompt_lengths": lens,
+           "max_tokens": 16, "max_slots": 4, "page_size": 16,
+           "generated_tokens": tokens, "seconds": dt,
+           "tokens_per_s": tokens / dt, "prefills": stats["prefills"],
+           "decode_steps": stats["decode_steps"],
+           "preemptions": stats["preemptions"], "launches": launches,
+           "finish_reasons": sorted({v.finish_reason for v in out.values()})}
+    emit(row)
+    RECORD["engine"] = row
+    check(all(v.finish_reason == "length" and len(v) == 16
+              for v in out.values()), "every request finished with 16 tokens")
+    check(all(n > 0 for n in launches.values()), "every kernel launched")
+    check(stats["prefills"] == 4 and stats["preemptions"] == 0,
+          "four prefills of two prompts each: 2x512, 2x208, 2x64, 2x32")
+    L = cfg.n_layers
+    check(launches["tcec_matmul"] == (7 * L + 1) * (stats["prefills"]
+                                                    + stats["decode_steps"]),
+          "kernel 1: 7 products a layer + the unembed, every forward")
+    check(launches["tcec_attention"] == L * stats["prefills"],
+          "kernel 2: one launch a layer, every prefill")
+    check(launches["tcec_paged_attention"] == L * stats["decode_steps"],
+          "kernel 3: one launch a layer, every decode step")
+
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
+    with torch.no_grad():
+        fast, _ = model.prefill(params, toks)
+        with dispatch.use_plain():
+            plain, _ = model.prefill(params, toks)
+    rel = float((fast - plain).abs().max() / plain.abs().max())
+    row = {"logits_check": "64-token prefill, kernels vs dispatch.use_plain()",
+           "max_rel_diff": rel, "limit": 1e-3}
+    emit(row)
+    RECORD["logits_check"] = row
+    check(math.isfinite(rel) and rel <= 1e-3, "prefill logits vs plain path")
+    return launches, (cfg, model, params)
+
+
+# ------------------------------------------------------------ phase 6
+
+def device_us(event):
+    """An event's own device time (the attribute's name differs between
+    PyTorch versions)."""
+    if hasattr(event, "self_device_time_total"):
+        return event.self_device_time_total
+    return event.self_cuda_time_total
+
+
+def profile_window(name, fn, top=8):
+    """Run ``fn`` under ``torch.profiler``; where its time went on the card:
+    wall time (host clock around work that ends in a synchronize), the
+    summed device time of its kernels, the idle share, the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((device_us(e) / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    busy = sum(k[0] for k in kernels) if kernels else None
+    row = {"window": name, "wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": 1 - busy / wall_ms if kernels else None,
+           "kernels": [{"ms": ms, "count": n, "name": key[:90]}
+                       for ms, n, key in kernels[:top]]}
+    emit(row)
+    RECORD["profile"].append(row)
+
+
+def where_time_goes(dev, cfg, model, params, steps=4):
+    from repro_torch.serving import Engine, SamplingParams
+    RECORD["profile"] = []
+    rng = np.random.default_rng(1)
+    engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
+                    page_size=16, max_pages_per_slot=40, device=dev)
+    for n in (512, 512, 200, 64):
+        engine.add_request(rng.integers(0, cfg.vocab_size, n),
+                           SamplingParams(max_tokens=2 * steps + 8))
+    engine.step()                       # admission, prefills, one decode
+    engine.step()                       # one decode step to warm up
+
+    def decode():
+        for _ in range(steps):
+            engine.step()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    row = {"window": "decode step, 4 slots, profiler off",
+           "decode_step_ms": ms, "tokens_per_s": 4e3 / ms}
+    emit(row)
+    RECORD["profile"].append(row)
+    profile_window(f"{steps} decode steps, 4 slots", decode)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).to(dev)
+    with torch.no_grad():
+        model.prefill(params, toks)     # warm
+        profile_window("prefill 2 x 512", lambda: model.prefill(params, toks))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch is missing beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401  (sets TF32 off)
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    RECORD["nvidia_smi"] = smi
+    emit({"torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0)})
+    build_s = _build.build()
+    emit({"build_s": build_s})
+    RECORD["build_s"] = build_s
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "ptxas.txt").write_text("\n".join(
+        f"== {k}\n{v}" for k, v in _build.build_logs.items()))
+
+    # phase 2: every kernel at its main-path shapes, plus a ragged one
+    k1 = matmul_case("unembed at prefill (B*P=2*512)", 1024, 151936, 1024,
+                     dev, trans_b=True, reps=3)
+    matmul_case("mlp gate at decode (4 slots)", 4, 3072, 1024, dev,
+                copies=8, reps=40, plain_reps=10)
+    matmul_case("ragged 1000^3", 1000, 1000, 1000, dev, reps=10,
+                plain_reps=5)
+    matmul_epilogue_check(dev)
+    k2 = attention_case("prefill 2x512, 16/8 heads", 2, 512, 16, 8, 128, dev)
+    attention_case("prefill 2x208 (ragged)", 2, 208, 16, 8, 128, dev)
+    k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
+                    40, dev)
+    paged_case("ragged, window 100", [0, 1, 17, 300], 16, 8, 128, 16, 40,
+               dev, window=100)
+
+    paper_check(dev)                               # phase 3
+    launches, model = main_path(dev)               # phases 4 and 5
+    where_time_goes(dev, *model)                   # phase 6
+
+    src = "src/repro_torch/csrc/{}.cu"
+    rep = "src/repro/kernels/{}"
+    kernels = []
+    for name, row, replaces in (
+            ("tcec_matmul", k1, "tcec_matmul.py:69"),
+            ("tcec_attention", k2, "tcec_attention.py:102"),
+            ("tcec_paged_attention", k3, "tcec_paged_attention.py:61")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src.format(name),
+            "replaces": rep.format(replaces), "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"]})
+    RECORD["kernels"] = kernels
+    (out_dir / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

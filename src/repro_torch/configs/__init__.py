@@ -1,0 +1,6 @@
+"""Architecture registry of the port (qwen3-0.6b so far)."""
+from .base import (ModelConfig, get_config, get_smoke_config, list_archs,
+                   register)
+
+__all__ = ["ModelConfig", "get_config", "get_smoke_config", "list_archs",
+           "register"]

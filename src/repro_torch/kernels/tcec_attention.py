@@ -1,0 +1,193 @@
+"""Kernel 2: TCEC flash attention for prefill.
+
+Counterpart of ``repro/kernels/tcec_attention.py::_attn_kernel``.  The CUDA
+kernel (``csrc/tcec_attention.cu``) runs one block per (batch, kv head,
+64 query rows), walks the K/V blocks of 32 keys itself, and computes QK^T
+and P·V from bf16 term products with per-scale-group f32 accumulators,
+the additive ``NEG_INF`` mask, and the online softmax; the ``(S, T)`` scores
+never reach device memory.
+
+:func:`tcec_attention` is the public entry on model-layout operands: it does
+the layout transposes and the GQA grouping, then launches the kernel on a
+CUDA tensor or runs the plain version on a CPU tensor.
+:func:`tcec_attention_plain` is the same function in plain PyTorch, block
+for block: the same 32-key blocks, the same online softmax and the same
+normalize-first branch when there is a single K/V block.
+
+``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.core.policy import get_policy
+from . import _build
+from .tcec_matmul import check_policy, fold, split_tile
+
+# The additive mask bias of models.layers (finite, so fully-masked rows give
+# garbage instead of NaN, like the composition path).
+NEG_INF = -2.0e38
+ROWS = 64        # query rows per CUDA block (rep * positions)
+BKV = 32         # keys per K/V block
+HDMAX = 128      # largest head_dim the CUDA kernel takes
+
+launches = 0
+# q, k, v, q_pos, k_pos, out; B, Hkv, rep, S, T, hd, hdv, causal, window;
+# softcap, sm_denom; n_splits, scale_bits; stream
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+
+
+def _positions(p, n: int, device) -> torch.Tensor:
+    if p is None:
+        return torch.arange(n, dtype=torch.int32, device=device)
+    p = torch.as_tensor(p, device=device)
+    if p.ndim == 2:                          # batch-uniform, like the models
+        p = p[0]
+    return p.to(torch.int32).contiguous()
+
+
+def _to_kernel_layout(q, k, v, q_pos, k_pos):
+    B, S, H, hd = q.shape
+    T, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape[0] != B or v.shape[:3] != k.shape[:3] or k.shape[3] != hd
+            or Hkv == 0 or H % Hkv):
+        raise ValueError(f"bad attention shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    rep = H // Hkv
+    qt = q.float().reshape(B, S, Hkv, rep, hd).permute(0, 2, 3, 1, 4)
+    kt = k.float().permute(0, 2, 1, 3)
+    vt = v.float().permute(0, 2, 1, 3)
+    return (qt.contiguous(), kt.contiguous(), vt.contiguous(),
+            _positions(q_pos, S, q.device), _positions(k_pos, T, q.device))
+
+
+def _to_model_layout(out):
+    B, Hkv, rep, S, hdv = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hkv * rep, hdv)
+
+
+def _terms(x, pol):
+    return [t.float() for t in split_tile(x, pol.n_splits, pol.scale_bits)]
+
+
+def _product(a_terms, b_terms, pol):
+    """Per-scale-group sums of the kept term products (unfolded)."""
+    parts: dict[int, torch.Tensor] = {}
+    for (i, j) in pol.keep:
+        t = torch.matmul(a_terms[i], b_terms[j])
+        g = i + j
+        parts[g] = t if g not in parts else parts[g] + t
+    return [parts[g] for g in pol.groups]
+
+
+def _plain_core(qt, kt, vt, qp, kp, pol, causal, window, softcap, sm_denom):
+    """The kernel's arithmetic on kernel-layout operands:
+    q (B, Hkv, rep, S, hd), k (B, Hkv, T, hd), v (B, Hkv, T, hdv)."""
+    B, Hkv, rep, S, hd = qt.shape
+    T, hdv = kt.shape[2], vt.shape[3]
+    sq = _terms(qt, pol)
+    nkb = -(-T // BKV)
+    single = nkb == 1
+    m = torch.full((B, Hkv, rep, S, 1), NEG_INF, device=qt.device)
+    l = torch.zeros((B, Hkv, rep, S, 1), device=qt.device)
+    accs = [torch.zeros((B, Hkv, rep, S, hdv), device=qt.device)
+            for _ in pol.groups]
+    for kb in range(nkb):
+        sl = slice(kb * BKV, min(T, (kb + 1) * BKV))
+        sk = _terms(kt[:, :, None, sl].transpose(-1, -2), pol)
+        s = fold(_product(sq, sk, pol), pol.scale_bits) / sm_denom
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        d = qp[:, None] - kp[None, sl]
+        ok = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
+        if window > 0:
+            ok = ok & (d < window)
+        s = s + torch.where(ok, 0.0, NEG_INF)
+        if single:
+            # the softmax completes here: normalize P before P.V
+            p = torch.exp(s - s.amax(-1, keepdim=True))
+            p = p / p.sum(-1, keepdim=True)
+            alpha = None
+        else:
+            m_next = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_next)
+            p = torch.exp(s - m_next)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            m = m_next
+        parts = _product(_terms(p, pol), _terms(vt[:, :, None, sl], pol), pol)
+        for gi, part in enumerate(parts):
+            accs[gi] = accs[gi] + part if alpha is None \
+                else accs[gi] * alpha + part
+    out = fold(accs, pol.scale_bits)
+    if not single:
+        out = out / torch.clamp_min(l, 1e-30)
+    return out
+
+
+def _launch(qt, kt, vt, qp, kp, pol, causal, window, softcap, sm_denom):
+    global launches
+    B, Hkv, rep, S, hd = qt.shape
+    T, hdv = kt.shape[2], vt.shape[3]
+    if ROWS % rep or hd > HDMAX or hdv > HDMAX:
+        raise ValueError(f"CUDA attention takes rep dividing {ROWS} and head "
+                         f"dims <= {HDMAX}; got rep={rep}, hd={hd}, hdv={hdv}")
+    for t in (qt, kt, vt, qp, kp):
+        if t.device != qt.device or not t.is_contiguous():
+            raise ValueError("operands must be contiguous on one CUDA device")
+    out = torch.empty((B, Hkv, rep, S, hdv), dtype=torch.float32,
+                      device=qt.device)
+    if out.numel() == 0 or T == 0:
+        return out.zero_()
+    fn = _build.entry("tcec_attention", _ARGTYPES)
+    status = fn(_build.ptr(qt), _build.ptr(kt), _build.ptr(vt),
+                _build.ptr(qp), _build.ptr(kp), _build.ptr(out),
+                B, Hkv, rep, S, T, hd, hdv, int(causal), int(window),
+                float(softcap or 0.0), float(sm_denom), pol.n_splits,
+                pol.scale_bits, _build.stream(qt))
+    _build.check("tcec_attention", status)
+    launches += 1
+    return out
+
+
+def _run(core, q, k, v, q_pos, k_pos, policy, causal, window, softcap):
+    pol = get_policy(policy)
+    check_policy(pol)
+    qt, kt, vt, qp, kp = _to_kernel_layout(q, k, v, q_pos, k_pos)
+    window = int(0 if window is None else window)
+    softcap = float(softcap) if softcap else None
+    out = core(qt, kt, vt, qp, kp, pol, bool(causal), window, softcap,
+               float(math.sqrt(q.shape[-1])))
+    return _to_model_layout(out)
+
+
+def tcec_attention(q, k, v, q_pos=None, k_pos=None, *,
+                   policy: str = "tcec_bf16x6", causal: bool = True,
+                   window=0, softcap: float | None = None):
+    """Fused TCEC attention on model-layout operands.
+
+    q: (B, S, H, hd); k: (B, T, Hkv, hd); v: (B, T, Hkv, hdv); GQA via
+    ``H = rep * Hkv``.  ``q_pos``/``k_pos`` are (S,)/(T,) position vectors
+    or batch-uniform (B, S)/(B, T) ones (default ``arange``); ``window`` 0 is
+    unlimited.  Returns (B, S, H, hdv) f32.  A CUDA tensor launches the
+    kernel; a CPU tensor runs :func:`tcec_attention_plain`'s arithmetic.
+    """
+    if q.is_cuda:
+        core = _launch
+    elif q.device.type == "cpu":
+        core = _plain_core
+    else:
+        raise ValueError(f"no TCEC attention for device {q.device}")
+    return _run(core, q, k, v, q_pos, k_pos, policy, causal, window, softcap)
+
+
+def tcec_attention_plain(q, k, v, q_pos=None, k_pos=None, *,
+                         policy: str = "tcec_bf16x6", causal: bool = True,
+                         window=0, softcap: float | None = None):
+    """Kernel 2's function in plain PyTorch, on any device."""
+    return _run(_plain_core, q, k, v, q_pos, k_pos, policy, causal, window,
+                softcap)

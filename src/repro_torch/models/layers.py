@@ -1,0 +1,206 @@
+"""Shared neural layers of the dense family.  Every contraction routes
+through ``repro_torch.core.pdot``, so the paper's error-corrected GEMM is a
+config knob for the whole model; attention routes to kernel 2 (prefill)
+and kernel 3 (paged decode) through ``kernels.dispatch``.
+
+Layouts follow the JAX package: activations (B, S, H, hd), projection
+weights (D, H, hd) and (H, hd, D).  Two details that are easy to get
+wrong: RMSNorm scales by ``1 + scale`` (the scale parameters start at
+zero), and RoPE rotates the two *halves* of head_dim, not interleaved
+pairs.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import pdot
+from repro_torch.kernels import dispatch
+from .modules import dense_init, zeros
+
+NEG_INF = -2.0e38
+
+
+# ------------------------------------------------------------------ norms
+
+def rmsnorm(scale, x, eps=1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)) * (1.0 + scale.float())
+
+
+# ------------------------------------------------------------------- rope
+
+def rope(x, positions, theta: float):
+    """Rotary embedding on the two halves of head_dim.
+    x: (B, S, H, D); positions: (B, S) int."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                         device=x.device) / half))
+    ang = positions[..., None].float() * freq               # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def softcap(x, cap):
+    return cap * torch.tanh(x / cap) if cap else x
+
+
+# ------------------------------------------------------------- attention
+
+def attn_init(gen, cfg, device=None):
+    D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, (D, H, hd), fan_in=D, device=device),
+        "wk": dense_init(gen, (D, Hkv, hd), fan_in=D, device=device),
+        "wv": dense_init(gen, (D, Hkv, hd), fan_in=D, device=device),
+        "wo": dense_init(gen, (H, hd, D), fan_in=H * hd, device=device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = zeros((H, hd), device)
+        p["bk"] = zeros((Hkv, hd), device)
+        p["bv"] = zeros((Hkv, hd), device)
+    if cfg.qk_norm:
+        p["q_norm"] = zeros((hd,), device)
+        p["k_norm"] = zeros((hd,), device)
+    return p
+
+
+def _project_qkv(p, x, cfg, positions):
+    pol = cfg.policy
+    q = pdot("bsd,dhk->bshk", x, p["wq"], pol)
+    k = pdot("bsd,dhk->bshk", x, p["wk"], pol)
+    v = pdot("bsd,dhk->bshk", x, p["wv"], pol)
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _mask_bias(q_pos, k_pos, causal: bool, window: int):
+    """Additive mask from position vectors (window 0 = unlimited)."""
+    d = q_pos[:, None] - k_pos[None, :]
+    ok = (d >= 0) if causal else torch.ones_like(d, dtype=torch.bool)
+    if window > 0:
+        ok = ok & (d < window)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def mha(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
+    """Materialized-scores attention through pdot — the composition path
+    for policies the fused kernel does not take.  GQA by head grouping."""
+    B, S, H, hd = q.shape
+    Hkv, hdv = k.shape[2], v.shape[3]
+    qg = q.reshape(B, S, Hkv, H // Hkv, hd)
+    scores = pdot("bqhrd,bkhd->bhrqk", qg, k, cfg.mix_policy)
+    scores = softcap(scores / math.sqrt(hd), cfg.attn_softcap)
+    scores = scores + _mask_bias(q_pos[0], k_pos[0], causal, window)
+    probs = torch.softmax(scores.float(), dim=-1)
+    out = pdot("bhrqk,bkhd->bqhrd", probs, v, cfg.mix_policy)
+    return out.reshape(B, S, H, hdv)
+
+
+def sdpa(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
+    """Scaled-dot-product attention router: kernel 2 for the split
+    policies, the pdot composition for the others."""
+    out = dispatch.attention(q, k, v, policy=cfg.mix_policy, q_pos=q_pos,
+                             k_pos=k_pos, causal=causal, window=window,
+                             softcap=cfg.attn_softcap)
+    if out is not None:
+        return out
+    return mha(q, k, v, cfg, q_pos, k_pos, causal, window)
+
+
+def attention_prefill(p, x, cfg, positions, window=0):
+    """Full attention layer that also returns the K/V it computed, so a
+    sequence-level prefill fills the cache in one forward."""
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    o = sdpa(q, k, v, cfg, positions, positions, True, window)
+    out = pdot("bshk,hkd->bsd", o, p["wo"], cfg.policy)
+    return out, {"k": k, "v": v}
+
+
+def _decode_attend(q, ck, cv, cfg, cur_pos, window=0):
+    """One-token attention over a gathered cache view in plain bf16 (the
+    decode path for policies kernel 3 does not take).
+    q: (B, 1, H, hd); ck/cv: (B, T, Hkv, d); cur_pos: (B,)."""
+    B, T, Hkv = ck.shape[0], ck.shape[1], ck.shape[2]
+    H, hd = q.shape[2], q.shape[3]
+    qg = q.reshape(B, 1, Hkv, H // Hkv, hd)
+    s = pdot("bqhrd,bkhd->bhrqk", qg, ck, "bf16")
+    s = softcap(s / math.sqrt(hd), cfg.attn_softcap)
+    d = cur_pos.reshape(-1, 1).long() - torch.arange(T, device=q.device)[None]
+    ok = d >= 0
+    if window > 0:
+        ok = ok & (d < window)
+    s = torch.where(ok[:, None, None, None, :], s, NEG_INF)
+    pr = torch.softmax(s.float(), dim=-1)
+    o = pdot("bhrqk,bkhd->bqhrd", pr, cv, "bf16")
+    return o.reshape(B, 1, H, cv.shape[3])
+
+
+def attention_decode_paged(p, x, cfg, pool, block_tables, lengths, window=0):
+    """One-token decode against a paged KV cache (serving engine).
+
+    x: (B, 1, d_model), one token per slot; pool: ``{"k": (NP, ps, Hkv, hd),
+    "v": (NP, ps, Hkv, hdv)}`` shared by all slots; block_tables: (B, maxp)
+    i32; lengths: (B,) i32 tokens already cached per slot.  The new token's
+    K/V is written into its page in place (the pool is the dominant serving
+    allocation; JAX rebinds a donated buffer, PyTorch updates it), then
+    kernel 3 attends over the pages.
+    """
+    B = x.shape[0]
+    positions = lengths[:, None].to(torch.int32)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    ps = pool["k"].shape[1]
+    rows = torch.arange(B, device=x.device)
+    page = block_tables[rows, (lengths // ps).long()].long()
+    off = (lengths % ps).long()
+    pool["k"][page, off] = k[:, 0].to(pool["k"].dtype)
+    pool["v"][page, off] = v[:, 0].to(pool["v"].dtype)
+    o = dispatch.attention_decode(q[:, 0], pool["k"], pool["v"], block_tables,
+                                  lengths + 1, policy=cfg.mix_policy,
+                                  window=window, softcap=cfg.attn_softcap)
+    if o is not None:
+        o = o[:, None].float()                              # (B, 1, H, hdv)
+    else:
+        Hkv, hd = pool["k"].shape[2], pool["k"].shape[3]
+        maxp = block_tables.shape[1]
+        bt = block_tables.long()
+        kg = pool["k"][bt].reshape(B, maxp * ps, Hkv, hd)
+        vg = pool["v"][bt].reshape(B, maxp * ps, Hkv, pool["v"].shape[3])
+        o = _decode_attend(q, kg, vg, cfg, lengths, window)
+    return pdot("bshk,hkd->bsd", o, p["wo"], cfg.policy)
+
+
+# ------------------------------------------------------------------- MLP
+
+def mlp_init(gen, cfg, d_ff=None, device=None):
+    D = cfg.d_model
+    F_ = d_ff or cfg.d_ff
+    return {
+        "w_gate": dense_init(gen, (D, F_), fan_in=D, device=device),
+        "w_up": dense_init(gen, (D, F_), fan_in=D, device=device),
+        "w_down": dense_init(gen, (F_, D), fan_in=F_, device=device),
+    }
+
+
+def _act(x, kind: str):
+    # jax.nn.gelu is the tanh approximation by default
+    return F.gelu(x, approximate="tanh") if kind == "gelu" else F.silu(x)
+
+
+def mlp(p, x, cfg):
+    g = pdot("bsd,df->bsf", x, p["w_gate"], cfg.policy)
+    u = pdot("bsd,df->bsf", x, p["w_up"], cfg.policy)
+    h = _act(g, cfg.activation) * u
+    return pdot("bsf,fd->bsd", h, p["w_down"], cfg.policy)

@@ -1,0 +1,60 @@
+"""Parameter helpers: seeded initializers on a ``torch.Generator`` and the
+nested-dict parameter trees the models use (stacked per-layer leaves with a
+leading layer axis, the JAX package's layout).
+
+``torch`` and ``jax.random`` give different numbers from the same seed, so
+a model made here is not the JAX model of that seed; ``repro_torch.bridge``
+carries JAX parameters over exactly.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def dense_init(gen, shape, fan_in: int | None = None, device=None):
+    fan_in = fan_in if fan_in is not None else shape[0]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    return torch.randn(shape, generator=gen, device=device) * std
+
+
+def embed_init(gen, shape, device=None):
+    return torch.randn(shape, generator=gen, device=device) * 0.02
+
+
+def zeros(shape, device=None):
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def tree_map(fn, *trees):
+    """Apply ``fn`` leafwise over nested dicts of tensors."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def stack_init(init_fn, n: int):
+    """Initialize ``n`` layer trees and stack their leaves on a leading dim."""
+    trees = [init_fn() for _ in range(n)]
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+
+
+def layer(stacked, i: int):
+    """Layer ``i``'s view of a stacked parameter (or cache) tree."""
+    return tree_map(lambda x: x[i], stacked)
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))

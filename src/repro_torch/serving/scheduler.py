@@ -1,0 +1,157 @@
+"""Continuous-batching scheduler: FIFO admission, page budget, preemption.
+
+The scheduler owns the policy half of the serving engine (which waiting
+request is admitted into which slot, when a running request may grow by a
+page, who is evicted when the pool runs dry); the engine owns the device
+arrays and calls in here.  The rules are the JAX package's:
+
+  * admission is strict FIFO — if the head of the queue doesn't fit (no
+    free slot, or not enough pages for its prompt plus one growth page),
+    nothing behind it is admitted either;
+  * preemption evicts the most recently admitted running request: its
+    pages are freed and it goes back to the front of the queue with its
+    generated tokens intact, to be re-prefilled on re-admission
+    (recompute-style; no page swapping).
+"""
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+from enum import Enum
+
+from .errors import SchedulerInvariantError
+from .kv_cache import PagePool
+from .sampling import SamplingParams
+
+
+class RequestState(Enum):
+    WAITING = "waiting"
+    RUNNING = "running"
+    FINISHED = "finished"
+
+
+@dataclass
+class Request:
+    """One serving request plus its runtime bookkeeping."""
+    rid: int
+    prompt: list[int]
+    params: SamplingParams
+    state: RequestState = RequestState.WAITING
+    out: list[int] = field(default_factory=list)
+    slot: int | None = None
+    pages: list[int] = field(default_factory=list)
+    n_preemptions: int = 0
+    generator: object = None           # per-request torch.Generator
+    finish_reason: str | None = None   # serving.errors.FinishReason value
+
+    @property
+    def full_sequence(self) -> list[int]:
+        """Prompt plus everything generated so far — what a re-admission
+        after preemption must prefill."""
+        return list(self.prompt) + list(self.out)
+
+    @property
+    def finished(self) -> bool:
+        return self.state is RequestState.FINISHED
+
+
+class Scheduler:
+    """FIFO admission + LIFO preemption over a :class:`PagePool`."""
+
+    def __init__(self, pool: PagePool, max_slots: int):
+        self.pool = pool
+        self.max_slots = max_slots
+        self.waiting: deque[Request] = deque()
+        self.running: dict[int, Request] = {}          # slot -> request
+        self._ids = itertools.count()
+        self._admit_seq = itertools.count()
+        self._admitted_at: dict[int, int] = {}         # rid -> seq
+        self.n_preemptions = 0
+
+    def add(self, prompt, params: SamplingParams | None = None) -> Request:
+        req = Request(rid=next(self._ids), prompt=[int(t) for t in prompt],
+                      params=params or SamplingParams())
+        self.waiting.append(req)
+        return req
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    def free_slots(self) -> list[int]:
+        return [s for s in range(self.max_slots) if s not in self.running]
+
+    def admitted_at(self, req: Request) -> int:
+        return self._admitted_at[req.rid]
+
+    def admit(self) -> list[Request]:
+        """Admit waiting requests FIFO while a slot and pages are available
+        (prompt pages plus one page of headroom each)."""
+        admitted = []
+        slots = self.free_slots()
+        while self.waiting and slots:
+            req = self.waiting[0]
+            pages = self.pool.alloc(
+                self.pool.pages_for(len(req.full_sequence) + 1))
+            if pages is None:
+                break                                   # strict FIFO
+            self.waiting.popleft()
+            req.state = RequestState.RUNNING
+            req.pages = pages
+            req.slot = slots.pop(0)
+            self.running[req.slot] = req
+            self._admitted_at[req.rid] = next(self._admit_seq)
+            admitted.append(req)
+        return admitted
+
+    def grow(self, req: Request) -> bool:
+        """Grant ``req`` one more page, preempting younger requests until it
+        fits.  False only when ``req`` is alone and the pool is still dry."""
+        while True:
+            pages = self.pool.alloc(1)
+            if pages is not None:
+                req.pages.extend(pages)
+                return True
+            victim = self._youngest_running(exclude=req)
+            if victim is None:
+                return False
+            self.preempt(victim)
+
+    def _youngest_running(self, exclude: Request) -> Request | None:
+        cands = [r for r in self.running.values() if r is not exclude]
+        if not cands:
+            return None
+        return max(cands, key=lambda r: self._admitted_at[r.rid])
+
+    def _release(self, req: Request, verb: str) -> None:
+        if req.slot not in self.running or self.running[req.slot] is not req:
+            raise SchedulerInvariantError(
+                f"{verb} of request {req.rid} which is not resident in "
+                f"slot {req.slot}")
+        del self.running[req.slot]
+        self.pool.free(req.pages)
+        req.pages = []
+        req.slot = None
+
+    def preempt(self, req: Request) -> None:
+        """Evict a running request back to the front of the queue."""
+        self._release(req, "preempt")
+        req.state = RequestState.WAITING
+        req.n_preemptions += 1
+        self.n_preemptions += 1
+        self.waiting.appendleft(req)
+
+    def finish(self, req: Request) -> None:
+        """Release a completed request's slot and pages."""
+        self._release(req, "finish")
+        req.state = RequestState.FINISHED
+
+    def drop(self, req: Request) -> None:
+        """Finish a request that is still queued (length cap)."""
+        if req in self.waiting:
+            self.waiting.remove(req)
+        else:
+            raise SchedulerInvariantError(
+                f"drop of request {req.rid} which is not queued")
+        req.state = RequestState.FINISHED

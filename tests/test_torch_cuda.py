@@ -1,0 +1,88 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+Every test here is marked ``cuda`` and skips on a machine without a CUDA
+card; it imports neither JAX nor the JAX package, so it runs where only
+PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerances as in ``test_torch_kernels.py``: ``8 K 2^-24 (|A| @ |B|)`` for
+products, ``1e-5 max|v|`` for attention outputs.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from repro_torch.kernels import (ops, tcec_attention,  # noqa: E402
+                                 tcec_matmul, tcec_paged_attention)
+
+U24 = 2.0 ** -24
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("policy", ["tcec_bf16x3", "tcec_bf16x6",
+                                    "tcec_bf16x10"])
+def test_matmul_matches_plain(dev, policy):
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.rand(2, 130, 300, generator=g, device=dev) * 2 - 1
+    b = torch.rand(2, 300, 70, generator=g, device=dev) * 2 - 1
+    bias = torch.rand(70, generator=g, device=dev)
+    before = tcec_matmul.launches
+    out = ops.tcec_matmul(a, b, policy, bias=bias, activation="silu")
+    assert tcec_matmul.launches == before + 1
+    ref = tcec_matmul.tcec_matmul_plain(a, b, policy, bias=bias,
+                                        activation="silu")
+    tol = 1.2 * 8 * 300 * U24 * (a.abs() @ b.abs()) + 8 * U24 * ref.abs()
+    assert bool(((out - ref).abs() <= tol).all())
+    bt = torch.rand(70, 300, generator=g, device=dev)      # transposed B
+    out = ops.tcec_matmul(a[0], bt.T, policy)
+    ref = tcec_matmul.tcec_matmul_plain(a[0], bt.T, policy)
+    assert bool(((out - ref).abs()
+                 <= 8 * 300 * U24 * (a[0].abs() @ bt.T.abs())).all())
+
+
+def test_matmul_wrapper_raises_instead_of_falling_back(dev):
+    a = torch.ones(4, 8, device=dev)
+    with pytest.raises(TypeError):
+        ops.tcec_matmul(a.double(), a.double().T)
+    with pytest.raises(ValueError):
+        ops.tcec_matmul(a.T.contiguous().T, a.T)     # a not contiguous
+
+
+@pytest.mark.parametrize("S,window", [(150, 0), (20, 0), (200, 64)])
+def test_attention_matches_plain(dev, S, window):
+    g = torch.Generator(device=dev).manual_seed(S)
+    q = torch.randn(2, S, 16, 128, generator=g, device=dev)
+    k = torch.randn(2, S, 8, 128, generator=g, device=dev)
+    v = torch.randn(2, S, 8, 128, generator=g, device=dev)
+    out = tcec_attention.tcec_attention(q, k, v, window=window)
+    ref = tcec_attention.tcec_attention_plain(q, k, v, window=window)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max())
+
+
+@pytest.mark.parametrize("window", [0, 20])
+def test_paged_attention_matches_plain(dev, window):
+    g = torch.Generator(device=dev).manual_seed(window)
+    B, Hkv, rep, hd, ps, maxp = 4, 8, 2, 128, 16, 6
+    NP = 1 + B * maxp
+    kp = torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16()
+    vp = torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16()
+    q = torch.randn(B, Hkv * rep, hd, generator=g, device=dev)
+    bt = (torch.randperm(NP - 1, generator=g, device=dev) + 1).reshape(
+        B, maxp).to(torch.int32)
+    lengths = torch.tensor([0, 1, 40, 96], dtype=torch.int32, device=dev)
+    out = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, lengths,
+                                                     window=window)
+    ref = tcec_paged_attention.tcec_paged_attention_plain(
+        q, kp, vp, bt, lengths, window=window)
+    assert bool((out[0] == 0).all())
+    assert float((out - ref).abs().max()) <= 1e-5 * float(
+        vp.float().abs().max())
