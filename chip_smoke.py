@@ -16,7 +16,10 @@ Phases, each of which raises on a failed check (nothing is caught):
      that call's time (``library_ms``, timed only); kernels 2 and 3 are
      also held to f32 accuracy at their main-path shapes: their residual
      against an f64 reference is at most twice that of the same function
-     computed in plain f32;
+     computed in plain f32.  Kernel 2 runs at all four of the engine's
+     prefill shapes and once at x10 with a softcap and a window; its
+     ``ms`` is the public entry's, ``kernel_only_ms`` the kernel's launch
+     alone on operands already contiguous f32;
   3. the paper's check: at 2048^3, kernel 1's x6 residual against an f64
      product is at most twice that of an f32 ``torch.matmul``;
   4. the main path: the serving engine at the full width of qwen3-0.6b with
@@ -182,38 +185,59 @@ def attention_direct(q, k, v, dtype):
     return (torch.softmax(sc, -1) @ vs).transpose(1, 2)
 
 
-def attention_case(name, B, S, H, Hkv, hd, dev, reps=5):
+def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
+                   window=0, softcap=None):
+    """Kernel 2 on causal self-attention at (B, S): against its plain version
+    (1e-5 max|v|) and, for plain x6 attention, against f64 (the f32 gate);
+    timed beside f32 SDPA where SDPA computes the same function."""
+    from repro_torch.core import get_policy
     from repro_torch.kernels import tcec_attention as ta
     g = torch.Generator(device=dev).manual_seed(S + B)
     q = torch.randn(B, S, H, hd, generator=g, device=dev)
     k = torch.randn(B, S, Hkv, hd, generator=g, device=dev)
     v = torch.randn(B, S, Hkv, hd, generator=g, device=dev)
-    out = ta.tcec_attention(q, k, v)
-    ref = ta.tcec_attention_plain(q, k, v)
+    kw = dict(policy=policy, window=window, softcap=softcap)
+    out = ta.tcec_attention(q, k, v, **kw)
+    ref = ta.tcec_attention_plain(q, k, v, **kw)
     err = float((out - ref).abs().max())
     tol = 1e-5 * float(v.abs().max())
     check(err <= tol, f"{name}: kernel 2 vs plain beyond 1e-5 max|v|")
-    ms = time_ms(rotating(lambda i: ta.tcec_attention(q, k, v)), reps)
-    plain_ms = time_ms(rotating(lambda i: ta.tcec_attention_plain(q, k, v)),
-                       2)
-    rep = H // Hkv
-    qs, ks, vs = (q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(
-        1, 2), v.repeat_interleave(rep, 2).transpose(1, 2))
-    lib_ms = time_ms(rotating(lambda i: torch.nn.functional
-                              .scaled_dot_product_attention(
-                                  qs, ks, vs, is_causal=True)), reps)
-    pairs = S * (S + 1) // 2                    # causal (q, k) pairs
-    ops = 6 * 2 * (hd + hd) * pairs * H * B     # x6: 6 passes, QK^T and PV
+    ms = time_ms(rotating(lambda i: ta.tcec_attention(q, k, v, **kw)), reps)
+    # the launch alone, without the entry's policy lookup and checks
+    pol = get_policy(policy)
+    qp, kp = (torch.arange(n, dtype=torch.int32, device=dev) for n in (S, S))
+    kernel_ms = time_ms(rotating(lambda i: ta._launch(
+        q, k, v, qp, kp, pol, True, window, softcap, math.sqrt(hd))), reps)
+    plain_ms = time_ms(rotating(lambda i: ta.tcec_attention_plain(q, k, v,
+                                                                  **kw)), 2)
+    lib_ms = None
+    if not window and not softcap:
+        rep = H // Hkv
+        qs, ks, vs = (q.transpose(1, 2), k.repeat_interleave(rep, 2)
+                      .transpose(1, 2), v.repeat_interleave(rep, 2)
+                      .transpose(1, 2))
+        lib_ms = time_ms(rotating(lambda i: torch.nn.functional
+                                  .scaled_dot_product_attention(
+                                      qs, ks, vs, is_causal=True)), reps)
+    # (q, k) pairs the mask keeps: causal, and within the window if any
+    pos = torch.arange(S, device=dev)
+    d = pos[:, None] - pos[None, :]
+    kept = (d >= 0) & (d < window) if window else d >= 0
+    pairs = int(kept.sum())
+    ops = pol.passes * 2 * (hd + hd) * pairs * H * B   # QK^T and PV products
     nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd) + 8 * S
     b_ms, by = bound(nbytes, ops, H100_BF16_OPS)
     row = {"kernel": "tcec_attention", "shape": name, "B": B, "S": S,
-           "T": S, "H": H, "Hkv": Hkv, "hd": hd, "max_abs_err": err,
+           "T": S, "H": H, "Hkv": Hkv, "hd": hd, "policy": policy,
+           "window": window, "softcap": softcap, "max_abs_err": err,
            "tolerance": "1e-5*max|v|", "tol": tol, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-           "library_ms": lib_ms,
-           "library": "scaled_dot_product_attention f32 causal"}
-    f32_gate(row, attention_direct(q, k, v, torch.float64), out,
-             attention_direct(q, k, v, torch.float32))
+           "kernel_only_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": by, "library_ms": lib_ms,
+           "library": ("scaled_dot_product_attention f32 causal"
+                       if lib_ms is not None else None)}
+    if policy == "tcec_bf16x6" and not window and not softcap:
+        f32_gate(row, attention_direct(q, k, v, torch.float64), out,
+                 attention_direct(q, k, v, torch.float32))
     emit(row)
     RECORD["kernel_checks"].append(row)
     return row
@@ -480,8 +504,14 @@ def main():
     matmul_case("ragged 1000^3", 1000, 1000, 1000, dev, reps=10,
                 plain_reps=5)
     matmul_epilogue_check(dev)
+    # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
+    # and a window (ragged: 150 is a multiple of neither key tile)
     k2 = attention_case("prefill 2x512, 16/8 heads", 2, 512, 16, 8, 128, dev)
     attention_case("prefill 2x208 (ragged)", 2, 208, 16, 8, 128, dev)
+    attention_case("prefill 2x64", 2, 64, 16, 8, 128, dev)
+    attention_case("prefill 2x32", 2, 32, 16, 8, 128, dev)
+    attention_case("x10, softcap 30, window 100, 2x150", 2, 150, 16, 8, 128,
+                   dev, policy="tcec_bf16x10", window=100, softcap=30.0)
     k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
                     40, dev)
     paged_case("ragged, window 100", [0, 1, 17, 300], 16, 8, 128, 16, 40,

@@ -1,70 +1,379 @@
-// TCEC flash attention (prefill): softmax(QK^T / sqrt(hd)) V with both
-// products split into bf16 terms and accumulated per scale group in f32.
+// TCEC flash attention (prefill) for Hopper: softmax(QK^T / sqrt(hd)) V
+// with causal, window and tanh softcap, both products built from bf16 term
+// products and each held in f32 in one accumulator per scale group.
 //
 // Replaces the TPU kernel src/repro/kernels/tcec_attention.py::_attn_kernel
 // (helpers _tcec_product and _pv_parts), launched there by
 // tcec_attention_pallas.
 //
-// What bounds it on the H100: operations.  A policy with P kept products
-// runs P bf16 tensor-core products for QK^T and P for PV, over the causal
-// half of the (S, T) pairs; the f32 Q, K and V are read once per q block.
+// What bounds it on the H100: operations.  A policy with P kept term
+// products runs P bf16 products for QK^T and P for P.V over the causal half
+// of the (S, T) pairs; Q, K, V and the output cross device memory once per
+// block of 64 query rows.  At 2 x 512 tokens, 16/8 heads, head_dim 128 and
+// x6 that is 13 us of tensor-core work against 7.5 us of bytes.
 //
-// What the design does about it: one block per (batch, kv head, block of
-// 64 query rows = rep heads x 64/rep positions), so GQA reads each K/V tile
-// once for all rep query heads of the group.  The block walks the K/V blocks
-// of 32 keys itself (the TPU's sequential grid axis becomes a loop) and
-// skips blocks that the causal mask or the window kills for every (q, k)
-// pair.  Q, K, V and P are split into their bf16 terms as they are staged
-// in shared memory; the (S, T) scores and probabilities never reach device
-// memory.  Every 16x16x16 term product goes into a zeroed wmma fragment and
-// is added in f32 outside the tensor core.  QK^T folds its scale groups at
-// once (head_dim is whole in the block); scale, tanh softcap and the additive
-// -2e38 mask follow, then the online softmax (running max m and sum l in
-// shared memory).  P.V is accumulated per scale group in registers, each
-// group rescaled by exp(m_old - m_new), and folded smallest-first at the
-// end, divided by l.  With a single K/V block the probabilities are
-// normalized before P.V, the exact operation order of the JAX kernel's
-// single-block branch.
+// The design:
+//  * One block per (batch x kv head, 64 query rows = rep heads x 64 / rep
+//    positions), so GQA reads each K/V tile once for all rep query heads.
+//    The operands are in the model's layout, q (B, S, Hkv rep, hd), k and v
+//    (B, T, Hkv, hd[v]), out (B, S, Hkv rep, hdv), so nothing is transposed
+//    around the kernel: a block reads its rows with the head stride.
+//    The q-block index is the slow grid axis and runs backwards: the
+//    heaviest causal blocks (the last positions, which visit the most key
+//    tiles) launch first and the light ones fill the tail of the last wave.
+//  * Warp-specialized, 384 threads: a producer warpgroup (setmaxnreg 40)
+//    and two consumer warpgroups (setmaxnreg 232), handing over each tile's
+//    K terms and V terms through named barriers (in / read).
+//  * The producer walks the live K/V tiles (a tile that the causal mask or
+//    the window kills for every (q, k) pair is skipped: exact, it adds no
+//    mass), copies each f32 tile in halves with cp.async into two staging
+//    buffers, one half ahead of the split, and splits each half into its
+//    bf16 terms in shared memory once per block.  The terms never reach
+//    device memory.  K and V terms are both stored with the keys as rows:
+//    K-major for QK^T, MN-major (the transpose bit) for P.V.
+//  * Consumer warpgroup w computes the scores of keys w BKV / 2.. of the
+//    tile for all 64 rows (m64n32k16; m64n16k16 at x10) and owns output
+//    columns 64 w.. of P.V (m64n64k16).  Every wgmma is one k16 step of one
+//    term product, issued with scale-d = 0, and its fragment is added with
+//    round-to-nearest f32 adds into the accumulator of its scale group (the
+//    paper's rule: no tensor-core chain runs across k16 steps or term
+//    products).  Two fragments alternate, so that one wgmma runs while the
+//    other is added.  The scores fold their scale groups smallest-first
+//    (s = part_g + s 2^-s), one group partial live at a time.
+//  * The online softmax runs in registers, in wgmma's accumulator layout,
+//    with quad shuffles along each row; the two key halves' row maxima meet
+//    in shared memory under a named barrier, and each warpgroup keeps its
+//    share of the row sum until the end.  The P.V accumulators (one per
+//    scale group) are rescaled in registers.
+//  * P.V takes A = the P terms: the warpgroup's own key half straight from
+//    registers (the scores' accumulator layout is the register A-fragment
+//    layout, two f32 to one bf16x2), the other half from shared memory,
+//    where the other warpgroup wrote the same words.  Splitting the scores
+//    by key half instead of computing all of them in both warpgroups saves
+//    a third of the tensor-core work.
+//  * With a single K/V tile the probabilities are normalized before P.V,
+//    the JAX kernel's single-block order of operations.
 //
-// Simple first: wmma with synchronous staging; wgmma, TMA and cp.async
-// double buffering are later work.
+// The budget (H100: 227 KB of shared memory a block, 64K registers an SM),
+// 64 query rows, head dims padded to 128; one block per SM:
+//   shared memory  Q, K, V and P terms, two f32 half tiles, small state
+//     x3  (2 terms, 64 keys):  32 + 32 + 32 + 16 + 33 + 2 KB = 147 KB
+//     x6  (3 terms, 64 keys):  48 + 48 + 48 + 24 + 33 + 2 KB = 203 KB
+//     x10 (4 terms, 32 keys):  64 + 32 + 32 + 16 + 17 + 1 KB = 162 KB
+//     (64 keys at x10 would need 259 KB).
+//   registers  consumers 232 a thread: the P.V accumulators, 32 per scale
+//     group (96 at x6, 128 at x10), two 32-register wgmma fragments, and
+//     during QK^T the folded scores and one group partial, BKV / 4 each;
+//     the producer 40: one item (8 values and their terms) at a time.
+//     (40 x 128 + 232 x 256 is the block's 168 a thread at launch.)
 #include <climits>
-#include <mma.h>
+#include <cstdint>
 
 #include "tcec_common.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int ROWS = 64;      // query rows per block (rep * positions)
-constexpr int BKV = 32;       // keys per K/V block (one per lane in softmax)
-constexpr int HDMAX = 128;    // largest head_dim taken
-constexpr int THREADS = 256;  // 8 warps
-constexpr int LDQ = HDMAX + 8;
-constexpr int LDP = BKV + 8;
-constexpr int LDS = BKV + 4;
-constexpr int LDT = HDMAX + 4;
-constexpr int ACC = ROWS * HDMAX / THREADS;   // output elements per thread
+constexpr int ROWS = 64;               // query rows per block (rep * positions)
+constexpr int HDMAX = 128;             // head dims are padded to this
+constexpr int PRODUCER = 128;          // threads of the producer warpgroup
+constexpr int CONSUMERS = 256;         // threads of the two consumer warpgroups
+constexpr int THREADS = PRODUCER + CONSUMERS;
+// named barriers: the tile's K terms are in / read, its V terms are in /
+// read, the consumers among themselves, the producers among themselves
+enum : int { B_KFULL = 1, B_KEMPTY, B_VFULL, B_VEMPTY, B_CONS, B_PROD };
+// Registers a thread after the rebalancing.  setmaxnreg moves registers
+// within what the block was launched with, 168 a thread (65,536 / 384,
+// rounded down to a multiple of 8): asking for more hangs the consumers.
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+static_assert(PRODUCER * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
+                  THREADS * (65536 / THREADS / 8 * 8),
+              "the registers the block is launched with");
+constexpr int LDF = HDMAX + 4;         // f32 staging row (conflict-free reads)
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int NS>
-struct Layout {
+struct Tile {
+  static constexpr int BKV = NS == 4 ? 32 : 64;    // keys per K/V tile
+  static constexpr int HALF = BKV / 2;             // keys of one warpgroup's scores
+  static constexpr int Q_TERM = ROWS * HDMAX * 2;  // bytes of one bf16 term
+  static constexpr int K_TERM = BKV * HDMAX * 2;
+  static constexpr int V_TERM = HDMAX * BKV * 2;
+  static constexpr int P_TERM = ROWS * BKV * 2;
+  static constexpr int Q_SBO = HDMAX / 8 * 128;    // 8-row group strides
+  static constexpr int K_SBO = HDMAX / 8 * 128;
+  // V is MN-major (keys as rows, like K): 8-column groups 128 bytes apart,
+  // 8-key groups HDMAX / 8 core matrices apart
+  static constexpr int V_SBO = 128, V_LBO = HDMAX / 8 * 128;
+  static constexpr int P_SBO = BKV / 8 * 128;
   static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(__nv_bfloat16) * NS * ROWS * LDQ;
-  static constexpr size_t v = k + sizeof(__nv_bfloat16) * NS * BKV * LDQ;
-  static constexpr size_t p = v + sizeof(__nv_bfloat16) * NS * BKV * LDQ;
-  static constexpr size_t s = p + sizeof(__nv_bfloat16) * NS * ROWS * LDP;
-  static constexpr size_t t = s + sizeof(float) * ROWS * LDS;
-  static constexpr size_t stats = t + sizeof(float) * ROWS * LDT;
-  static constexpr size_t pos = stats + sizeof(float) * 3 * ROWS;
-  static constexpr size_t bytes = pos + sizeof(int) * (ROWS + BKV + 4);
+  static constexpr size_t k = q + NS * Q_TERM;
+  static constexpr size_t v = k + NS * K_TERM;
+  static constexpr size_t p = v + NS * V_TERM;
+  static constexpr size_t stage = p + NS * P_TERM;     // two f32 half tiles
+  static constexpr size_t kpos = stage + 4 * BKV * LDF;  // two tiles' k_pos
+  static constexpr size_t info = kpos + 4 * 2 * BKV;   // two tiles' index, keys, full
+  static constexpr size_t red = info + 4 * 2 * 4;      // row max, row sum, per wg
+  static constexpr size_t walk = red + 4 * 4 * ROWS;   // the producer's next tile
+  static constexpr size_t bytes = walk + 16;
 };
 
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+// ------------------------------------------------------------- wgmma
 
-__device__ __forceinline__ void add_to(Acc& dst, const Acc& src) {
+// Byte offset of the 16-byte row segment (row r, columns 8 c8 .. 8 c8 + 7)
+// of a bf16 operand tile of kd8 x 8 columns, stored without swizzle as 8 x 8
+// core matrices of 128 contiguous bytes: along a row at 128 bytes, 8-row
+// groups at kd8 x 128 bytes.
+__device__ __forceinline__ int core_offset(int r, int c8, int kd8) {
+  return ((r >> 3) * kd8 + c8) * 128 + (r & 7) * 16;
+}
+
+// wgmma shared-memory matrix descriptor, no swizzle, in two words: the low
+// word holds the start address (bits 0-13, in 16-byte units) and the
+// leading byte offset (K-major: the next core matrix along K, 128 here;
+// MN-major: the next 8 rows along K); the high word the stride byte offset
+// (the next 8 rows along M or N; MN-major: the next 8 columns).
+__device__ __forceinline__ uint32_t desc_lo(uint32_t saddr, uint32_t lbo = 128) {
+  return ((saddr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16);
+}
+
+__device__ __forceinline__ uint64_t desc(uint32_t lo, uint32_t sbo) {
+  return (uint64_t(sbo >> 4) << 32) | lo;
+}
+
+// x, opaque to the compiler: the descriptors formed from it in the tile loop
+// are not loop invariants, so they are formed where each wgmma needs them
+// instead of being hoisted out of the loop, a register pair each.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads of a fragment above the wait that
+// completes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int e = 0; e < dst.num_elements; ++e) dst.x[e] += src.x[e];
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The wgmma forms, each D = A B with scale-d = 0 (D's earlier content is
+// not read) into the first N / 2 elements of d: A (64 x 16) and B (16 x N)
+// from shared memory, or A from registers in wgmma's A-fragment layout.
+// A is K-major.  B is K-major for the n32 and n16 forms (QK^T: K terms)
+// and MN-major, the transpose bit set, for the n64 forms (P.V: V terms).
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(0)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss32(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(0)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0)
+      : "memory");
+}
+
+
+__device__ __forceinline__ void wgmma_ss16(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(0)
+      : "memory");
+}
+
+// D = A B from shared memory into the first NR of d: m64n(2 NR)k16.
+template <int NR>
+__device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+  if constexpr (NR == 16)
+    wgmma_ss32(d, da, db);
+  else
+    wgmma_ss16(d, da, db);
+}
+
+// dst += one term product over K k16 steps (K even): each step is a
+// scale-d = 0 wgmma, issue(f, kk), into fragment f0 or f1, added in f32
+// (the first NR elements) once it lands.  The two fragments alternate, so
+// that the next step's wgmma runs while one is added; they persist across
+// calls, so that ptxas keeps them in fixed registers.  No branch may
+// enclose a wgmma here: ptxas would serialize the pipeline.
+template <int K, int NR, class Issue>
+__device__ __forceinline__ void add_term_product(float (&dst)[NR],
+                                                 float (&f0)[32],
+                                                 float (&f1)[32],
+                                                 Issue issue) {
+  wgmma_fence();
+  issue(f0, 0);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < K; kk += 2) {
+    wgmma_fence();
+    issue(f1, kk + 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(f0);
+#pragma unroll
+    for (int e = 0; e < NR; ++e) dst[e] += f0[e];
+    if (kk + 2 < K) {
+      wgmma_fence();
+      issue(f0, kk + 2);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(f1);
+#pragma unroll
+    for (int e = 0; e < NR; ++e) dst[e] += f1[e];
+  }
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ------------------------------------------------------------- staging
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Split (a, b) into NS bf16x2 words of terms, a in the low half: the
+// paper's split (tcec::split_bf16), two values per conversion.
+template <int NS>
+__device__ __forceinline__ void split2(float a, float b, float scale,
+                                       uint32_t (&w)[NS]) {
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(w[i]) : "f"(b), "f"(a));
+    if (i + 1 < NS) {
+      a = __fmul_rn(__fsub_rn(a, __uint_as_float(w[i] << 16)), scale);
+      b = __fmul_rn(__fsub_rn(b, __uint_as_float(w[i] & 0xffff0000u)), scale);
+    }
+  }
+}
+
+// Split 8 f32 values into NS 16-byte rows of bf16 terms.
+template <int NS>
+__device__ __forceinline__ void split8(const float (&x)[8], float scale,
+                                       uint4 (&out)[NS]) {
+  uint32_t w[4][NS];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split2<NS>(x[2 * e], x[2 * e + 1], scale, w[e]);
+#pragma unroll
+  for (int i = 0; i < NS; ++i) out[i] = make_uint4(w[0][i], w[1][i], w[2][i], w[3][i]);
+}
+
+// Issue the cp.async copies of nk f32 rows of the given width, ld floats
+// apart in device memory, into a staging tile (rows past the end are not
+// copied; the split reads zeros for them).  Thread t of N copies 16-byte
+// chunk t % 32 of rows t / 32 + N / 32 i.
+template <int N>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int row0, int nk, int width,
+                                          long long ld, int tid) {
+  const int ch = tid & 31;
+  if (4 * ch < width)
+    for (int r = tid >> 5; r < nk; r += N / 32)
+      cp_async16(dst + r * LDF + 4 * ch, src + (row0 + r) * ld + 4 * ch);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ int warp_min_int(int v) {
@@ -79,224 +388,567 @@ __device__ __forceinline__ int warp_max_int(int v) {
   return v;
 }
 
+// The causal / window test of one K/V tile against the block's queries
+// (positions qmin .. qmax): live if some (q, k) pair is kept, full if every
+// pair is (then the tile needs no mask).
+struct Span {
+  int qmin, qmax, causal, window;
+  __device__ bool live(int kmin, int kmax) const {
+    return (!causal || qmax >= kmin) && (window <= 0 || qmin - kmax < window);
+  }
+  __device__ bool full(int kmin, int kmax) const {
+    return (!causal || qmin >= kmax) && (window <= 0 || qmax - kmin < window);
+  }
+};
+
+// This lane's share of the min and max key position of tile kb.
+template <int BKV>
+__device__ __forceinline__ void tile_keys(int kb, int nkb, int T,
+                                          const int* __restrict__ k_pos,
+                                          int lane, int& lo, int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  if (kb >= nkb) return;
+  const int col0 = kb * BKV, nk = min(BKV, T - col0);
+#pragma unroll
+  for (int c = lane; c < BKV; c += 32) {
+    if (c < nk) {
+      const int p = k_pos[col0 + c];
+      lo = min(lo, p);
+      hi = max(hi, p);
+    }
+  }
+}
+
+// The first live tile at or after kb, whose lanes' key bounds (lo, hi) are
+// already loaded, and whether it is full; one warp, nkb if none.
+template <int BKV>
+__device__ __forceinline__ int next_live(int kb, int lo, int hi, int nkb, int T,
+                         const int* __restrict__ k_pos, const Span& span,
+                         int lane, bool& full) {
+  for (; kb < nkb; ++kb) {
+    lo = warp_min_int(lo);
+    hi = warp_max_int(hi);
+    if (span.live(lo, hi)) {
+      full = T - kb * BKV >= BKV && span.full(lo, hi);
+      return kb;
+    }
+    tile_keys<BKV>(kb + 1, nkb, T, k_pos, lane, lo, hi);
+  }
+  full = false;
+  return nkb;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ------------------------------------------------------------- the kernel
+
+// The producer warpgroup: walks the live K/V tiles and stages each in
+// halves of BKV / 2 rows (K first, then V) through two f32 buffers, with
+// cp.async one half ahead of the split; splits each half into its bf16
+// terms once the consumers are done with the previous tile's terms.
 template <int NS>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void produce(unsigned char* smem, const float* k,
+                                        const float* v, const int* q_pos,
+                                        const int* k_pos, int Hkv, int rep,
+                                        int S, int T, int hd, int hdv,
+                                        int causal, int window, float scale) {
+  using L = Tile<NS>;
+  const int tid = threadIdx.x;
+  const int bq = ROWS / rep;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;   // as the consumers
+  // this block's kv head in k (B, T, Hkv, hd) and v (B, T, Hkv, hdv)
+  const long long kv0 = (blockIdx.x / Hkv * (long long)T * Hkv + blockIdx.x % Hkv);
+  k += kv0 * hd;
+  v += kv0 * hdv;
+  const int nq = min(bq, S - q0);
+  constexpr int BKV = L::BKV, HB = BKV / 2;
+  constexpr int ITEMS = HB * HDMAX / 8 / PRODUCER;   // per thread and half
+  static_assert(ITEMS >= 1, "every producer thread has an item");
+  float* stage = reinterpret_cast<float*>(smem + L::stage);
+  int* kpos_s = reinterpret_cast<int*>(smem + L::kpos);
+  int* info = reinterpret_cast<int*>(smem + L::info);
+  int* walk = reinterpret_cast<int*>(smem + L::walk);
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nkb = (T + BKV - 1) / BKV;
+  Span span{0, 0, causal, window};
+  // one cp.async group: half h of tile t of K (with the keys' positions,
+  // for the n-th tile) or of V, into staging buffer h
+  auto copy_half = [&](const float* src, int width, int t, int h, int n) {
+    if (t < nkb) {
+      const int col0 = t * BKV, nk = min(BKV, T - col0);
+      copy_rows<PRODUCER>(stage + h * HB * LDF, src, col0 + h * HB,
+                          min(HB, nk - h * HB), width,
+                          (long long)Hkv * width, tid);
+      if (n >= 0 && tid < nk)
+        cp_async4(kpos_s + (n & 1) * BKV + tid, k_pos + col0 + tid);
+    }
+    cp_async_commit();
+  };
+  // K or V terms of half h (rows = keys, K-major for K, MN-major for V):
+  // item (key c, 8 columns c8), c % 8 fastest, so each 8 threads store one
+  // 128-byte core matrix
+  auto split_rows = [&](size_t region, int term_bytes, int h, int nk, int width) {
+    const float* sb = stage + h * HB * LDF;
+#pragma unroll 1
+    for (int it = 0; it < ITEMS; ++it) {
+      const int idx = tid + PRODUCER * it;
+      const int cl = ((idx >> 7) << 3) | (idx & 7), c8 = (idx >> 3) & 15;
+      const int c = h * HB + cl;
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = c < nk && 8 * c8 + 4 * e < width;
+        const float4 t = in ? *reinterpret_cast<const float4*>(sb + cl * LDF + 8 * c8 + 4 * e)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        x[4 * e] = t.x; x[4 * e + 1] = t.y; x[4 * e + 2] = t.z; x[4 * e + 3] = t.w;
+      }
+      uint4 t[NS];
+      split8<NS>(x, scale, t);
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+        *reinterpret_cast<uint4*>(smem + region + i * term_bytes +
+                                  core_offset(c, c8, HDMAX / 8)) = t[i];
+    }
+  };
+  auto split_k = [&](int h, int nk) { split_rows(L::k, L::K_TERM, h, nk, hd); };
+  auto split_v = [&](int h, int nk) { split_rows(L::v, L::V_TERM, h, nk, hdv); };
+
+  // Each step below waits for the half copied during the step before,
+  // lets the copy of the next half go into the other buffer (free once
+  // every producer thread passed the barrier), and splits.
+  //
+  // The first K tile goes in flight at once, before the walk: tile 0, the
+  // first live tile of every causal prefill block.  Warp 0's loads for the
+  // walk (the block's query positions, its first two live tiles) are
+  // issued first and resolved after the first half is split.
+  int lo = INT_MAX, hi = INT_MIN, lo0, hi0, lo1, hi1;
+  if (warp == 0) {
+    for (int i = lane; i < nq; i += 32) {
+      lo = min(lo, q_pos[q0 + i]);
+      hi = max(hi, q_pos[q0 + i]);
+    }
+    tile_keys<BKV>(0, nkb, T, k_pos, lane, lo0, hi0);
+    tile_keys<BKV>(1, nkb, T, k_pos, lane, lo1, hi1);
+  }
+  copy_half(k, hd, 0, 0, 0);
+  copy_half(k, hd, 0, 1, -1);
+  cp_async_wait<1>();
+  bar_sync(B_PROD, PRODUCER);
+  split_k(0, min(BKV, T));
+  if (warp == 0) {
+    span.qmin = warp_min_int(lo);
+    span.qmax = warp_max_int(hi);
+    bool f0, f1;
+    const int t0 = next_live<BKV>(0, lo0, hi0, nkb, T, k_pos, span, lane, f0);
+    if (t0 != 0) tile_keys<BKV>(t0 + 1, nkb, T, k_pos, lane, lo1, hi1);
+    const int t1 = next_live<BKV>(t0 + 1, lo1, hi1, nkb, T, k_pos, span, lane, f1);
+    if (lane == 0) {
+      walk[0] = t0;
+      walk[1] = f0;
+      walk[2] = t1;
+      walk[3] = f1;
+    }
+  }
+  cp_async_wait<0>();
+  bar_sync(B_PROD, PRODUCER);   // K, second half; the walk
+  int cur = walk[0], nxt = walk[2];
+  const bool full = walk[1];
+  bool nfull = walk[3];
+  if (cur >= nkb) {   // no live tile: tell the consumers
+    if (tid == 0) info[0] = -1;
+    bar_arrive(B_KFULL, THREADS);
+    return;
+  }
+  if (cur != 0) {   // the guess was wrong: split the right tile
+    copy_half(k, hd, cur, 0, 0);
+    copy_half(k, hd, cur, 1, -1);
+    cp_async_wait<1>();
+    bar_sync(B_PROD, PRODUCER);
+    split_k(0, min(BKV, T - cur * BKV));
+    cp_async_wait<0>();
+    bar_sync(B_PROD, PRODUCER);
+  }
+  int nk = min(BKV, T - cur * BKV);
+  copy_half(v, hdv, cur, 0, -1);
+  split_k(1, nk);
+  if (tid == 0) {
+    info[0] = cur;
+    info[1] = nk;
+    info[2] = full;
+  }
+  fence_async_smem();
+  bar_arrive(B_KFULL, THREADS);
+
+  for (int n = 0;; ++n) {
+    // V of tile n (cur); warp 0 loads the keys of the tile after the next
+    if (warp == 0) tile_keys<BKV>(nxt + 1, nkb, T, k_pos, lane, lo, hi);
+    cp_async_wait<0>();
+    bar_sync(B_PROD, PRODUCER);   // V, first half
+    copy_half(v, hdv, cur, 1, -1);
+    if (n > 0) bar_sync(B_VEMPTY, THREADS);   // the consumers' P.V is done
+    split_v(0, nk);
+    if (warp == 0) {
+      bool f;
+      const int nn = next_live<BKV>(nxt + 1, lo, hi, nkb, T, k_pos, span, lane, f);
+      if (lane == 0) {
+        walk[0] = nn;
+        walk[1] = f;
+      }
+    }
+    cp_async_wait<0>();
+    bar_sync(B_PROD, PRODUCER);   // V, second half; the walk
+    copy_half(k, hd, nxt, 0, n + 1);
+    const int nn = walk[0];
+    const bool nnf = walk[1];
+    split_v(1, nk);
+    fence_async_smem();
+    bar_arrive(B_VFULL, THREADS);
+    int* inf = info + 4 * ((n + 1) & 1);
+    if (nxt >= nkb) {   // no more tiles: tell the consumers
+      cp_async_wait<0>();
+      bar_sync(B_KEMPTY, THREADS);
+      if (tid == 0) inf[0] = -1;
+      bar_arrive(B_KFULL, THREADS);
+      bar_sync(B_VEMPTY, THREADS);
+      return;
+    }
+    // K of tile n + 1 (nxt)
+    nk = min(BKV, T - nxt * BKV);
+    cp_async_wait<0>();
+    bar_sync(B_PROD, PRODUCER);   // K, first half, and the positions
+    copy_half(k, hd, nxt, 1, -1);
+    bar_sync(B_KEMPTY, THREADS);   // the consumers' scores of tile n are done
+    split_k(0, nk);
+    cp_async_wait<0>();
+    bar_sync(B_PROD, PRODUCER);   // K, second half
+    copy_half(v, hdv, nxt, 0, -1);
+    split_k(1, nk);
+    if (tid == 0) {
+      inf[0] = nxt;
+      inf[1] = nk;
+      inf[2] = nfull;
+    }
+    fence_async_smem();
+    bar_arrive(B_KFULL, THREADS);
+    cur = nxt;
+    nxt = nn;
+    nfull = nnf;
+  }
+}
+
+// Register layout of an m64nN accumulator in warpgroup thread t (warp
+// w = t / 32 % 4, lane l): element 4 i + 2 h + c sits at row 16 w + l / 4
+// + 8 h, column 8 i + 2 (l % 4) + c.
+template <int NS>
+__global__ void __launch_bounds__(THREADS, 1)
 tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int* __restrict__ q_pos,
                       const int* __restrict__ k_pos, float* __restrict__ out,
                       int Hkv, int rep, int S, int T, int hd, int hdv,
                       int causal, int window, float softcap, float sm_denom,
                       float scale, float inv) {
+  using L = Tile<NS>;
+  constexpr int BKV = L::BKV, HALF = L::HALF;
+  constexpr int NH = HALF / 2;      // score registers per thread
+  constexpr int KQ = HDMAX / 16;    // k16 steps of QK^T
+  constexpr int KV = BKV / 16;      // k16 steps of P.V
+  constexpr int KH = KV / 2;        // ... of which from this warpgroup's P
   extern __shared__ __align__(128) unsigned char smem[];
-  using L = Layout<NS>;
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::p);
-  float* Ss = reinterpret_cast<float*>(smem + L::s);
-  float* St = reinterpret_cast<float*>(smem + L::t);
-  float* m_s = reinterpret_cast<float*>(smem + L::stats);
-  float* l_s = m_s + ROWS;
-  float* a_s = l_s + ROWS;
-  int* qpos_s = reinterpret_cast<int*>(smem + L::pos);
-  int* kpos_s = qpos_s + ROWS;
-  int* misc = kpos_s + BKV;   // qmin, qmax, run
-
+  // Nothing is computed before the roles split: a value live across
+  // setmaxnreg would be spilled.
+  if (threadIdx.x < PRODUCER) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    produce<NS>(smem, k, v, q_pos, k_pos, Hkv, rep, S, T, hd, hdv, causal,
+                window, scale);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int bq = ROWS / rep;
-  const int q0 = blockIdx.x * bq;
-  const long long bh = (long long)blockIdx.z * Hkv + blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int hd16 = (hd + 15) & ~15, hdv16 = (hdv + 15) & ~15;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;   // heaviest first
+  // this block's query rows in q (B, S, H, hd) and out (B, S, H, hdv), H =
+  // Hkv rep: row r is head hkv rep + r / bq at position q0 + r % bq
+  const long long qrow0 =
+      (blockIdx.x / Hkv * (long long)S + q0) * Hkv * rep + blockIdx.x % Hkv * rep;
+  const long long qld = (long long)Hkv * rep;   // rows from one position to the next
   const int nq = min(bq, S - q0);
+  const bool single = T <= BKV;
+  const int tid = threadIdx.x - PRODUCER, warp = tid >> 5, lane = tid & 31;
+  const int wg = tid >> 7;           // keys wg * HALF.. of the scores,
+                                     // output columns 64 wg.. of P.V
+  const int* kpos_s = reinterpret_cast<const int*>(smem + L::kpos);
+  const int* info = reinterpret_cast<const int*>(smem + L::info);
+  float* red = reinterpret_cast<float*>(smem + L::red);
+  const uint32_t sbase = smem_addr(smem);
 
-  // stage Q (row r = head r / bq of the group, position q0 + r % bq)
-  for (int idx = tid; idx < ROWS * hd16; idx += THREADS) {
-    const int r = idx / hd16, d = idx % hd16;
-    const int rr = r / bq, qi = r % bq;
-    float x = 0.0f;
-    if (qi < nq && d < hd) x = q[((bh * rep + rr) * S + q0 + qi) * hd + d];
-    __nv_bfloat16 t[NS];
-    tcec::split_bf16<NS>(x, scale, t);
+  // this thread's two accumulator rows and their query positions
+  const int row0 = (warp & 3) * 16 + (lane >> 2), row1 = row0 + 8;
+  const int qp0 = q_pos[q0 + min(row0 % bq, nq - 1)];
+  const int qp1 = q_pos[q0 + min(row1 % bq, nq - 1)];
+
+  // Q terms: item (row r, 8 columns c8), r % 8 fastest.  Row r is head
+  // r / bq of the group at position q0 + r % bq; rows past the end are
+  // zeros.  Every load is issued before the first split.
+  constexpr int QITEMS = ROWS * HDMAX / 8 / CONSUMERS;
+  float qx[QITEMS][8];
 #pragma unroll
-    for (int i = 0; i < NS; ++i) Qs[(i * ROWS + r) * LDQ + d] = t[i];
-  }
-  if (tid < ROWS) {
-    qpos_s[tid] = q_pos[q0 + min(tid % bq, nq - 1)];
-    m_s[tid] = tcec::NEG_INF;
-    l_s[tid] = 0.0f;
-  }
-  if (warp == 0) {
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int i = lane; i < nq; i += 32) {
-      lo = min(lo, q_pos[q0 + i]);
-      hi = max(hi, q_pos[q0 + i]);
+  for (int it = 0; it < QITEMS; ++it) {
+    const int idx = tid + CONSUMERS * it;
+    const int r = ((idx >> 7) << 3) | (idx & 7), c8 = (idx >> 3) & 15;
+    const int rr = r / bq, qi = r % bq;
+    const float* src = q + (qrow0 + qi * qld + rr) * hd + 8 * c8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (qi < nq && 8 * c8 + 4 * h < hd) t = *reinterpret_cast<const float4*>(src + 4 * h);
+      qx[it][4 * h] = t.x; qx[it][4 * h + 1] = t.y; qx[it][4 * h + 2] = t.z; qx[it][4 * h + 3] = t.w;
     }
-    lo = warp_min_int(lo);
-    hi = warp_max_int(hi);
-    if (lane == 0) { misc[0] = lo; misc[1] = hi; }
   }
+#pragma unroll
+  for (int it = 0; it < QITEMS; ++it) {
+    const int idx = tid + CONSUMERS * it;
+    const int r = ((idx >> 7) << 3) | (idx & 7), c8 = (idx >> 3) & 15;
+    uint4 t[NS];
+    split8<NS>(qx[it], scale, t);
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      *reinterpret_cast<uint4*>(smem + L::q + i * L::Q_TERM +
+                                core_offset(r, c8, HDMAX / 8)) = t[i];
+  }
+  fence_async_smem();
+  bar_sync(B_CONS, CONSUMERS);   // the Q terms
 
-  float acc[NS][ACC];
+  const int t4 = lane & 3;
+  const float rdenom = 1.0f / sm_denom;
+
+  float acc[NS][32];
 #pragma unroll
   for (int g = 0; g < NS; ++g)
 #pragma unroll
-    for (int e = 0; e < ACC; ++e) acc[g][e] = 0.0f;
+    for (int e = 0; e < 32; ++e) acc[g][e] = 0.0f;
+  float f0[32], f1[32];   // wgmma fragments
+#pragma unroll
+  for (int e = 0; e < 32; ++e) f0[e] = f1[e] = 0.0f;
+  // running max (both warpgroups hold the same) and this warpgroup's share
+  // of the running sum, for rows row0 and row1
+  float m0 = tcec::NEG_INF, m1 = tcec::NEG_INF, l0 = 0.0f, l1 = 0.0f;
 
-  const int nkb = (T + BKV - 1) / BKV;
-  const bool single = nkb == 1;
+  for (int n = 0;; ++n) {
+    bar_sync(B_KFULL, THREADS);   // this tile's K terms are in
+    const int* inf = info + 4 * (n & 1);
+    if (inf[0] < 0) break;
+    const int nk = inf[1];
+    const bool full = inf[2];
+    const int* kp_s = kpos_s + (n & 1) * BKV;
 
-  for (int kb = 0; kb < nkb; ++kb) {
-    const int col0 = kb * BKV;
-    const int nk = min(BKV, T - col0);
-    __syncthreads();   // the previous block's readers are done
-    if (warp == 0) {
-      const int kp = lane < nk ? k_pos[col0 + lane] : 0;
-      const int kmin = warp_min_int(lane < nk ? kp : INT_MAX);
-      const int kmax = warp_max_int(lane < nk ? kp : INT_MIN);
-      kpos_s[lane] = kp;
-      if (lane == 0) {
-        // skip a block masked for every (q, k) pair: it adds no mass
-        bool run = !causal || misc[1] >= kmin;
-        run = run && (window <= 0 || misc[0] - kmax < window);
-        misc[2] = run;
+    // scores of this warpgroup's HALF keys, folding the scale groups
+    // smallest-first: s = part_g + s 2^-s
+    const uint32_t qb = opaque(desc_lo(sbase + L::q));
+    const uint32_t kb = opaque(desc_lo(sbase + L::k)) +
+                        ((wg * (HALF / 8) * L::K_SBO) >> 4);
+    float s[NH];
+#pragma unroll
+    for (int g = NS - 1; g >= 0; --g) {
+      float part[NH];
+#pragma unroll
+      for (int e = 0; e < NH; ++e) part[e] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        if (i > g) break;
+        const uint32_t ka = kb + (((g - i) * L::K_TERM) >> 4);
+        add_term_product<KQ>(part, f0, f1, [&](float(&f)[32], int kk) {
+          mma<NH>(f, desc(qb + ((i * L::Q_TERM) >> 4) + kk * 16, L::Q_SBO),
+                  desc(ka + kk * 16, L::K_SBO));
+        });
       }
+#pragma unroll
+      for (int e = 0; e < NH; ++e)
+        s[e] = g == NS - 1 ? part[e] : part[e] + s[e] * inv;
     }
-    __syncthreads();
-    if (!misc[2]) continue;
+    bar_arrive(B_KEMPTY, THREADS);   // the K terms may be overwritten
 
-    for (int idx = tid; idx < BKV * hd16; idx += THREADS) {
-      const int c = idx / hd16, d = idx % hd16;
-      const float x = (c < nk && d < hd) ? k[(bh * T + col0 + c) * hd + d] : 0.0f;
-      __nv_bfloat16 t[NS];
-      tcec::split_bf16<NS>(x, scale, t);
+    // scale, softcap, additive mask (none where every pair is kept)
 #pragma unroll
-      for (int i = 0; i < NS; ++i) Ks[(i * BKV + c) * LDQ + d] = t[i];
+    for (int e = 0; e < NH; ++e) {
+      float x = s[e] * rdenom;
+      if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+      s[e] = x;
     }
-    for (int idx = tid; idx < BKV * hdv16; idx += THREADS) {
-      const int c = idx / hdv16, d = idx % hdv16;
-      const float x = (c < nk && d < hdv) ? v[(bh * T + col0 + c) * hdv + d] : 0.0f;
-      __nv_bfloat16 t[NS];
-      tcec::split_bf16<NS>(x, scale, t);
+    if (!full) {
 #pragma unroll
-      for (int i = 0; i < NS; ++i) Vs[(i * BKV + c) * LDQ + d] = t[i];
-    }
-    __syncthreads();
-
-    // scores: warp w computes the 16x16 tile (w / 2, w % 2) of the 64x32 block
-    {
-      const int fm = warp >> 1, fn = warp & 1;
-      Acc sfr, part, pair, prod;
+      for (int i = 0; i < HALF / 8; ++i) {
 #pragma unroll
-      for (int g = NS - 1; g >= 0; --g) {
-        wmma::fill_fragment(part, 0.0f);
+        for (int c = 0; c < 2; ++c) {
+          const int col = wg * HALF + 8 * i + 2 * t4 + c;
+          const int kp = kp_s[col];
 #pragma unroll
-        for (int i = 0; i <= g; ++i) {
-          const int j = g - i;
-          wmma::fill_fragment(pair, 0.0f);
-          for (int kk = 0; kk < hd16; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
-            wmma::load_matrix_sync(af, Qs + (i * ROWS + fm * 16) * LDQ + kk, LDQ);
-            wmma::load_matrix_sync(bf, Ks + (j * BKV + fn * 16) * LDQ + kk, LDQ);
-            wmma::fill_fragment(prod, 0.0f);
-            wmma::mma_sync(prod, af, bf, prod);
-            add_to(pair, prod);
+          for (int h = 0; h < 2; ++h) {
+            const int d = (h ? qp1 : qp0) - kp;
+            bool ok = col < nk;
+            if (causal) ok = ok && d >= 0;
+            if (window > 0) ok = ok && d < window;
+            s[4 * i + 2 * h + c] += ok ? 0.0f : tcec::NEG_INF;
           }
-          add_to(part, pair);
-        }
-        // fold smallest-first: s = part_g + s * 2^-s
-        if (g == NS - 1) {
-          sfr = part;
-        } else {
-#pragma unroll
-          for (int e = 0; e < sfr.num_elements; ++e) sfr.x[e] = part.x[e] + sfr.x[e] * inv;
         }
       }
-      wmma::store_matrix_sync(Ss + fm * 16 * LDS + fn * 16, sfr, LDS, wmma::mem_row_major);
     }
-    __syncthreads();
 
-    // scale, softcap, mask, online softmax: warp w owns rows 8w..8w+7, lane = key
-    for (int i8 = 0; i8 < ROWS / 8; ++i8) {
-      const int r = warp * (ROWS / 8) + i8;
-      float s = Ss[r * LDS + lane] / sm_denom;
-      if (softcap > 0.0f) s = softcap * tanhf(s / softcap);
-      const int d = qpos_s[r] - kpos_s[lane];
-      bool ok = lane < nk;
-      if (causal) ok = ok && d >= 0;
-      if (window > 0) ok = ok && d < window;
-      s = s + (ok ? 0.0f : tcec::NEG_INF);
-      float p;
-      if (single) {
-        const float m = tcec::warp_max(s);
-        p = expf(s - m);
-        p = p / tcec::warp_sum(p);
-      } else {
-        const float m_prev = m_s[r];
-        const float m_next = fmaxf(m_prev, tcec::warp_max(s));
-        const float alpha = expf(m_prev - m_next);
-        p = expf(s - m_next);
-        const float l = alpha * l_s[r] + tcec::warp_sum(p);
-        __syncwarp();
-        if (lane == 0) { m_s[r] = m_next; l_s[r] = l; a_s[r] = alpha; }
-      }
-      __nv_bfloat16 t[NS];
-      tcec::split_bf16<NS>(p, scale, t);
+    // online softmax along each row: the 4 lanes of a quad hold one row of
+    // this warpgroup's keys; the row max is exchanged with the other
+    float mx0 = tcec::NEG_INF, mx1 = tcec::NEG_INF;
 #pragma unroll
-      for (int i = 0; i < NS; ++i) Ps[(i * ROWS + r) * LDP + lane] = t[i];
+    for (int i = 0; i < HALF / 8; ++i) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
-    __syncthreads();
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    if (t4 == 0) {
+      red[wg * ROWS + row0] = mx0;
+      red[wg * ROWS + row1] = mx1;
+    }
+    bar_sync(B_CONS, CONSUMERS);   // both halves' row max
+    mx0 = fmaxf(red[row0], red[ROWS + row0]);
+    mx1 = fmaxf(red[row1], red[ROWS + row1]);
+    float a0 = 1.0f, a1 = 1.0f;
+    if (!single) {
+      mx0 = fmaxf(m0, mx0);
+      mx1 = fmaxf(m1, mx1);
+      a0 = exp2f((m0 - mx0) * LOG2E);
+      a1 = exp2f((m1 - mx1) * LOG2E);
+      m0 = mx0;
+      m1 = mx1;
+    }
+    float sum0 = 0.0f, sum1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < HALF / 8; ++i) {
+      s[4 * i] = exp2f((s[4 * i] - mx0) * LOG2E);
+      s[4 * i + 1] = exp2f((s[4 * i + 1] - mx0) * LOG2E);
+      s[4 * i + 2] = exp2f((s[4 * i + 2] - mx1) * LOG2E);
+      s[4 * i + 3] = exp2f((s[4 * i + 3] - mx1) * LOG2E);
+      sum0 += s[4 * i] + s[4 * i + 1];
+      sum1 += s[4 * i + 2] + s[4 * i + 3];
+    }
+    sum0 = quad_sum(sum0);
+    sum1 = quad_sum(sum1);
+    if (single) {
+      // the softmax completes here: normalize P before P.V
+      if (t4 == 0) {
+        red[2 * ROWS + wg * ROWS + row0] = sum0;
+        red[2 * ROWS + wg * ROWS + row1] = sum1;
+      }
+      bar_sync(B_CONS, CONSUMERS);
+      sum0 = red[2 * ROWS + row0] + red[3 * ROWS + row0];
+      sum1 = red[2 * ROWS + row1] + red[3 * ROWS + row1];
+#pragma unroll
+      for (int i = 0; i < HALF / 8; ++i) {
+        s[4 * i] /= sum0;
+        s[4 * i + 1] /= sum0;
+        s[4 * i + 2] /= sum1;
+        s[4 * i + 3] /= sum1;
+      }
+    } else {
+      l0 = a0 * l0 + sum0;
+      l1 = a1 * l1 + sum1;
+    }
 
-    // P.V per scale group: tensor-core tiles to St, then the per-row rescale
-    const int nf = 4 * (hdv16 / 16);
+    // P terms: register r of k16 step kk of this warpgroup's keys packs
+    // score elements 8 kk + 2 r and 8 kk + 2 r + 1 (the A-fragment layout);
+    // the same words go to shared memory for the other warpgroup's P.V
+    uint32_t pa[NS][KH][4];
+#pragma unroll
+    for (int kk = 0; kk < KH; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        uint32_t w[NS];
+        split2<NS>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], scale, w);
+        const int row = (r & 1) ? row1 : row0;
+        const int key = wg * HALF + 16 * kk + 8 * (r >> 1) + 2 * t4;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) {
+          pa[i][kk][r] = w[i];
+          *reinterpret_cast<uint32_t*>(smem + L::p + i * L::P_TERM +
+                                       core_offset(row, key >> 3, BKV / 8) +
+                                       2 * (key & 7)) = w[i];
+        }
+      }
+    fence_async_smem();
+    bar_sync(B_CONS, CONSUMERS);   // both halves' P terms
+    bar_sync(B_VFULL, THREADS);    // this tile's V terms are in
+
+    // P.V: rescale each group's accumulator by alpha, add its products,
+    // this warpgroup's k16 steps with A from registers, the other's from
+    // shared memory
+    const uint32_t pb = opaque(desc_lo(sbase + L::p));
+    const uint32_t vb = opaque(desc_lo(sbase + L::v + wg * 8 * 128, L::V_LBO));
+    const int own = wg * KH, oth = (1 - wg) * KH;   // first k16 step of each
 #pragma unroll
     for (int g = 0; g < NS; ++g) {
-      for (int f = warp; f < nf; f += THREADS / 32) {
-        const int fm = f & 3, fn = f >> 2;
-        Acc part, pair, prod;
-        wmma::fill_fragment(part, 0.0f);
+      if (!single) {
 #pragma unroll
-        for (int i = 0; i <= g; ++i) {
-          const int j = g - i;
-          wmma::fill_fragment(pair, 0.0f);
+        for (int e = 0; e < 32; ++e)
+          acc[g][e] = __fmul_rn(acc[g][e], (e & 2) ? a1 : a0);
+      }
 #pragma unroll
-          for (int kk = 0; kk < BKV; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bf;
-            wmma::load_matrix_sync(af, Ps + (i * ROWS + fm * 16) * LDP + kk, LDP);
-            wmma::load_matrix_sync(bf, Vs + (j * BKV + kk) * LDQ + fn * 16, LDQ);
-            wmma::fill_fragment(prod, 0.0f);
-            wmma::mma_sync(prod, af, bf, prod);
-            add_to(pair, prod);
+      for (int i = 0; i < NS; ++i) {
+        if (i > g) break;
+        const uint32_t va = vb + (((g - i) * L::V_TERM) >> 4);
+        add_term_product<KV>(acc[g], f0, f1, [&](float(&f)[32], int kk) {
+          if (kk < KH) {
+            wgmma_rs64(f, pa[i][kk],
+                       desc(va + (((own + kk) * 2 * L::V_LBO) >> 4), L::V_SBO));
+          } else {
+            const int ko = oth + kk - KH;
+            wgmma_ss64(f, desc(pb + ((i * L::P_TERM + ko * 256) >> 4), L::P_SBO),
+                       desc(va + ((ko * 2 * L::V_LBO) >> 4), L::V_SBO));
           }
-          add_to(part, pair);
-        }
-        wmma::store_matrix_sync(St + fm * 16 * LDT + fn * 16, part, LDT, wmma::mem_row_major);
+        });
       }
-      __syncthreads();
-#pragma unroll
-      for (int e = 0; e < ACC; ++e) {
-        const int idx = tid + THREADS * e;
-        const int r = idx / HDMAX, c = idx % HDMAX;
-        const float pv = c < hdv16 ? St[r * LDT + c] : 0.0f;
-        acc[g][e] = single ? acc[g][e] + pv : acc[g][e] * a_s[r] + pv;
-      }
-      __syncthreads();
     }
+    bar_arrive(B_VEMPTY, THREADS);   // the V terms may be overwritten
   }
 
-  // fold the P.V groups smallest-first, divide by l, store valid rows
+  // the row sums of both warpgroups' keys; fold the P.V groups
+  // smallest-first, divide by l, store valid rows
+  if (!single) {
+    if (t4 == 0) {
+      red[2 * ROWS + wg * ROWS + row0] = l0;
+      red[2 * ROWS + wg * ROWS + row1] = l1;
+    }
+    bar_sync(B_CONS, CONSUMERS);
+    l0 = red[2 * ROWS + row0] + red[3 * ROWS + row0];
+    l1 = red[2 * ROWS + row1] + red[3 * ROWS + row1];
+  }
 #pragma unroll
-  for (int e = 0; e < ACC; ++e) {
-    const int idx = tid + THREADS * e;
-    const int r = idx / HDMAX, c = idx % HDMAX;
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? row1 : row0;
     const int rr = r / bq, qi = r % bq;
-    if (qi >= nq || c >= hdv) continue;
-    float o = acc[NS - 1][e];
+    if (qi >= nq) continue;
+    const float l = h ? l1 : l0;
+    float* dst = out + (qrow0 + qi * qld + rr) * hdv;
 #pragma unroll
-    for (int g = NS - 2; g >= 0; --g) o = acc[g][e] + o * inv;
-    if (!single) o = o / fmaxf(l_s[r], 1e-30f);
-    out[((bh * rep + rr) * S + q0 + qi) * hdv + c] = o;
+    for (int i = 0; i < 8; ++i) {
+      const int col = 64 * wg + 8 * i + 2 * t4;
+      if (col >= hdv) continue;
+      float o[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 4 * i + 2 * h + c;
+        o[c] = acc[NS - 1][e];
+#pragma unroll
+        for (int g = NS - 2; g >= 0; --g) o[c] = acc[g][e] + o[c] * inv;
+        if (!single) o[c] = o[c] / fmaxf(l, 1e-30f);
+      }
+      *reinterpret_cast<float2*>(dst + col) = make_float2(o[0], o[1]);
+    }
   }
 }
 
@@ -306,13 +958,13 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                    int Hkv, int rep, int S, int T, int hd, int hdv, int causal,
                    int window, float softcap, float sm_denom, float scale,
                    float inv, cudaStream_t stream) {
-  const size_t bytes = Layout<NS>::bytes;
+  const size_t bytes = Tile<NS>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       tcec_attention_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const int bq = ROWS / rep;
-  dim3 grid((S + bq - 1) / bq, Hkv, B);
+  dim3 grid(B * Hkv, (S + bq - 1) / bq);
   tcec_attention_kernel<NS><<<grid, THREADS, bytes, stream>>>(
       q, k, v, q_pos, k_pos, out, Hkv, rep, S, T, hd, hdv, causal, window,
       softcap, sm_denom, scale, inv);
@@ -329,8 +981,12 @@ extern "C" int tcec_attention_launch(const void* q, const void* k,
                                      float softcap, float sm_denom,
                                      int n_splits, int scale_bits,
                                      void* stream) {
-  if (hd > HDMAX || hdv > HDMAX || rep < 1 || ROWS % rep != 0)
+  if (hd > HDMAX || hdv > HDMAX || hd % 4 || hdv % 4 || rep < 1 ||
+      ROWS % rep != 0)
     return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) & 15)
+    return cudaErrorMisalignedAddress;
   const float scale = ldexpf(1.0f, scale_bits);
   const float inv = ldexpf(1.0f, -scale_bits);
   const float* Q = static_cast<const float*>(q);
@@ -349,6 +1005,17 @@ extern "C" int tcec_attention_launch(const void* q, const void* k,
       return launch<4>(Q, K, V, qp, kp, O, B, Hkv, rep, S, T, hd, hdv, causal, window, softcap, sm_denom, scale, inv, s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// Keys per K/V tile for n_splits terms (0 if not taken): the plain version
+// tiles the keys the same way, and its wrapper checks that the two agree.
+extern "C" int tcec_attention_key_tile(int n_splits) {
+  switch (n_splits) {
+    case 2: return Tile<2>::BKV;
+    case 3: return Tile<3>::BKV;
+    case 4: return Tile<4>::BKV;
+    default: return 0;
   }
 }
 

@@ -1,18 +1,19 @@
 """Kernel 2: TCEC flash attention for prefill.
 
 Counterpart of ``repro/kernels/tcec_attention.py::_attn_kernel``.  The CUDA
-kernel (``csrc/tcec_attention.cu``) runs one block per (batch, kv head,
-64 query rows), walks the K/V blocks of 32 keys itself, and computes QK^T
-and P·V from bf16 term products with per-scale-group f32 accumulators,
-the additive ``NEG_INF`` mask, and the online softmax; the ``(S, T)`` scores
-never reach device memory.
+kernel (``csrc/tcec_attention.cu``) takes the operands in the model's
+layout, runs one block per (batch, kv head, 64 query rows), walks the K/V
+tiles itself (64 keys, 32 at x10), and computes QK^T and P·V with Hopper
+``wgmma`` from bf16 term products with per-scale-group f32 accumulators in
+registers, the additive ``NEG_INF`` mask, and the online softmax; the
+``(S, T)`` scores never reach device memory.
 
-:func:`tcec_attention` is the public entry on model-layout operands: it does
-the layout transposes and the GQA grouping, then launches the kernel on a
-CUDA tensor or runs the plain version on a CPU tensor.
-:func:`tcec_attention_plain` is the same function in plain PyTorch, block
-for block: the same 32-key blocks, the same online softmax and the same
-normalize-first branch when there is a single K/V block.
+:func:`tcec_attention` is the public entry on model-layout operands: it
+launches the kernel on a CUDA tensor or runs the plain version on a CPU
+tensor.  :func:`tcec_attention_plain` is the same function in plain
+PyTorch, tile for tile: the same key tiles (``BKV``, which the wrapper
+checks against the kernel's), the same online softmax and the same
+normalize-first branch when there is a single K/V tile.
 
 ``launches`` counts kernel launches.
 """
@@ -31,10 +32,11 @@ from .tcec_matmul import check_policy, fold, split_tile
 # garbage instead of NaN, like the composition path).
 NEG_INF = -2.0e38
 ROWS = 64        # query rows per CUDA block (rep * positions)
-BKV = 32         # keys per K/V block
+BKV = {2: 64, 3: 64, 4: 32}   # keys per K/V tile, by number of terms
 HDMAX = 128      # largest head_dim the CUDA kernel takes
 
 launches = 0
+_fn = None       # the C entry point, once its key tiles are checked
 # q, k, v, q_pos, k_pos, out; B, Hkv, rep, S, T, hd, hdv, causal, window;
 # softcap, sm_denom; n_splits, scale_bits; stream
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
@@ -51,22 +53,24 @@ def _positions(p, n: int, device) -> torch.Tensor:
     return p.to(torch.int32).contiguous()
 
 
-def _to_kernel_layout(q, k, v, q_pos, k_pos):
+def _check_shapes(q, k, v):
     B, S, H, hd = q.shape
-    T, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
+    Hkv = k.shape[2]
     if (k.shape[0] != B or v.shape[:3] != k.shape[:3] or k.shape[3] != hd
             or Hkv == 0 or H % Hkv):
         raise ValueError(f"bad attention shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    rep = H // Hkv
-    qt = q.float().reshape(B, S, Hkv, rep, hd).permute(0, 2, 3, 1, 4)
-    kt = k.float().permute(0, 2, 1, 3)
-    vt = v.float().permute(0, 2, 1, 3)
-    return (qt.contiguous(), kt.contiguous(), vt.contiguous(),
-            _positions(q_pos, S, q.device), _positions(k_pos, T, q.device))
 
 
-def _to_model_layout(out):
+def _group_heads(q, k, v):
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qt = q.float().reshape(B, S, Hkv, H // Hkv, hd).permute(0, 2, 3, 1, 4)
+    return (qt.contiguous(), k.float().permute(0, 2, 1, 3).contiguous(),
+            v.float().permute(0, 2, 1, 3).contiguous())
+
+
+def _ungroup_heads(out):
     B, Hkv, rep, S, hdv = out.shape
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hkv * rep, hdv)
 
@@ -86,19 +90,20 @@ def _product(a_terms, b_terms, pol):
 
 
 def _plain_core(qt, kt, vt, qp, kp, pol, causal, window, softcap, sm_denom):
-    """The kernel's arithmetic on kernel-layout operands:
+    """The kernel's arithmetic, with the kv heads as a batch axis:
     q (B, Hkv, rep, S, hd), k (B, Hkv, T, hd), v (B, Hkv, T, hdv)."""
     B, Hkv, rep, S, hd = qt.shape
     T, hdv = kt.shape[2], vt.shape[3]
     sq = _terms(qt, pol)
-    nkb = -(-T // BKV)
+    bkv = BKV[pol.n_splits]
+    nkb = -(-T // bkv)
     single = nkb == 1
     m = torch.full((B, Hkv, rep, S, 1), NEG_INF, device=qt.device)
     l = torch.zeros((B, Hkv, rep, S, 1), device=qt.device)
     accs = [torch.zeros((B, Hkv, rep, S, hdv), device=qt.device)
             for _ in pol.groups]
     for kb in range(nkb):
-        sl = slice(kb * BKV, min(T, (kb + 1) * BKV))
+        sl = slice(kb * bkv, min(T, (kb + 1) * bkv))
         sk = _terms(kt[:, :, None, sl].transpose(-1, -2), pol)
         s = fold(_product(sq, sk, pol), pol.scale_bits) / sm_denom
         if softcap:
@@ -129,40 +134,62 @@ def _plain_core(qt, kt, vt, qp, kp, pol, causal, window, softcap, sm_denom):
     return out
 
 
-def _launch(qt, kt, vt, qp, kp, pol, causal, window, softcap, sm_denom):
+def _entry():
+    global _fn
+    if _fn is None:
+        tile = _build.library("tcec_attention").tcec_attention_key_tile
+        tile.argtypes, tile.restype = [ctypes.c_int], ctypes.c_int
+        got = {ns: tile(ns) for ns in BKV}
+        if got != BKV:
+            raise RuntimeError(f"the CUDA kernel's key tiles {got} are not "
+                               f"the plain version's {BKV}")
+        _fn = _build.entry("tcec_attention", _ARGTYPES)
+    return _fn
+
+
+def _launch(q, k, v, qp, kp, pol, causal, window, softcap, sm_denom):
+    """The CUDA kernel on contiguous f32 model-layout operands:
+    q (B, S, H, hd), k (B, T, Hkv, hd), v (B, T, Hkv, hdv)."""
     global launches
-    B, Hkv, rep, S, hd = qt.shape
-    T, hdv = kt.shape[2], vt.shape[3]
-    if ROWS % rep or hd > HDMAX or hdv > HDMAX:
+    B, S, H, hd = q.shape
+    T, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
+    rep = H // Hkv
+    if ROWS % rep or hd > HDMAX or hdv > HDMAX or hd % 4 or hdv % 4:
         raise ValueError(f"CUDA attention takes rep dividing {ROWS} and head "
-                         f"dims <= {HDMAX}; got rep={rep}, hd={hd}, hdv={hdv}")
-    for t in (qt, kt, vt, qp, kp):
-        if t.device != qt.device or not t.is_contiguous():
+                         f"dims <= {HDMAX} that are multiples of 4; got "
+                         f"rep={rep}, hd={hd}, hdv={hdv}")
+    for t in (q, k, v, qp, kp):
+        if t.device != q.device or not t.is_contiguous():
             raise ValueError("operands must be contiguous on one CUDA device")
-    out = torch.empty((B, Hkv, rep, S, hdv), dtype=torch.float32,
-                      device=qt.device)
+    if any(t.dtype != torch.float32 or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("CUDA attention needs f32 q, k, v on 16-byte "
+                         "boundaries")
+    out = torch.empty((B, S, H, hdv), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or T == 0:
         return out.zero_()
-    fn = _build.entry("tcec_attention", _ARGTYPES)
-    status = fn(_build.ptr(qt), _build.ptr(kt), _build.ptr(vt),
-                _build.ptr(qp), _build.ptr(kp), _build.ptr(out),
-                B, Hkv, rep, S, T, hd, hdv, int(causal), int(window),
-                float(softcap or 0.0), float(sm_denom), pol.n_splits,
-                pol.scale_bits, _build.stream(qt))
+    status = _entry()(
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(qp),
+        _build.ptr(kp), _build.ptr(out), B, Hkv, rep, S, T, hd, hdv,
+        int(causal), int(window), float(softcap or 0.0), float(sm_denom),
+        pol.n_splits, pol.scale_bits, _build.stream(q))
     _build.check("tcec_attention", status)
     launches += 1
     return out
 
 
-def _run(core, q, k, v, q_pos, k_pos, policy, causal, window, softcap):
+def _run(plain, q, k, v, q_pos, k_pos, policy, causal, window, softcap):
     pol = get_policy(policy)
     check_policy(pol)
-    qt, kt, vt, qp, kp = _to_kernel_layout(q, k, v, q_pos, k_pos)
-    window = int(0 if window is None else window)
-    softcap = float(softcap) if softcap else None
-    out = core(qt, kt, vt, qp, kp, pol, bool(causal), window, softcap,
-               float(math.sqrt(q.shape[-1])))
-    return _to_model_layout(out)
+    _check_shapes(q, k, v)
+    qp = _positions(q_pos, q.shape[1], q.device)
+    kp = _positions(k_pos, k.shape[1], q.device)
+    args = (pol, bool(causal), int(0 if window is None else window),
+            float(softcap) if softcap else None, float(math.sqrt(q.shape[-1])))
+    if plain:
+        return _ungroup_heads(_plain_core(*_group_heads(q, k, v), qp, kp,
+                                          *args))
+    return _launch(q.float().contiguous(), k.float().contiguous(),
+                   v.float().contiguous(), qp, kp, *args)
 
 
 def tcec_attention(q, k, v, q_pos=None, k_pos=None, *,
@@ -176,18 +203,14 @@ def tcec_attention(q, k, v, q_pos=None, k_pos=None, *,
     unlimited.  Returns (B, S, H, hdv) f32.  A CUDA tensor launches the
     kernel; a CPU tensor runs :func:`tcec_attention_plain`'s arithmetic.
     """
-    if q.is_cuda:
-        core = _launch
-    elif q.device.type == "cpu":
-        core = _plain_core
-    else:
+    if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no TCEC attention for device {q.device}")
-    return _run(core, q, k, v, q_pos, k_pos, policy, causal, window, softcap)
+    return _run(not q.is_cuda, q, k, v, q_pos, k_pos, policy, causal, window,
+                softcap)
 
 
 def tcec_attention_plain(q, k, v, q_pos=None, k_pos=None, *,
                          policy: str = "tcec_bf16x6", causal: bool = True,
                          window=0, softcap: float | None = None):
     """Kernel 2's function in plain PyTorch, on any device."""
-    return _run(_plain_core, q, k, v, q_pos, k_pos, policy, causal, window,
-                softcap)
+    return _run(True, q, k, v, q_pos, k_pos, policy, causal, window, softcap)

@@ -57,15 +57,59 @@ def test_matmul_wrapper_raises_instead_of_falling_back(dev):
         ops.tcec_matmul(a.T.contiguous().T, a.T)     # a not contiguous
 
 
-@pytest.mark.parametrize("S,window", [(150, 0), (20, 0), (200, 64)])
-def test_attention_matches_plain(dev, S, window):
+# S = 150 and 100 are multiples of neither key tile (64 keys, 32 at x10);
+# S = 20 and 64 are one tile (the normalize-first branch); the non-causal
+# case has its queries at the tail of a longer key sequence.  Heads are
+# (H, Hkv, head_dim): 16/4 heads give 16 positions a block, one kv head a
+# block gives 64, and head dims below 128 are zero-padded in the kernel
+# (at 64 the second warpgroup's output columns are all padding).
+@pytest.mark.parametrize("policy,S,T,causal,window,softcap,heads", [
+    ("tcec_bf16x3", 150, 150, True, 0, None, (16, 8, 128)),
+    ("tcec_bf16x6", 150, 150, True, 0, None, (16, 8, 128)),
+    ("tcec_bf16x10", 150, 150, True, 0, None, (16, 8, 128)),
+    ("tcec_bf16x6", 20, 20, True, 0, None, (16, 8, 128)),
+    ("tcec_bf16x6", 64, 64, True, 0, None, (16, 8, 128)),
+    ("tcec_bf16x6", 200, 200, True, 64, None, (16, 8, 128)),
+    ("tcec_bf16x6", 100, 100, True, 0, 30.0, (16, 8, 128)),
+    ("tcec_bf16x10", 100, 100, True, 40, 30.0, (16, 8, 128)),
+    ("tcec_bf16x6", 70, 150, False, 0, None, (16, 8, 128)),
+    ("tcec_bf16x6", 150, 150, True, 0, None, (16, 4, 64)),
+    ("tcec_bf16x10", 100, 100, True, 0, None, (16, 4, 64)),
+    ("tcec_bf16x6", 150, 150, True, 0, None, (4, 4, 96)),
+    ("tcec_bf16x3", 70, 150, False, 0, None, (4, 4, 96))])
+def test_attention_matches_plain(dev, policy, S, T, causal, window, softcap,
+                                 heads):
+    H, Hkv, hd = heads
     g = torch.Generator(device=dev).manual_seed(S)
-    q = torch.randn(2, S, 16, 128, generator=g, device=dev)
-    k = torch.randn(2, S, 8, 128, generator=g, device=dev)
-    v = torch.randn(2, S, 8, 128, generator=g, device=dev)
-    out = tcec_attention.tcec_attention(q, k, v, window=window)
-    ref = tcec_attention.tcec_attention_plain(q, k, v, window=window)
+    q = torch.randn(2, S, H, hd, generator=g, device=dev)
+    k = torch.randn(2, T, Hkv, hd, generator=g, device=dev)
+    v = torch.randn(2, T, Hkv, hd, generator=g, device=dev)
+    q_pos = torch.arange(T - S, T, device=dev)
+    kw = dict(policy=policy, causal=causal, window=window, softcap=softcap)
+    before = tcec_attention.launches
+    out = tcec_attention.tcec_attention(q, k, v, q_pos, **kw)
+    assert tcec_attention.launches == before + 1
+    ref = tcec_attention.tcec_attention_plain(q, k, v, q_pos, **kw)
     assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max())
+
+
+def test_attention_takes_strided_views(dev):
+    # the kernel reads the model layout; the entry copies only what is not
+    # contiguous f32 in that layout
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(2, 16, 90, 128, generator=g, device=dev).transpose(1, 2)
+    kv = torch.randn(2, 90, 2, 8, 128, generator=g, device=dev)
+    k, v = kv[:, :, 0], kv[:, :, 1].bfloat16()
+    out = tcec_attention.tcec_attention(q, k, v)
+    ref = tcec_attention.tcec_attention_plain(q, k, v)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max())
+
+
+def test_attention_wrapper_raises_instead_of_falling_back(dev):
+    q = torch.randn(1, 8, 2, 18, device=dev)     # head_dim not a multiple of 4
+    k = torch.randn(1, 8, 1, 18, device=dev)
+    with pytest.raises(ValueError):
+        tcec_attention.tcec_attention(q, k, k)
 
 
 @pytest.mark.parametrize("window", [0, 20])

@@ -140,6 +140,12 @@ ATTN_CASES = {
     "window": dict(S=150, T=150, causal=True, window=40, softcap=None),
     "softcap": dict(S=100, T=100, causal=True, window=0, softcap=30.0),
     "single-block": dict(S=20, T=20, causal=True, window=0, softcap=None),
+    # exactly one key tile of the x6 kernel (64 keys): its normalize-first
+    # branch against the JAX kernel's single-block one
+    "one-tile": dict(S=64, T=64, causal=True, window=0, softcap=None),
+    # x10 runs tiles of 32 keys: three, the last ragged
+    "x10-tiles": dict(S=70, T=70, causal=True, window=40, softcap=20.0,
+                      policy="tcec_bf16x10"),
 }
 
 
@@ -153,28 +159,30 @@ def test_attention_plain_matches_jax_kernel(case):
     v = _normal((B, T, Hkv, hd), 12)
     q_pos = np.arange(T - S, T, dtype=np.int32)       # the query tail
     k_pos = np.arange(T, dtype=np.int32)
+    policy = c.get("policy", "tcec_bf16x6")
     ref = np.asarray(jax_tcec_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(q_pos),
-        jnp.asarray(k_pos), policy="tcec_bf16x6", causal=c["causal"],
+        jnp.asarray(k_pos), policy=policy, causal=c["causal"],
         window=c["window"], softcap=c["softcap"], block=(128, 128),
         interpret=True))
     out = tcec_attention.tcec_attention(
-        _t(q), _t(k), _t(v), _t(q_pos), _t(k_pos), policy="tcec_bf16x6",
+        _t(q), _t(k), _t(v), _t(q_pos), _t(k_pos), policy=policy,
         causal=c["causal"], window=c["window"], softcap=c["softcap"]).numpy()
     assert out.shape == ref.shape == (B, S, H, hd)
     assert np.max(np.abs(out - ref)) <= 1e-5 * np.max(np.abs(v))
 
 
 def test_attention_skipped_blocks_match_visited_blocks():
-    """Skipping a K/V block that is masked for every (q, k) pair is exact:
-    the plain version visits every block, and a causal row whose first
-    block is wholly masked is wiped by alpha = 0 at its first live block."""
-    B, S, H, Hkv, hd = 1, 96, 2, 1, 16
+    """Skipping a K/V tile that is masked for every (q, k) pair is exact:
+    the plain version visits every tile, and a causal row whose first tile
+    is wholly masked is wiped by alpha = 0 at its first live tile.  Rows at
+    the edges of the 32-row query blocks and of the 64-key tiles."""
+    B, S, H, Hkv, hd = 1, 160, 2, 1, 16
     q, k, v = (_normal((B, S, H, hd), 20), _normal((B, S, Hkv, hd), 21),
                _normal((B, S, Hkv, hd), 22))
     out = tcec_attention.tcec_attention(_t(q), _t(k), _t(v))
     # the same rows computed with the keys after each query cut away
-    for row in (0, 31, 32, 95):
+    for row in (0, 31, 32, 63, 64, 95, 127, 128, 159):
         part = tcec_attention.tcec_attention(
             _t(q[:, row:row + 1]), _t(k[:, :row + 1]), _t(v[:, :row + 1]),
             q_pos=torch.tensor([row]))
