@@ -13,10 +13,15 @@ Phases, each of which raises on a failed check (nothing is caught):
      held against its plain PyTorch version on the card, with its time,
      the plain version's time, the least time the card could take
      (``bound_ms``) and, where one PyTorch call computes the same function,
-     that call's time (``library_ms``, timed only); kernels 2 and 3 are
-     also held to f32 accuracy at their main-path shapes: their residual
-     against an f64 reference is at most twice that of the same function
-     computed in plain f32.  Kernel 2 runs at all four of the engine's
+     that call's time (``library_ms``, timed only); every kernel is also
+     held to f32 accuracy at its main-path x6 shapes: its residual against
+     an f64 reference is at most twice that of the same function computed
+     in plain f32.  Kernel 1's rows name the path the product took
+     (``wgmma`` or ``skinny``), the grid's waves over the SMs, and the
+     kernel's and ``torch.matmul``'s times with the host taken out
+     (``device_only_ms``: launches queued behind a sleeping kernel); the
+     MLP gate also runs at the largest M of the decode path and the
+     smallest of the wgmma path.  Kernel 2 runs at all four of the engine's
      prefill shapes and once at x10 with a softcap and a window; its
      ``ms`` is the public entry's, ``kernel_only_ms`` the kernel's launch
      alone on operands already contiguous f32;
@@ -82,6 +87,22 @@ def time_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
+def device_only_ms(fn, reps):
+    """fn(i) for i < reps on the device alone: the launches are queued
+    behind a sleeping kernel, so host time does not count."""
+    fn(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for i in range(reps):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def rotating(fn_of_i):
     """fn(i) for timed runs, fn(0) for warm-up."""
     return lambda i=0: fn_of_i(i)
@@ -119,15 +140,30 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
         a, bs[i % copies], policy)), plain_reps)
     lib_ms = time_ms(rotating(lambda i: torch.matmul(a, bs[i % copies])),
                      reps)
+    # the same launches with host time taken out (decode rows are host
+    # bound through the entry, as torch.matmul is)
+    dev_ms = device_only_ms(lambda i: ops.tcec_matmul(a, bs[i % copies],
+                                                      policy), reps)
+    lib_dev_ms = device_only_ms(lambda i: torch.matmul(a, bs[i % copies]),
+                                reps)
     passes = get_policy(policy).passes
     b_ms, by = bound(4 * (M * K + K * N + M * N), passes * 2 * M * N * K,
                      H100_BF16_OPS)
+    blocks, per_sm = tm.grid(M, N, 1, trans_b, policy)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     row = {"kernel": "tcec_matmul", "shape": name, "M": M, "N": N, "K": K,
+           "trans_b": trans_b, "policy": policy, "path": tm.path(M),
+           "blocks": blocks, "blocks_per_sm": per_sm,
+           "waves": blocks / (per_sm * sms),
            "max_abs_err": float(err.max()),
            "tolerance": "8*K*2^-24*(|A|@|B|) elementwise",
            "max_err_over_tol": float((err / tol).max()),
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-           "library_ms": lib_ms, "library": "torch.matmul f32, TF32 off"}
+           "ms": ms, "device_only_ms": dev_ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+           "library_device_only_ms": lib_dev_ms,
+           "library": "torch.matmul f32, TF32 off"}
+    if policy == "tcec_bf16x6":
+        f32_gate(row, a.double() @ bs[0].double(), out, a @ bs[0])
     emit(row)
     RECORD["kernel_checks"].append(row)
     del ws, bs, out, ref, tol, err
@@ -478,7 +514,7 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (sets TF32 off)
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, tcec_matmul as tm
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -499,8 +535,17 @@ def main():
     # phase 2: every kernel at its main-path shapes, plus a ragged one
     k1 = matmul_case("unembed at prefill (B*P=2*512)", 1024, 151936, 1024,
                      dev, trans_b=True, reps=3)
+    matmul_case("mlp gate at prefill (B*P=2*512)", 1024, 3072, 1024, dev,
+                reps=20, plain_reps=5)
     matmul_case("mlp gate at decode (4 slots)", 4, 3072, 1024, dev,
                 copies=8, reps=40, plain_reps=10)
+    # the same product on each side of the path threshold
+    last_s = tm.skinny_max()
+    for m in (last_s, last_s + 1):
+        matmul_case(f"mlp gate at M {m} (path threshold {last_s})", m, 3072,
+                    1024, dev, copies=8, reps=40, plain_reps=10)
+    matmul_case("unembed at decode (4 slots)", 4, 151936, 1024, dev,
+                trans_b=True, reps=20, plain_reps=3)
     matmul_case("ragged 1000^3", 1000, 1000, 1000, dev, reps=10,
                 plain_reps=5)
     matmul_epilogue_check(dev)

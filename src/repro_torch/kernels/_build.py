@@ -123,6 +123,9 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream(t) -> ctypes.c_void_p:
+def stream(t) -> int:
+    """The current CUDA stream of ``t``'s device, as an integer handle
+    (PyTorch's raw-stream query: a fraction of the cost of building a
+    ``torch.cuda.Stream`` object)."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -16,6 +16,8 @@ def tcec_matmul(a, b, policy: str = "tcec_bf16x6", bias=None,
                 activation: str | None = None, out_scale: float = 1.0):
     """FP32-accurate GEMM from bf16 tensor-core products, with the fused
     epilogue ``act(out * out_scale + bias)`` (``bias`` shaped ``(N,)``)."""
+    if a.is_cuda:     # the wrapper checks shapes and devices itself
+        return _tm.launch(a, b, policy, bias, activation, out_scale)
     if a.ndim not in (2, 3) or b.ndim != a.ndim:
         raise ValueError(f"expected 2-D or batched 3-D operands, got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
@@ -24,8 +26,6 @@ def tcec_matmul(a, b, policy: str = "tcec_bf16x6", bias=None,
                          f"{tuple(b.shape)}")
     if a.device != b.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
-    if a.is_cuda:
-        return _tm.launch(a, b, policy, bias, activation, out_scale)
     if a.device.type == "cpu":
         return _tm.tcec_matmul_plain(a, b, policy, bias, activation,
                                      out_scale)

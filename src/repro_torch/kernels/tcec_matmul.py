@@ -1,11 +1,14 @@
 """Kernel 1: the TCEC GEMM — an f32-accurate product from bf16 tensor cores.
 
 Counterpart of ``repro/kernels/tcec_matmul.py::_kernel``.  The CUDA kernel
-(``csrc/tcec_matmul.cu``) splits the f32 A and B tiles into bf16 terms as it
-stages them in shared memory, runs every kept term product on the tensor
-cores into a zeroed fragment, adds it in f32 into the accumulator of its
-scale group, folds the groups smallest-first and applies ``out_scale`` ->
-bias -> activation before its one store.
+(``csrc/tcec_matmul.cu``) has two paths under one entry, chosen by M: for
+M above :func:`skinny_max` (prefill) a warp-specialised wgmma kernel, for
+smaller M (decode, M = slots; short prefills) a kernel that streams the
+weight once.  Both split the f32 operands into bf16 terms on chip, run
+every kept term product on the tensor cores into a zeroed fragment, add it
+in f32 into the accumulator of its scale group, fold the groups
+smallest-first and apply ``out_scale`` -> bias -> activation before their
+one store.
 
 :func:`tcec_matmul_plain` is the same function in plain PyTorch: split,
 each kept pass as an f32 ``torch.matmul`` of the upcast terms (exact
@@ -17,6 +20,7 @@ it; on the card ``chip_smoke.py`` holds the kernel against it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +42,11 @@ EPILOGUE_ACTIVATIONS = {
 ACTIVATION_IDS = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 
 launches = 0
+# (n_splits, scale_bits) of each policy name the kernel took
+_SPLITS: dict[str, tuple[int, int]] = {}
 
 
+@functools.lru_cache(maxsize=None)
 def takes_policy(policy: PrecisionPolicy) -> bool:
     """The kernels take bf16 split policies on the triangular schedule with
     2 to 4 terms (x3, x6, x10); dispatch routes exactly these."""
@@ -118,45 +125,82 @@ def launch(a, b, policy="tcec_bf16x6", bias=None, activation=None,
     ``b`` may also be the transpose of a contiguous ``(.., N, K)`` tensor
     (the tied unembedding reads the embedding table in place)."""
     global launches
-    pol = get_policy(policy)
-    check_policy(pol)
+    # this runs ~200 times a decode step: few Python objects on its path
+    splits = _SPLITS.get(policy) if isinstance(policy, str) else None
+    if splits is None:
+        pol = get_policy(policy)
+        check_policy(pol)
+        splits = (pol.n_splits, pol.scale_bits)
+        if isinstance(policy, str):
+            _SPLITS[policy] = splits
     if activation not in ACTIVATION_IDS:
         raise ValueError(f"unsupported epilogue activation {activation!r}")
-    for name, t in (("a", a), ("b", b), ("bias", bias)):
-        if t is None:
-            continue
-        if not t.is_cuda or t.device != a.device:
-            raise ValueError(f"{name} must lie on a's CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if a.ndim not in (2, 3) or b.ndim != a.ndim:
+    f32 = torch.float32
+    if a.dtype is not f32 or b.dtype is not f32 or (
+            bias is not None and bias.dtype is not f32):
+        raise TypeError("a, b and bias must be float32, got "
+                        f"{a.dtype}, {b.dtype}, "
+                        f"{None if bias is None else bias.dtype}")
+    dev = a.get_device()
+    if dev < 0 or b.get_device() != dev or (bias is not None
+                                            and bias.get_device() != dev):
+        raise ValueError("a, b and bias must lie on one CUDA device")
+    ash, bsh = a.shape, b.shape
+    if not 2 <= len(ash) <= 3 or len(bsh) != len(ash):
         raise ValueError(f"expected 2-D or batched 3-D operands, got "
-                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
-    batch = a.shape[0] if a.ndim == 3 else 1
-    M, K = a.shape[-2:]
-    K2, N = b.shape[-2:]
-    if K != K2 or (a.ndim == 3 and b.shape[0] != batch):
-        raise ValueError(f"shape mismatch {tuple(a.shape)} @ {tuple(b.shape)}")
+                         f"{tuple(ash)} @ {tuple(bsh)}")
+    *bdims, M, K = ash
+    *bdims2, K2, N = bsh
+    batch = bdims[0] if bdims else 1
+    if K != K2 or bdims != bdims2:
+        raise ValueError(f"shape mismatch {tuple(ash)} @ {tuple(bsh)}")
     if not a.is_contiguous():
         raise ValueError("a must be contiguous")
     if b.is_contiguous():
         trans_b = 0
-    elif b.transpose(-1, -2).is_contiguous():
+    elif b.stride()[-2:] == (1, K) and (not bdims or b.stride(0) == N * K) \
+            or b.transpose(-1, -2).is_contiguous():
         trans_b = 1
     else:
         raise ValueError("b must be contiguous or the transpose of a "
                          "contiguous tensor")
     if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()):
         raise ValueError(f"bias must be a contiguous ({N},) vector")
-    out = torch.empty(tuple(a.shape[:-1]) + (N,), dtype=torch.float32,
-                      device=a.device)
+    out = a.new_empty((*bdims, M, N))
     if out.numel() == 0:
         return out
     status = _build.entry("tcec_matmul", _ARGTYPES)(
-        _build.ptr(a), _build.ptr(b),
-        None if bias is None else _build.ptr(bias), _build.ptr(out),
-        batch, M, N, K, trans_b, pol.n_splits, pol.scale_bits,
-        float(out_scale), ACTIVATION_IDS[activation], _build.stream(a))
+        a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), batch, M, N, K, trans_b, *splits, out_scale,
+        ACTIVATION_IDS[activation],
+        _build.stream(a))
     _build.check("tcec_matmul", status)
     launches += 1
     return out
+
+
+def skinny_max() -> int:
+    """The largest M that the kernel runs on its decode path (read from the
+    CUDA source, where the threshold lives)."""
+    fn = _build.library("tcec_matmul").tcec_matmul_skinny_max
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def path(M: int) -> str:
+    """Which of the kernel's paths a product with M rows takes."""
+    return "skinny" if M <= skinny_max() else "wgmma"
+
+
+def grid(M: int, N: int, batch: int = 1, trans_b: bool = False,
+         policy="tcec_bf16x6"):
+    """``(blocks, blocks resident per SM)`` of a launch at these shapes."""
+    pol = get_policy(policy)
+    check_policy(pol)
+    fn = _build.library("tcec_matmul").tcec_matmul_grid
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 2)()
+    _build.check("tcec_matmul", fn(M, N, batch, int(trans_b), pol.n_splits,
+                                   out))
+    return out[0], out[1]

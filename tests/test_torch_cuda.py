@@ -28,25 +28,53 @@ def dev():
     return torch.device("cuda")
 
 
+# M up to 64 takes the decode path, a block for each group of 8 slots (M
+# 1, 4 and 8 fill one group, 9, 16, 17 and 64 take two or more); 65 and 130
+# take the wgmma path (one ragged 128-row tile, or two).  test_matmul_paths
+# checks that 64 is the source's threshold.  B's rows start 16 bytes apart,
+# so that both paths copy in masked 16-byte chunks, when its row length is
+# a multiple of 4: for (N, K) = (72, 300) in both layouts (N ragged to 16
+# and 64, K to 64 and 128), for (70, 300) only as B^T; (45, 90) is copied
+# element by element.  No N or K is a multiple of 16, 64 or 128.
 @pytest.mark.parametrize("policy", ["tcec_bf16x3", "tcec_bf16x6",
                                     "tcec_bf16x10"])
-def test_matmul_matches_plain(dev, policy):
-    g = torch.Generator(device=dev).manual_seed(0)
-    a = torch.rand(2, 130, 300, generator=g, device=dev) * 2 - 1
-    b = torch.rand(2, 300, 70, generator=g, device=dev) * 2 - 1
-    bias = torch.rand(70, generator=g, device=dev)
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 17, 64, 65, 130])
+@pytest.mark.parametrize("N,K", [(72, 300), (70, 300), (45, 90)])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("batch", [None, 2])
+def test_matmul_matches_plain(dev, policy, M, N, K, trans_b, batch):
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    bsh = () if batch is None else (batch,)
+    a = torch.rand(*bsh, M, K, generator=g, device=dev) * 2 - 1
+    if trans_b:      # B read in place as the transpose of a (.., N, K)
+        b = (torch.rand(*bsh, N, K, generator=g, device=dev) * 2 - 1)
+        b = b.transpose(-1, -2)
+    else:
+        b = torch.rand(*bsh, K, N, generator=g, device=dev) * 2 - 1
+    bias = torch.rand(N, generator=g, device=dev)
     before = tcec_matmul.launches
     out = ops.tcec_matmul(a, b, policy, bias=bias, activation="silu")
     assert tcec_matmul.launches == before + 1
     ref = tcec_matmul.tcec_matmul_plain(a, b, policy, bias=bias,
                                         activation="silu")
-    tol = 1.2 * 8 * 300 * U24 * (a.abs() @ b.abs()) + 8 * U24 * ref.abs()
+    tol = 1.2 * 8 * K * U24 * (a.abs() @ b.abs()) + 8 * U24 * ref.abs()
     assert bool(((out - ref).abs() <= tol).all())
-    bt = torch.rand(70, 300, generator=g, device=dev)      # transposed B
-    out = ops.tcec_matmul(a[0], bt.T, policy)
-    ref = tcec_matmul.tcec_matmul_plain(a[0], bt.T, policy)
-    assert bool(((out - ref).abs()
-                 <= 8 * 300 * U24 * (a[0].abs() @ bt.T.abs())).all())
+    out = ops.tcec_matmul(a, b, policy)
+    ref = tcec_matmul.tcec_matmul_plain(a, b, policy)
+    assert bool(((out - ref).abs() <= 8 * K * U24 * (a.abs() @ b.abs())).all())
+
+
+def test_matmul_paths(dev):
+    # the threshold is read from the CUDA source; the M of
+    # test_matmul_matches_plain sit on both sides of it
+    m = tcec_matmul.skinny_max()
+    assert m == 64
+    assert tcec_matmul.path(m) == "skinny"
+    assert tcec_matmul.path(m + 1) == "wgmma"
+    blocks, per_sm = tcec_matmul.grid(1024, 1024)
+    assert blocks == 8 * 16 and per_sm >= 1
+    # path S: a block for each 16 weight rows and each group of 8 slots
+    assert tcec_matmul.grid(9, 1000)[0] == 2 * 63
 
 
 def test_matmul_wrapper_raises_instead_of_falling_back(dev):

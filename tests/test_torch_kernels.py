@@ -59,10 +59,11 @@ def _t(x):
 @pytest.mark.parametrize("policy", ["tcec_bf16x3", "tcec_bf16x6",
                                     "tcec_bf16x10"])
 @pytest.mark.parametrize("shape", [(70, 50, 90), (3, 130, 200),
-                                   (2, 40, 30, 60)])
+                                   (2, 40, 30, 60), (4, 70, 200),
+                                   (1, 50, 90)])
 def test_matmul_plain_matches_jax_kernel(policy, shape):
     """2-D and batched, ragged M/N/K (the JAX wrapper pads, the port's
-    kernel masks)."""
+    kernel masks), and decode-sized M (the kernel's skinny path)."""
     *bsh, m, n, k = shape
     a = _urand((*bsh, m, k), seed=m + k)
     b = _urand((*bsh, k, n), seed=n + k + 1)
