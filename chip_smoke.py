@@ -24,7 +24,12 @@ Phases, each of which raises on a failed check (nothing is caught):
      smallest of the wgmma path.  Kernel 2 runs at all four of the engine's
      prefill shapes and once at x10 with a softcap and a window; its
      ``ms`` is the public entry's, ``kernel_only_ms`` the kernel's launch
-     alone on operands already contiguous f32;
+     alone on operands already contiguous f32.  Kernel 3 runs at the
+     engine's decode shape, a ragged one with a window, and 32 slots of
+     1024 tokens (bound by bytes); copies of its page pools are rotated so
+     that each timed call reads K/V cold, and each row names the chunk size
+     ``chunk_pages``, the blocks and live blocks of the first pass and the
+     share of the bound reached on the device (``bound_share``);
   3. the paper's check: at 2048^3, kernel 1's x6 residual against an f64
      product is at most twice that of an f32 ``torch.matmul``;
   4. the main path: the serving engine at the full width of qwen3-0.6b with
@@ -40,7 +45,8 @@ Phases, each of which raises on a failed check (nothing is caught):
      and 64 tokens) times decode steps with the profiler off, then profiles
      as many steps and one 2 x 512 prefill under ``torch.profiler``: each
      window's wall time, the device time of its kernels, the device's idle
-     share and its largest kernels.
+     share, each port kernel's device time and launches, and the largest
+     kernels.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -299,39 +305,58 @@ def paged_direct(q, kp, vp, bt, ln, dtype):
     return torch.stack(outs)
 
 
-def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20):
+def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
+               copies=16, plain_reps=2):
+    """Kernel 3 at one decode step: against its plain version at the same
+    chunk size C (1e-5 max|v|) and, without a window, against f64 (the f32
+    gate).  ``copies`` copies of the pools are rotated so that a timed call
+    reads its K/V cold, as the engine finds them after a layer's weights."""
     from repro_torch.kernels import tcec_paged_attention as tp
     B = len(lengths)
     NP = 1 + B * maxp
     g = torch.Generator(device=dev).manual_seed(sum(lengths) + maxp)
-    kp = torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16()
-    vp = torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16()
+    pools = [(torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16(),
+              torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16())
+             for _ in range(copies)]
+    kp, vp = pools[0]
     q = torch.randn(B, H, hd, generator=g, device=dev)
     perm = torch.randperm(NP - 1, generator=g, device=dev) + 1
     bt = perm.reshape(B, maxp).to(torch.int32).contiguous()
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    C = tp.chunk_pages(B, Hkv, maxp, ps, hd, hd)
     out = tp.tcec_paged_attention(q, kp, vp, bt, ln, window=window)
-    ref = tp.tcec_paged_attention_plain(q, kp, vp, bt, ln, window=window)
+    ref = tp.tcec_paged_attention_plain(q, kp, vp, bt, ln, window=window,
+                                        pages_per_chunk=C)
     err = float((out - ref).abs().max())
     tol = 1e-5 * float(vp.float().abs().max())
     check(err <= tol, f"{name}: kernel 3 vs plain beyond 1e-5 max|v|")
     check(bool((out[ln <= 0] == 0).all()),
           f"{name}: empty slots must return zeros")
-    ms = time_ms(rotating(lambda i: tp.tcec_paged_attention(
-        q, kp, vp, bt, ln, window=window)), reps)
+
+    def call(i):
+        k, v = pools[i % copies]
+        return tp.tcec_paged_attention(q, k, v, bt, ln, window=window)
+
+    ms = time_ms(rotating(call), reps)
+    dev_ms = device_only_ms(call, reps)
     plain_ms = time_ms(rotating(lambda i: tp.tcec_paged_attention_plain(
-        q, kp, vp, bt, ln, window=window)), 2)
+        q, kp, vp, bt, ln, window=window)), plain_reps)
     valid = sum(min(n, window) if window else max(n, 0) for n in lengths)
-    nbytes = (4 * B * H * hd * 2 + 2 * valid * Hkv * 2 * hd
-              + 4 * B * (maxp + 1))
+    kv_bytes = 2 * valid * Hkv * 2 * hd
+    nbytes = 4 * B * H * hd * 2 + kv_bytes + 4 * B * (maxp + 1)
     ops = 3 * 2 * 2 * hd * valid * H            # 3 (i, 0) passes, QK and PV
     b_ms, by = bound(nbytes, ops, H100_F32_OPS)
+    live = tp.live_chunks(ln.cpu(), maxp, ps, C, window)
     row = {"kernel": "tcec_paged_attention", "shape": name,
-           "lengths": lengths, "window": window, "H": H, "Hkv": Hkv,
-           "hd": hd, "page_size": ps, "maxp": maxp, "max_abs_err": err,
+           "lengths": lengths if B <= 8 else f"{B} x {lengths[0]}",
+           "window": window, "H": H, "Hkv": Hkv, "hd": hd, "page_size": ps,
+           "maxp": maxp, "chunk_pages": C, "blocks": live.numel() * Hkv,
+           "live_blocks": int(live.sum()) * Hkv,
+           "second_pass": live.shape[1] > 1, "copies": copies,
+           "rotated_kv_mb": copies * kv_bytes / 1e6, "max_abs_err": err,
            "tolerance": "1e-5*max|v|", "tol": tol, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-           "library_ms": None}
+           "device_only_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": by, "bound_share": b_ms / dev_ms, "library_ms": None}
     if not window:
         f32_gate(row, paged_direct(q, kp, vp, bt, ln, torch.float64), out,
                  paged_direct(q, kp, vp, bt, ln, torch.float32))
@@ -447,10 +472,19 @@ def device_us(event):
     return event.self_cuda_time_total
 
 
+# the port's kernels by the names of their CUDA kernels
+PORT_KERNELS = {"tcec_matmul": ("skinny_kernel", "wide_kernel"),
+                "tcec_attention": ("tcec_attention_kernel",),
+                "tcec_paged_attention": ("paged_chunk_kernel",
+                                         "paged_combine_kernel")}
+
+
 def profile_window(name, fn, top=8):
     """Run ``fn`` under ``torch.profiler``; where its time went on the card:
     wall time (host clock around work that ends in a synchronize), the
-    summed device time of its kernels, the idle share, the largest kernels."""
+    summed device time of its kernels, the idle share, each port kernel's
+    device time and launches (kernel 3's two passes together), the largest
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -464,8 +498,12 @@ def profile_window(name, fn, top=8):
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      reverse=True)
     busy = sum(k[0] for k in kernels) if kernels else None
+    port = {name: [sum(k[i] for k in kernels if any(p in k[2] for p in pats))
+                   for i in (0, 1)] for name, pats in PORT_KERNELS.items()}
     row = {"window": name, "wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall_ms if kernels else None,
+           "port_kernels": {k: {"ms": ms, "count": n}
+                            for k, (ms, n) in port.items()},
            "kernels": [{"ms": ms, "count": n, "name": key[:90]}
                        for ms, n, key in kernels[:top]]}
     emit(row)
@@ -561,6 +599,9 @@ def main():
                     40, dev)
     paged_case("ragged, window 100", [0, 1, 17, 300], 16, 8, 128, 16, 40,
                dev, window=100)
+    # bound by bytes: 134 MB of K/V, more than the L2 in one call
+    paged_case("decode 32 slots x 1024", [1024] * 32, 16, 8, 128, 16, 64,
+               dev, copies=3, plain_reps=1)
 
     paper_check(dev)                               # phase 3
     launches, model = main_path(dev)               # phases 4 and 5

@@ -417,16 +417,6 @@ static_assert(min_blocks(1) * (smem_bytes(1, SLOTS) + 1024) <= 228 * 1024 &&
                   min_blocks(0) * (smem_bytes(0, SLOTS) + 1024) <= 228 * 1024,
               "the blocks an SM fit its shared memory");
 
-// D = A B with C = 0: one m16n8k16 bf16 product.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.0f));
-}
-
 // A block: weight rows n0.. (output columns) over all of K, for slots m0..
 // m0 + 7.  mma fragments, lane l (g = l / 4, t = l % 4): the weight A
 // operand holds rows g and g + 8 at positions 2t, 2t+1 (a0, a1) and 2t+8,

@@ -6,201 +6,517 @@
 // by tcec_paged_attention_pallas.
 //
 // What bounds it on the H100: bytes.  Each slot reads its valid K and V
-// tokens once (bf16), and does a few multiply-adds per byte read.
+// tokens once (bf16): per token and kv head 2 (hd + hdv) bytes against
+// rep x NS (hd + hdv) multiply-adds of the kept (i, 0) products, 3 a byte at
+// rep 2 and x6, below the card's f32 ridge of about 10.
 //
-// What the design does about it: one block per (slot, kv head).  The block
-// reads its own row of the block table and gathers the pages by index, so no
-// gathered copy of the cache is ever written; every K and V element is read
-// once, by neighbouring threads on neighbouring addresses.  rep (query heads
-// per kv head, 2 for qwen3) is far below a tensor-core tile, so the products
-// run on the CUDA cores.  The f32 query and the f32 probabilities are split
-// into bf16 terms (their products with the bf16 cache are exact in f32); the
-// cache is bf16-valued, so its own residual terms are exactly zero and only
-// the products (i, 0) of each scale group i are formed.  Per-group sums are
-// folded smallest-first, as in kernel 2, and the online softmax walks the
-// pages in order.  Pages past the length or outside the window are skipped;
-// inside a page, masking is a select (stale, possibly non-finite data in a
-// recycled page is never read into a sum).  Rows with length <= 0 return 0.
+// Design: split-KV ("flash decoding").  The wrapper's rule
+// (kernels/tcec_paged_attention.py::chunk_pages) cuts each slot's block
+// table into chunks of C pages, as many as fit 32 KB of K and V (C 4 at
+// pages of 16 and hd 128); the grid is (chunks, kv heads, slots).  A block
+// whose chunk holds no valid token (past the length, or wholly outside the
+// window) writes an empty partial and returns.  A live block reads its C
+// table entries once (together with the length and the query), turns them
+// into one pool row a token, then issues every K and V row of the chunk at
+// once as 16-byte cp.async copies (neighbouring threads on neighbouring
+// addresses) in two commit groups, K first, and splits the query while
+// they land; it computes the scores as soon as K is in, while V is still
+// landing.  Rows past the current token or outside the window are
+// zero-filled by the copy's source size (their page numbers are never
+// used) and their scores selected to NEG_INF, so stale, possibly
+// non-finite data in a recycled page never enters a product.
 //
-// Simple first: one page per step and no cp.async; splitting a slot's pages
-// across blocks needs a second reduction pass and is later work.
-#include "tcec_common.cuh"
+// Products on the tensor cores, with mma.sync (m16n8k16, bf16): the f32
+// query and probabilities are split into bf16 terms (exact products with
+// the bf16 cache, whose own residual terms are zero, so only the (i, 0)
+// products of each scale group i are formed).  Scores: a warp takes 16
+// tokens of K (ldmatrix from rows padded by 16 bytes, conflict-free)
+// against the rep x NS query-term columns; P.V: a warp takes 16 output
+// columns of V (ldmatrix .trans) against the rep x NS probability-term rows.
+// Every k16 step of every product goes into a zeroed fragment and is added
+// in f32 into its scale group (the paper's rule, as in kernels 1 and 2).
+// Each live block writes its partial (row max m, sum l and one f32
+// accumulator per scale group) to a workspace; a second kernel, one block
+// per (kv head, slot), combines the live chunks in chunk order without
+// atomics (M = max m_j, w_j = exp(m_j - M), acc_g = sum w_j acc_g,j,
+// l = sum w_j l_j), folds the groups smallest-first, divides by
+// max(l, 1e-30) and writes the output.  With a single chunk the first
+// kernel writes the output itself.  At maxp == 1 the probabilities are
+// normalised before P.V (the JAX kernel's one-step branch).  Rows with
+// length <= 0 return 0.
+//
+// Budget at qwen3-0.6b's decode (C 4, pages of 16, rep 2, hd 128, x6):
+// 41.1 KB of shared memory a block (K 17 KB, whose space then holds P.V's
+// sums, V 17 KB, query and probability terms, scores), 128 threads,
+// registers capped at 96 by the launch bounds: 5 blocks an SM, 160 KB of
+// K and V in flight an SM.
+#include <cstdint>
+
+#include "tcec_sm90.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;  // 4 warps; thread d owns output column d
+constexpr int THREADS = 128;  // 4 warps
+constexpr int WARPS = THREADS / 32;
 constexpr int MAX_REP = 8;
 constexpr int MAX_PS = 64;
 constexpr int HDMAX = 128;
+constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use
+constexpr int QREG = MAX_REP * HDMAX / THREADS;  // query values a thread loads
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// One block's dynamic shared memory: tiles of TP = C ps tokens rounded up
+// to 16, head dims rounded up to 16; K, V and the bf16 term rows are padded
+// by 16 bytes, so that the 8 rows an ldmatrix reads hit distinct banks.
+struct Layout {
+  int TP, hd16, hdv16, NQ, MP;    // tokens, head dims, score / P.V rows
+  int kstride, vstride, pstride;  // bytes of a K (or q term) row, V row, p row
+  int ks, red, vs, qb, sg, ss, pa, rows, total;
+  __host__ __device__ Layout(int C, int ps, int rep, int hd, int hdv, int ns) {
+    TP = round_up(C * ps, 16);
+    hd16 = round_up(hd, 16);
+    hdv16 = round_up(hdv, 16);
+    NQ = round_up(rep * ns, 8);   // score columns (term i of row r: i rep + r)
+    MP = round_up(rep * ns, 16);  // P.V rows, ordered as the score columns
+    kstride = hd16 * 2 + 16;
+    vstride = hdv16 * 2 + 16;
+    pstride = TP * 2 + 16;
+    ks = 0;                       // K: TP x kstride
+    red = 0;                      // P.V's f32 sums, once K is read: MP x hdv16
+    const int kbytes = TP * kstride, rbytes = MP * hdv16 * 4;
+    vs = kbytes > rbytes ? kbytes : rbytes;  // V: TP x vstride
+    qb = vs + TP * vstride;       // bf16 query terms: NQ x kstride
+    sg = qb + NQ * kstride;       // f32 scores by group: TP x NQ
+    ss = sg + TP * NQ * 4;        // f32 scores, then probabilities: rep x TP
+    pa = ss + rep * TP * 4;       // bf16 probability terms: MP x pstride
+    rows = pa + MP * pstride;     // each token's row in the pool: TP ints
+    total = rows + TP * 4;
+  }
+};
+
+// Floats of one chunk's partial: m and l (rep each), then ns x rep x hdv.
+__host__ __device__ inline long long partial_floats(int rep, int hdv,
+                                                    int ns) {
+  return (long long)rep * (2 + ns * hdv);
+}
+
+// Whether chunk c of a slot holds a valid token: one at or before the
+// current one (cur = length - 1) and, with a window, newer than the window.
+__device__ inline bool chunk_live(int c, int C, int ps, int maxp, int length,
+                                  int window) {
+  const int col0 = c * C * ps;
+  const int last = min((c + 1) * C, maxp) * ps - 1;
+  return last >= col0 && col0 < length &&
+         (window <= 0 || (length - 1) - last < window);
+}
 
 template <int NS>
-__global__ void __launch_bounds__(THREADS)
-tcec_paged_attention_kernel(const float* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k_pages,
-                            const __nv_bfloat16* __restrict__ v_pages,
-                            const int* __restrict__ block_tables,
-                            const int* __restrict__ lengths,
-                            float* __restrict__ out, int Hkv, int rep, int hd,
-                            int hdv, int ps, int maxp, int window,
-                            float softcap, float sm_denom, float scale,
-                            float inv) {
-  __shared__ float qs[NS][MAX_REP][HDMAX];   // split query terms
-  __shared__ float ss[MAX_REP][MAX_PS];      // scores of one page
-  __shared__ float pst[NS][MAX_REP][MAX_PS]; // split probabilities
-  __shared__ float m_s[MAX_REP], l_s[MAX_REP], a_s[MAX_REP];
+__device__ inline float fold(const float (&acc)[NS], float inv) {
+  float o = acc[NS - 1];
+#pragma unroll
+  for (int g = NS - 2; g >= 0; --g) o = acc[g] + o * inv;
+  return o;
+}
 
-  const int h = blockIdx.x, b = blockIdx.y;
+// Row (lane % 8 + 8 (lane / 8 % 2)) and column (8 (lane / 16)) of the
+// 16 x 16 tile whose address lane gives to ldmatrix_x4: the order of an
+// mma A fragment, and with .trans of two n8 B fragments side by side.
+__device__ inline int ld_row(int lane) { return (lane & 7) + ((lane >> 3) & 1) * 8; }
+__device__ inline int ld_col(int lane) { return (lane >> 4) * 8; }
+
+// 16-byte copies of TP rows of `segs` 16-byte pieces (the first `valid` of
+// them from the pool, the rest zero) into rows of `stride` bytes; a row
+// < 0 is zero-filled.  Thread tid takes pieces tid, tid + THREADS, ...,
+// stepping (row, piece) without a division.
+__device__ inline void gather(unsigned char* dst, int stride,
+                              const __nv_bfloat16* src, long long rowlen,
+                              int valid, int segs, const int* rows, int TP,
+                              int tid) {
+  int t = tid / segs, s = tid - t * segs;
+  const int dt = THREADS / segs, ds = THREADS - dt * segs;
+  while (t < TP) {
+    const int row = rows[t];
+    const bool ok = row >= 0 && s < valid;
+    sm90::cp_async16_zfill(dst + t * stride + s * 16,
+                           ok ? src + row * rowlen + s * 8 : src, ok ? 16 : 0);
+    t += dt;
+    s += ds;
+    if (s >= segs) { s -= segs; ++t; }
+  }
+}
+
+template <int NS>
+__global__ void __launch_bounds__(THREADS, 5)
+paged_chunk_kernel(const float* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k_pages,
+                   const __nv_bfloat16* __restrict__ v_pages,
+                   const int* __restrict__ block_tables,
+                   const int* __restrict__ lengths, float* __restrict__ out,
+                   float* __restrict__ part, int Hkv, int rep, int hd,
+                   int hdv, int ps, int maxp, int C, int window,
+                   float softcap, float sm_denom, float scale, float inv,
+                   bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float m_s[MAX_REP], l_s[MAX_REP];
+  const Layout L(C, ps, rep, hd, hdv, NS);
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nch = gridDim.x;
   const long long bh = (long long)b * Hkv + h;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t4 = lane & 3;           // mma fragment coordinates
+  const int pg0 = c * C, npg = min(C, maxp - pg0);
+  const int col0 = pg0 * ps, T = npg * ps;
+  const int RN = rep * NS;                           // score columns in use
+  float* partial = part + (bh * nch + c) * partial_floats(rep, hdv, NS);
+
+  // in flight together: the length, this thread's token's page number and
+  // its query values
   const int length = lengths[b];
-  const int cur = length - 1;            // position of the current token
-  const int* table = block_tables + (long long)b * maxp;
-
-  for (int idx = tid; idx < rep * HDMAX; idx += THREADS) {
-    const int r = idx / HDMAX, d = idx % HDMAX;
-    float t[NS];
-    tcec::split_f32<NS>(d < hd ? q[(bh * rep + r) * hd + d] : 0.0f, scale, t);
+  const int entry = tid < T ? block_tables[(long long)b * maxp + pg0 + tid / ps] : 0;
+  float qv[QREG];
 #pragma unroll
-    for (int i = 0; i < NS; ++i) qs[i][r][d] = t[i];
+  for (int k = 0; k < QREG; ++k) {
+    const int i = tid + k * THREADS;
+    qv[k] = i < rep * hd ? q[bh * rep * hd + i] : 0.0f;
   }
-  if (tid < MAX_REP) { m_s[tid] = tcec::NEG_INF; l_s[tid] = 0.0f; }
+  const int cur = length - 1;                        // the current token
+  const int lo = window > 0 ? cur - window + 1 : 0;  // the oldest valid one
 
-  float acc[NS][MAX_REP];
-#pragma unroll
-  for (int g = 0; g < NS; ++g)
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) acc[g][r] = 0.0f;
-  const bool single = maxp == 1;
+  if (!chunk_live(c, C, ps, maxp, length, window)) {
+    if (nch == 1) {
+      for (int i = tid; i < rep * hdv; i += THREADS)
+        out[bh * rep * hdv + i] = 0.0f;
+    } else if (tid < rep) {                   // an empty partial
+      partial[tid] = tcec::NEG_INF;
+      partial[rep + tid] = 0.0f;
+    }
+    return;
+  }
 
-  for (int pg = 0; pg < maxp; ++pg) {
-    const int col0 = pg * ps;
-    // skip pages wholly past the length or wholly older than the window
-    if (col0 >= length) continue;
-    if (window > 0 && cur - (col0 + ps - 1) >= window) continue;
-    const long long page = table[pg];
-    __syncthreads();   // the previous page's readers of ss / pst are done
+  // each token's row in the pool, or -1 where it is not valid (past T, past
+  // the current token or outside the window): only valid tokens' page
+  // numbers are used
+  int* rows = reinterpret_cast<int*>(smem + L.rows);
+  for (int t = tid; t < L.TP; t += THREADS) {
+    const int pos = col0 + t;
+    int row = -1;
+    if (t < T && pos >= lo && pos <= cur) {
+      const int e = t < THREADS ? entry
+                                : block_tables[(long long)b * maxp + pg0 + t / ps];
+      row = e * ps + t % ps;
+    }
+    rows[t] = row;
+  }
+  __syncthreads();
 
-    // scores: warp w takes tokens w, w + 4, ...; lanes split head_dim
-    for (int t = warp; t < ps; t += THREADS / 32) {
-      const int pos = col0 + t;
-      const bool ok = pos <= cur && (window <= 0 || cur - pos < window);
-      if (!ok) {
-        if (lane < rep) ss[lane][t] = tcec::NEG_INF;
-        continue;
-      }
-      const __nv_bfloat16* krow = k_pages + ((page * ps + t) * Hkv + h) * hd;
-      float kv[HDMAX / 32];
+  // gather every K row, then every V row, of the chunk's TP tokens; rows of
+  // tokens that are not valid, and the columns past the head dims, are
+  // zero-filled
+  unsigned char* ks = smem + L.ks;
+  unsigned char* vs = smem + L.vs;
+  const long long rowk = (long long)Hkv * hd, rowv = (long long)Hkv * hdv;
+  if (vec) {
+    gather(ks, L.kstride, k_pages + h * hd, rowk, hd / 8, L.hd16 / 8, rows, L.TP, tid);
+    sm90::cp_async_commit();
+    gather(vs, L.vstride, v_pages + h * hdv, rowv, hdv / 8, L.hdv16 / 8, rows, L.TP, tid);
+    sm90::cp_async_commit();
+  } else {  // head dims not a multiple of 8: element by element
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+    for (int i = tid; i < L.TP * L.hd16; i += THREADS) {
+      const int t = i / L.hd16, d = i - t * L.hd16, row = rows[t];
+      reinterpret_cast<__nv_bfloat16*>(ks + t * L.kstride)[d] =
+          row >= 0 && d < hd ? k_pages[row * rowk + h * hd + d] : zero;
+    }
+    for (int i = tid; i < L.TP * L.hdv16; i += THREADS) {
+      const int t = i / L.hdv16, d = i - t * L.hdv16, row = rows[t];
+      reinterpret_cast<__nv_bfloat16*>(vs + t * L.vstride)[d] =
+          row >= 0 && d < hdv ? v_pages[row * rowv + h * hdv + d] : zero;
+    }
+  }
+
+  // split the query while the copies land: bf16 terms, the scores' B
+  // operand, row i rep + r for term i of query row r (zero elsewhere)
+  __nv_bfloat16* qb = reinterpret_cast<__nv_bfloat16*>(smem + L.qb);
+  const int qrow = L.kstride / 2;
 #pragma unroll
-      for (int u = 0; u < HDMAX / 32; ++u) {
-        const int d = lane + 32 * u;
-        kv[u] = d < hd ? __bfloat162float(krow[d]) : 0.0f;
-      }
+  for (int k = 0; k < QREG; ++k) {
+    const int i = tid + k * THREADS;
+    if (i < rep * hd) {
+      const int r = i / hd, d = i - r * hd;
+      __nv_bfloat16 t[NS];
+      tcec::split_bf16<NS>(qv[k], scale, t);
 #pragma unroll
-      for (int r = 0; r < MAX_REP; ++r) {
-        if (r >= rep) break;
-        float part[NS];
+      for (int g = 0; g < NS; ++g) qb[(g * rep + r) * qrow + d] = t[g];
+    }
+  }
+  const int qsegs = L.hd16 / 8;                 // zero the rows past RN
+  for (int i = RN * qsegs + tid; i < L.NQ * qsegs; i += THREADS)
+    *reinterpret_cast<uint4*>(smem + L.qb + i * 16 + i / qsegs * 16) =
+        make_uint4(0, 0, 0, 0);
+  if (hd < L.hd16)                              // and the columns past hd
+    for (int i = tid; i < RN * (L.hd16 - hd); i += THREADS) {
+      const int n = i / (L.hd16 - hd);
+      qb[n * qrow + hd + i - n * (L.hd16 - hd)] = __float2bfloat16_rn(0.0f);
+    }
+  sm90::cp_async_wait<1>();   // K is in
+  __syncthreads();
+
+  // scores, a warp for each 16 tokens: every k16 step of every term
+  // product into a zeroed fragment, added in f32 into its column (one scale
+  // group of one query row)
+  float* sg = reinterpret_cast<float*>(smem + L.sg);
+  const int nq8 = L.NQ / 8;
+  for (int t0 = warp * 16; t0 < T; t0 += WARPS * 16) {
+    float acc[4][4];
 #pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          float dot = 0.0f;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int u = 0; u < HDMAX / 32; ++u) dot += qs[i][r][lane + 32 * u] * kv[u];
-          part[i] = tcec::warp_sum(dot);
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    const unsigned char* arow = ks + (t0 + ld_row(lane)) * L.kstride + ld_col(lane) * 2;
+    for (int k0 = 0; k0 < L.hd16; k0 += 16) {
+      uint32_t a[4];
+      sm90::ldmatrix_x4(a, arow + k0 * 2);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j < nq8) {
+          const unsigned char* brow = smem + L.qb + (j * 8 + g8) * L.kstride + (k0 + 2 * t4) * 2;
+          const uint32_t bb[2] = {*reinterpret_cast<const uint32_t*>(brow),
+                                  *reinterpret_cast<const uint32_t*>(brow + 16)};
+          float d[4];
+          sm90::mma16816(d, a, bb);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += d[e];
         }
-        float s = part[NS - 1];
-#pragma unroll
-        for (int g = NS - 2; g >= 0; --g) s = part[g] + s * inv;
-        s = s / sm_denom;
-        if (softcap > 0.0f) s = softcap * tanhf(s / softcap);
-        if (lane == 0) ss[r][t] = s;
       }
     }
-    __syncthreads();
-
-    // online softmax over the page: warp w takes rows w, w + 4, ...
-    for (int r = warp; r < rep; r += THREADS / 32) {
-      const bool in0 = lane < ps, in1 = lane + 32 < ps;
-      const float s0 = in0 ? ss[r][lane] : tcec::NEG_INF;
-      const float s1 = in1 ? ss[r][lane + 32] : tcec::NEG_INF;
-      const float m_curr = tcec::warp_max(fmaxf(s0, s1));
-      float p0, p1;
-      if (single) {
-        p0 = in0 ? expf(s0 - m_curr) : 0.0f;
-        p1 = in1 ? expf(s1 - m_curr) : 0.0f;
-        const float sum = tcec::warp_sum(p0 + p1);
-        p0 = p0 / sum;
-        p1 = p1 / sum;
-      } else {
-        const float m_prev = m_s[r];
-        const float m_next = fmaxf(m_prev, m_curr);
-        const float alpha = expf(m_prev - m_next);
-        p0 = in0 ? expf(s0 - m_next) : 0.0f;
-        p1 = in1 ? expf(s1 - m_next) : 0.0f;
-        const float l = alpha * l_s[r] + tcec::warp_sum(p0 + p1);
-        __syncwarp();
-        if (lane == 0) { m_s[r] = m_next; l_s[r] = l; a_s[r] = alpha; }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < nq8) {
+        float* r0 = sg + (t0 + g8) * L.NQ + j * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(r0) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(r0 + 8 * L.NQ) = make_float2(acc[j][2], acc[j][3]);
       }
-      float t0[NS], t1[NS];
-      tcec::split_f32<NS>(p0, scale, t0);
-      tcec::split_f32<NS>(p1, scale, t1);
-#pragma unroll
-      for (int i = 0; i < NS; ++i) {
-        if (in0) pst[i][r][lane] = t0[i];
-        if (in1) pst[i][r][lane + 32] = t1[i];
-      }
-    }
-    __syncthreads();
-
-    // P.V per scale group: thread d sums the valid tokens of the page
-    if (tid < hdv) {
-      float part[NS][MAX_REP];
-#pragma unroll
-      for (int g = 0; g < NS; ++g)
-#pragma unroll
-        for (int r = 0; r < MAX_REP; ++r) part[g][r] = 0.0f;
-      for (int t = 0; t < ps; ++t) {
-        const int pos = col0 + t;
-        if (pos > cur || (window > 0 && cur - pos >= window)) continue;
-        const float vv = __bfloat162float(
-            v_pages[((page * ps + t) * Hkv + h) * hdv + tid]);
-#pragma unroll
-        for (int g = 0; g < NS; ++g)
-#pragma unroll
-          for (int r = 0; r < MAX_REP; ++r)
-            if (r < rep) part[g][r] += pst[g][r][t] * vv;
-      }
-#pragma unroll
-      for (int g = 0; g < NS; ++g)
-#pragma unroll
-        for (int r = 0; r < MAX_REP; ++r)
-          if (r < rep)
-            acc[g][r] = single ? acc[g][r] + part[g][r]
-                               : acc[g][r] * a_s[r] + part[g][r];
     }
   }
+  __syncthreads();
 
-  if (tid < hdv) {
+  // fold the groups smallest-first, scale, softcap, select the valid tokens
+  float* ss = reinterpret_cast<float*>(smem + L.ss);
+  for (int i = tid; i < rep * T; i += THREADS) {
+    const int r = i / T, t = i - r * T, pos = col0 + t;
+    float s = tcec::NEG_INF;
+    if (pos >= lo && pos <= cur) {
+      float part[NS];
 #pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= rep) break;
-      float o = acc[NS - 1][r];
-#pragma unroll
-      for (int g = NS - 2; g >= 0; --g) o = acc[g][r] + o * inv;
-      if (!single) o = o / fmaxf(l_s[r], 1e-30f);
-      out[(bh * rep + r) * hdv + tid] = o;
+      for (int g = 0; g < NS; ++g) part[g] = sg[t * L.NQ + g * rep + r];
+      s = fold<NS>(part, inv) / sm_denom;
+      if (softcap > 0.0f) s = softcap * tanhf(s / softcap);
     }
+    ss[r * L.TP + t] = s;
+  }
+  __syncthreads();
+
+  // the chunk's softmax, a warp a row: m, p = exp(s - m), l; p's bf16
+  // terms, the P.V A operand, row i rep + r (zero past T)
+  __nv_bfloat16* pa = reinterpret_cast<__nv_bfloat16*>(smem + L.pa);
+  const int prow = L.pstride / 2;
+  const bool single = maxp == 1;
+  for (int r = warp; r < rep; r += WARPS) {
+    float* sr = ss + r * L.TP;
+    float m = tcec::NEG_INF;
+    for (int t = lane; t < T; t += 32) m = fmaxf(m, sr[t]);
+    m = tcec::warp_max(m);
+    float l = 0.0f;
+    for (int t = lane; t < T; t += 32) {
+      const float p = expf(sr[t] - m);
+      sr[t] = p;
+      l += p;
+    }
+    l = tcec::warp_sum(l);
+    for (int t = lane; t < L.TP; t += 32) {
+      const float p = t < T ? (single ? sr[t] / l : sr[t]) : 0.0f;
+      __nv_bfloat16 terms[NS];
+      tcec::split_bf16<NS>(p, scale, terms);
+#pragma unroll
+      for (int g = 0; g < NS; ++g) pa[(g * rep + r) * prow + t] = terms[g];
+    }
+    if (lane == 0) { m_s[r] = m; l_s[r] = l; }
+  }
+  sm90::cp_async_wait<0>();   // V is in
+  __syncthreads();
+
+  // P.V, a warp for each 16 output columns: rows i rep + r of the p terms
+  // against V, every k16 step into a zeroed fragment added in f32
+  float* red = reinterpret_cast<float*>(smem + L.red);  // K is read: reuse
+  const int mtiles = L.MP / 16;                         // 1 or 2
+  for (int n0 = warp * 16; n0 < L.hdv16; n0 += WARPS * 16) {
+    float acc[2][2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+    for (int k0 = 0; k0 < T; k0 += 16) {
+      uint32_t bv[4];
+      sm90::ldmatrix_x4_trans(bv, vs + (k0 + ld_row(lane)) * L.vstride + (n0 + ld_col(lane)) * 2);
+      const uint32_t b0[2] = {bv[0], bv[1]}, b1[2] = {bv[2], bv[3]};
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt < mtiles) {
+          uint32_t a[4];
+          sm90::ldmatrix_x4(a, smem + L.pa + (mt * 16 + ld_row(lane)) * L.pstride + (k0 + ld_col(lane)) * 2);
+          float d[4];
+          sm90::mma16816(d, a, b0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][0][e] += d[e];
+          sm90::mma16816(d, a, b1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][1][e] += d[e];
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt < mtiles) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float* r0 = red + (mt * 16 + g8) * L.hdv16 + n0 + j * 8 + 2 * t4;
+          *reinterpret_cast<float2*>(r0) = make_float2(acc[mt][j][0], acc[mt][j][1]);
+          *reinterpret_cast<float2*>(r0 + 8 * L.hdv16) = make_float2(acc[mt][j][2], acc[mt][j][3]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // the output (one chunk) or the chunk's partial, per (row, column)
+  for (int i = tid; i < rep * hdv; i += THREADS) {
+    const int r = i / hdv, d = i - r * hdv;
+    float a[NS];
+#pragma unroll
+    for (int g = 0; g < NS; ++g) a[g] = red[(g * rep + r) * L.hdv16 + d];
+    if (nch == 1) {
+      float o = fold<NS>(a, inv);
+      if (!single) o = o / fmaxf(l_s[r], 1e-30f);
+      out[bh * rep * hdv + i] = o;
+    } else {
+#pragma unroll
+      for (int g = 0; g < NS; ++g)
+        partial[2 * rep + (long long)g * rep * hdv + i] = a[g];
+    }
+  }
+  if (nch > 1 && tid < rep) {
+    partial[tid] = m_s[tid];
+    partial[rep + tid] = l_s[tid];
+  }
+}
+
+// The second pass: one block per (kv head, slot) combines the live chunks'
+// partials in chunk order.  The live chunks are consecutive; their weights
+// w_j = exp(m_j - M) go to shared memory first, so that each thread's loads
+// of the accumulators are independent and many are in flight at once.
+constexpr int CTHREADS = 256;
+
+template <int NS>
+__global__ void __launch_bounds__(CTHREADS)
+paged_combine_kernel(const int* __restrict__ lengths,
+                     const float* __restrict__ part, float* __restrict__ out,
+                     int Hkv, int rep, int hdv, int ps, int maxp, int C,
+                     int nch, int window, float inv) {
+  extern __shared__ float ws[];  // w_j of each row, then l_j
+  __shared__ float M_s[MAX_REP], l_s[MAX_REP];
+  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const long long bh = (long long)b * Hkv + h;
+  const int length = lengths[b];
+  int c0 = nch, c1 = -1;
+  for (int c = 0; c < nch; ++c)
+    if (chunk_live(c, C, ps, maxp, length, window)) {
+      c0 = min(c0, c);
+      c1 = c;
+    }
+  const int nl = c1 - c0 + 1;
+  if (nl <= 0) {
+    for (int i = tid; i < rep * hdv; i += CTHREADS)
+      out[bh * rep * hdv + i] = 0.0f;
+    return;
+  }
+  const long long pf = partial_floats(rep, hdv, NS);
+  const float* base = part + (bh * nch + c0) * pf;
+  float* lw = ws + nl * rep;
+  for (int i = tid; i < nl * rep; i += CTHREADS) {
+    const int j = i / rep, r = i - j * rep;
+    ws[i] = base[j * pf + r];
+    lw[i] = base[j * pf + rep + r];
+  }
+  __syncthreads();
+  if (tid < rep) {
+    float M = tcec::NEG_INF;
+    for (int j = 0; j < nl; ++j) M = fmaxf(M, ws[j * rep + tid]);
+    M_s[tid] = M;
+  }
+  __syncthreads();
+  for (int i = tid; i < nl * rep; i += CTHREADS)
+    ws[i] = expf(ws[i] - M_s[i % rep]);
+  __syncthreads();
+  if (tid < rep) {
+    float l = 0.0f;
+    for (int j = 0; j < nl; ++j) l = fmaf(ws[j * rep + tid], lw[j * rep + tid], l);
+    l_s[tid] = l;
+  }
+  __syncthreads();
+  for (int i = tid; i < rep * hdv; i += CTHREADS) {
+    const int r = i / hdv;
+    const float* pc = base + 2 * rep + i;   // (g, r, d) at g rep hdv + i
+    float acc[NS];
+#pragma unroll
+    for (int g = 0; g < NS; ++g) acc[g] = 0.0f;
+#pragma unroll 8
+    for (int j = 0; j < nl; ++j) {
+      const float w = ws[j * rep + r];
+#pragma unroll
+      for (int g = 0; g < NS; ++g)
+        acc[g] = fmaf(w, pc[j * pf + (long long)g * rep * hdv], acc[g]);
+    }
+    out[bh * rep * hdv + i] = fold<NS>(acc, inv) / fmaxf(l_s[r], 1e-30f);
   }
 }
 
 template <int NS>
 cudaError_t launch(const float* q, const __nv_bfloat16* kp,
                    const __nv_bfloat16* vp, const int* bt, const int* lens,
-                   float* out, int B, int Hkv, int rep, int hd, int hdv, int ps,
-                   int maxp, int window, float softcap, float sm_denom,
-                   float scale, float inv, cudaStream_t stream) {
-  dim3 grid(Hkv, B);
-  tcec_paged_attention_kernel<NS><<<grid, THREADS, 0, stream>>>(
-      q, kp, vp, bt, lens, out, Hkv, rep, hd, hdv, ps, maxp, window, softcap,
-      sm_denom, scale, inv);
+                   float* out, float* work, int B, int Hkv, int rep, int hd,
+                   int hdv, int ps, int maxp, int C, int window,
+                   float softcap, float sm_denom, float scale, float inv,
+                   bool vec, cudaStream_t stream) {
+  const Layout L(C, ps, rep, hd, hdv, NS);
+  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
+  if (L.total > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_chunk_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L.total);
+    if (err != cudaSuccess) return err;
+  }
+  const int nch = maxp > 0 ? (maxp + C - 1) / C : 1;
+  if (nch > 1 && work == nullptr) return cudaErrorInvalidValue;
+  paged_chunk_kernel<NS><<<dim3(nch, Hkv, B), THREADS, L.total, stream>>>(
+      q, kp, vp, bt, lens, out, work, Hkv, rep, hd, hdv, ps, maxp, C, window,
+      softcap, sm_denom, scale, inv, vec);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nch == 1) return err;
+  const int cbytes = 2 * nch * rep * 4;   // w_j and l_j of every row
+  if (cbytes > SMEM_MAX) return cudaErrorInvalidValue;
+  if (cbytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(paged_combine_kernel<NS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               cbytes);
+    if (err != cudaSuccess) return err;
+  }
+  paged_combine_kernel<NS><<<dim3(Hkv, B), CTHREADS, cbytes, stream>>>(
+      lens, work, out, Hkv, rep, hdv, ps, maxp, C, nch, window, inv);
   return cudaGetLastError();
 }
 
@@ -208,28 +524,34 @@ cudaError_t launch(const float* q, const __nv_bfloat16* kp,
 
 extern "C" int tcec_paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* block_tables, const void* lengths, void* out, int B, int Hkv,
-    int rep, int hd, int hdv, int ps, int maxp, int window, float softcap,
-    float sm_denom, int n_splits, int scale_bits, void* stream) {
-  if (hd > HDMAX || hdv > HDMAX || rep < 1 || rep > MAX_REP || ps < 1 ||
-      ps > MAX_PS)
+    const void* block_tables, const void* lengths, void* out, void* work,
+    int B, int Hkv, int rep, int hd, int hdv, int ps, int maxp, int C,
+    int window, float softcap, float sm_denom, int n_splits, int scale_bits,
+    void* stream) {
+  if (hd < 1 || hd > HDMAX || hdv < 1 || hdv > HDMAX || rep < 1 ||
+      rep > MAX_REP || ps < 1 || ps > MAX_PS || maxp < 0 || C < 1 ||
+      C > (maxp > 0 ? maxp : 1))
     return cudaErrorInvalidValue;
   const float scale = ldexpf(1.0f, scale_bits);
   const float inv = ldexpf(1.0f, -scale_bits);
+  const bool vec = hd % 8 == 0 && hdv % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
   const float* Q = static_cast<const float*>(q);
   const __nv_bfloat16* KP = static_cast<const __nv_bfloat16*>(k_pages);
   const __nv_bfloat16* VP = static_cast<const __nv_bfloat16*>(v_pages);
   const int* BT = static_cast<const int*>(block_tables);
   const int* LN = static_cast<const int*>(lengths);
   float* O = static_cast<float*>(out);
+  float* W = static_cast<float*>(work);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_splits) {
     case 2:
-      return launch<2>(Q, KP, VP, BT, LN, O, B, Hkv, rep, hd, hdv, ps, maxp, window, softcap, sm_denom, scale, inv, s);
+      return launch<2>(Q, KP, VP, BT, LN, O, W, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
     case 3:
-      return launch<3>(Q, KP, VP, BT, LN, O, B, Hkv, rep, hd, hdv, ps, maxp, window, softcap, sm_denom, scale, inv, s);
+      return launch<3>(Q, KP, VP, BT, LN, O, W, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
     case 4:
-      return launch<4>(Q, KP, VP, BT, LN, O, B, Hkv, rep, hd, hdv, ps, maxp, window, softcap, sm_denom, scale, inv, s);
+      return launch<4>(Q, KP, VP, BT, LN, O, W, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
     default:
       return cudaErrorInvalidValue;
   }

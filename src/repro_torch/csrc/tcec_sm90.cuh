@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks of the TCEC kernels that use wgmma:
-// shared-memory descriptors of unswizzled core-matrix tiles, the wgmma forms
-// with scale-d = 0, the two-fragment pipeline that adds every wgmma's
-// fragment in f32 (the paper's rule), named barriers, cp.async and the
-// paired f32 -> bf16 term split.  Each piece was checked on the card
-// against a plain product before a kernel was built on it.
+// Hopper (sm_90a) building blocks of the TCEC kernels: shared-memory
+// descriptors of unswizzled core-matrix tiles, the wgmma forms with
+// scale-d = 0, the two-fragment pipeline that adds every wgmma's fragment
+// in f32 (the paper's rule), mma.sync with C = 0 and ldmatrix, named
+// barriers, cp.async and the paired f32 -> bf16 term split.  Each piece was
+// checked on the card against a plain product before a kernel was built on
+// it.
 #pragma once
 
 #include <cstdint>
@@ -208,6 +209,33 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// ---------------------------------------------------------- mma.sync
+
+// D = A B with C = 0: one m16n8k16 bf16 product.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.0f));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address
+// of row l % 8 of matrix l / 8; .trans hands each lane the transpose.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
 }
 
 // ------------------------------------------------------------- staging

@@ -1,17 +1,22 @@
 """Kernel 3: TCEC paged decode attention.
 
 Counterpart of ``repro/kernels/tcec_paged_attention.py::_paged_kernel``.
-The CUDA kernel (``csrc/tcec_paged_attention.cu``) runs one block per
-(slot, kv head), reads the slot's block-table row and gathers its bf16
-pages by index, one page per online-softmax step.  The f32 query and
-probabilities are split into bf16 terms, so the decode attend keeps the
-precision a plain bf16 product would drop.  Masking is a select: stale,
-possibly non-finite data in recycled pages never reaches a sum.  Rows with
-``length <= 0`` return zeros.
+The CUDA kernel (``csrc/tcec_paged_attention.cu``) splits each slot's
+block table into chunks of ``C`` pages (:func:`chunk_pages`) and runs one
+block per (chunk, kv head, slot): the block gathers its chunk's bf16 pages
+by index and computes the chunk's softmax partial (row max ``m``, sum
+``l`` and one accumulator per scale group).  A second pass combines the
+partials of each (slot, kv head) in chunk order; with one chunk the first
+pass writes the output itself.  The f32 query and probabilities are split
+into bf16 terms, so the decode attend keeps the precision a plain bf16
+product would drop.  Masking is a select: stale, possibly non-finite data
+in recycled pages never reaches a sum.  Rows with ``length <= 0`` return
+zeros.
 
 :func:`tcec_paged_attention` is the public entry (launch on CUDA, plain
 version on CPU); :func:`tcec_paged_attention_plain` is the same function in
-plain PyTorch, page for page.  ``launches`` counts kernel launches.
+plain PyTorch, chunk for chunk.  ``launches`` counts calls of the entry
+that launched the kernel (one a call, whether or not the second pass runs).
 """
 from __future__ import annotations
 
@@ -28,19 +33,52 @@ from .tcec_matmul import check_policy, fold
 MAX_REP = 8
 MAX_PAGE = 64
 HDMAX = 128
+KV_BUDGET = 32 * 1024   # bytes of K and V a chunk gathers into shared memory
+CHUNK_TOKENS = 128      # most tokens a chunk's scores and terms are kept for
+SMS = 132               # H100 SXM streaming multiprocessors
 
 launches = 0
-# q, k_pages, v_pages, block_tables, lengths, out; B, Hkv, rep, hd, hdv, ps,
-# maxp, window; softcap, sm_denom; n_splits, scale_bits; stream
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+# q, k_pages, v_pages, block_tables, lengths, out, workspace; B, Hkv, rep,
+# hd, hdv, ps, maxp, C, window; softcap, sm_denom; n_splits, scale_bits;
+# stream
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 
 
+def chunk_pages(B: int, Hkv: int, maxp: int, ps: int, hd: int = HDMAX,
+                hdv: int = HDMAX) -> int:
+    """Pages per chunk of a slot's block table: as many as fit
+    ``KV_BUDGET`` bytes of bf16 K and V and ``CHUNK_TOKENS`` tokens, fewer
+    while the table's chunks would give the card fewer than two blocks an
+    SM.  At qwen3-0.6b's decode (4 slots, 8 kv heads, 40 pages of 16, hd
+    128) that is 4 pages: 64 tokens, 32 KB a block, 320 blocks."""
+    c = min(maxp, KV_BUDGET // (2 * ps * (hd + hdv)), CHUNK_TOKENS // ps)
+    c = max(1, c)
+    while c > 1 and B * Hkv * -(-maxp // c) < 2 * SMS:
+        c -= 1
+    return c
+
+
+def live_chunks(lengths, maxp: int, ps: int, C: int, window: int = 0):
+    """(B, chunks) bool: chunks holding at least one valid token, the ones
+    that get a block of their own and a partial in the second pass."""
+    lengths = torch.as_tensor(lengths).to(torch.int64)
+    nch = max(1, -(-maxp // C))
+    c = torch.arange(nch, device=lengths.device)
+    col0 = c * C * ps
+    last = torch.clamp_max((c + 1) * C, maxp) * ps - 1
+    live = (col0[None] < lengths[:, None]) & (last >= col0)[None]
+    if window > 0:
+        live = live & ((lengths - 1)[:, None] - last[None] < window)
+    return live
+
+
 def _plain_core(qt, k_pages, v_pages, block_tables, lengths, pol, window,
-                softcap, sm_denom):
+                softcap, sm_denom, C):
     """The kernel's arithmetic: qt (B, Hkv, rep, hd) f32, pages (NP, ps, Hkv,
-    hd[v]), block_tables (B, maxp), lengths (B,) incl. the current token."""
+    hd[v]), block_tables (B, maxp), lengths (B,) incl. the current token;
+    chunks of C pages, each a softmax partial, combined in chunk order."""
     B, Hkv, rep, hd = qt.shape
     ps, hdv = k_pages.shape[1], v_pages.shape[3]
     maxp = block_tables.shape[1]
@@ -49,55 +87,62 @@ def _plain_core(qt, k_pages, v_pages, block_tables, lengths, pol, window,
     lengths = lengths.to(torch.int64)
     cur = lengths - 1
     single = maxp == 1
-    m = torch.full((B, Hkv, rep, 1), NEG_INF, device=dev)
-    l = torch.zeros((B, Hkv, rep, 1), device=dev)
-    accs = [torch.zeros((B, Hkv, rep, hdv), device=dev) for _ in pol.groups]
-    for pg in range(maxp):
-        col0 = pg * ps
-        run = lengths > col0
-        if window > 0:
-            run = run & (cur - (col0 + ps - 1) < window)
-        if not bool(run.any()):
+    live = live_chunks(lengths, maxp, ps, C, window)
+    parts = []                               # (chunk, m, l, accs)
+    for c in range(live.shape[1]):
+        if not bool(live[:, c].any()):
             continue
-        pos = col0 + torch.arange(ps, device=dev)
-        ok = pos[None] <= cur[:, None]                         # (B, ps)
+        pg0 = c * C
+        npg = min(C, maxp - pg0)
+        pos = pg0 * ps + torch.arange(npg * ps, device=dev)
+        ok = pos[None] <= cur[:, None]                          # (B, T)
         if window > 0:
             ok = ok & (cur[:, None] - pos[None] < window)
-        pages = block_tables[:, pg].to(torch.int64)
+        pages = block_tables[:, pg0:pg0 + npg].to(torch.int64)
         sel = ok[:, :, None, None]
         # select, not bias: stale entries of a recycled page never enter
-        kb = torch.where(sel, k_pages[pages].float(), 0.0)      # (B,ps,Hkv,hd)
-        vb = torch.where(sel, v_pages[pages].float(), 0.0)
-        sk = _terms(kb.permute(0, 2, 3, 1), pol)                # (B,Hkv,hd,ps)
+        kb = torch.where(sel, k_pages[pages].flatten(1, 2).float(), 0.0)
+        vb = torch.where(sel, v_pages[pages].flatten(1, 2).float(), 0.0)
+        sk = _terms(kb.permute(0, 2, 3, 1), pol)                # (B,Hkv,hd,T)
         s = fold(_product(sq, sk, pol), pol.scale_bits) / sm_denom
         if softcap:
             s = softcap * torch.tanh(s / softcap)
-        s = torch.where(ok[:, None, None, :], s, NEG_INF)       # (B,Hkv,rep,ps)
+        s = torch.where(ok[:, None, None, :], s, NEG_INF)       # (B,Hkv,rep,T)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(-1, keepdim=True)
         if single:
-            p = torch.exp(s - s.amax(-1, keepdim=True))
-            p = p / p.sum(-1, keepdim=True)
-            alpha, m_new, l_new = None, m, l
-        else:
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new)
-            l_new = alpha * l + p.sum(-1, keepdim=True)
-        parts = _product(_terms(p, pol), _terms(vb.permute(0, 2, 1, 3), pol),
-                         pol)
-        r4 = run[:, None, None, None]
-        for gi, part in enumerate(parts):
-            new = accs[gi] + part if alpha is None else accs[gi] * alpha + part
-            accs[gi] = torch.where(r4, new, accs[gi])
-        m = torch.where(r4, m_new, m)
-        l = torch.where(r4, l_new, l)
-    out = fold(accs, pol.scale_bits)
-    if not single:
-        out = out / torch.clamp_min(l, 1e-30)
-    return out
+            p = p / l
+        accs = _product(_terms(p, pol), _terms(vb.permute(0, 2, 1, 3), pol),
+                        pol)
+        parts.append((c, m, l, accs))
+    if live.shape[1] == 1:                   # one chunk: no second pass
+        if not parts:
+            return torch.zeros((B, Hkv, rep, hdv), device=dev)
+        _, _, l, accs = parts[0]
+        out = fold(accs, pol.scale_bits)
+        if not single:
+            out = out / torch.clamp_min(l, 1e-30)
+    else:                                    # the second pass
+        M = torch.full((B, Hkv, rep, 1), NEG_INF, device=dev)
+        for c, m, _, _ in parts:
+            M = torch.where(live[:, c, None, None, None],
+                            torch.maximum(M, m), M)
+        l = torch.zeros((B, Hkv, rep, 1), device=dev)
+        accs = [torch.zeros((B, Hkv, rep, hdv), device=dev)
+                for _ in pol.groups]
+        for c, m, lj, accj in parts:
+            r4 = live[:, c, None, None, None]
+            w = torch.exp(torch.where(r4, m - M, 0.0))
+            l = torch.where(r4, l + w * lj, l)
+            accs = [torch.where(r4, a + w * aj, a)
+                    for a, aj in zip(accs, accj)]
+        out = fold(accs, pol.scale_bits) / torch.clamp_min(l, 1e-30)
+    return torch.where(live.any(1)[:, None, None, None], out, 0.0)
 
 
 def _launch(qt, k_pages, v_pages, block_tables, lengths, pol, window,
-            softcap, sm_denom):
+            softcap, sm_denom, C):
     global launches
     B, Hkv, rep, hd = qt.shape
     NP, ps, Hkv2, hd2 = k_pages.shape
@@ -121,10 +166,16 @@ def _launch(qt, k_pages, v_pages, block_tables, lengths, pol, window,
                       device=qt.device)
     if out.numel() == 0:
         return out
+    nch = max(1, -(-maxp // C))
+    work = None
+    if nch > 1:   # per chunk: m and l (rep each), then rep x hdv per group
+        work = torch.empty(B * Hkv * nch * rep * (2 + pol.n_splits * hdv),
+                           dtype=torch.float32, device=qt.device)
     fn = _build.entry("tcec_paged_attention", _ARGTYPES)
     status = fn(_build.ptr(qt), _build.ptr(k_pages), _build.ptr(v_pages),
                 _build.ptr(block_tables), _build.ptr(lengths),
-                _build.ptr(out), B, Hkv, rep, hd, hdv, ps, maxp, int(window),
+                _build.ptr(out), None if work is None else _build.ptr(work),
+                B, Hkv, rep, hd, hdv, ps, maxp, C, int(window),
                 float(softcap or 0.0), float(sm_denom), pol.n_splits,
                 pol.scale_bits, _build.stream(qt))
     _build.check("tcec_paged_attention", status)
@@ -133,32 +184,39 @@ def _launch(qt, k_pages, v_pages, block_tables, lengths, pol, window,
 
 
 def _run(core, q, k_pages, v_pages, block_tables, lengths, policy, window,
-         softcap):
+         softcap, pages_per_chunk):
     pol = get_policy(policy)
     check_policy(pol)
     B, H, hd = q.shape
-    Hkv = k_pages.shape[2]
+    Hkv, hdv = k_pages.shape[2], v_pages.shape[3]
     if Hkv == 0 or H % Hkv or k_pages.shape[3] != hd:
         raise ValueError(f"bad paged shapes q {tuple(q.shape)}, "
                          f"pages {tuple(k_pages.shape)}")
+    maxp = block_tables.shape[1]
+    if pages_per_chunk is None:
+        C = chunk_pages(B, Hkv, maxp, k_pages.shape[1], hd, hdv)
+    else:
+        C = max(1, min(int(pages_per_chunk), maxp))
     qt = q.float().reshape(B, Hkv, H // Hkv, hd).contiguous()
     window = int(0 if window is None else window)
     softcap = float(softcap) if softcap else None
     out = core(qt, k_pages, v_pages, block_tables, lengths, pol, window,
-               softcap, float(math.sqrt(hd)))
-    return out.reshape(B, H, v_pages.shape[3])
+               softcap, float(math.sqrt(hd)), C)
+    return out.reshape(B, H, hdv)
 
 
 def tcec_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                          policy: str = "tcec_bf16x6", window=0,
-                         softcap: float | None = None):
+                         softcap: float | None = None,
+                         pages_per_chunk: int | None = None):
     """Fused paged decode attention on model-layout operands.
 
     q: (B, H, hd) — one query token per slot; k_pages/v_pages: (NP, ps,
     Hkv, hd[v]) bf16 page pools; block_tables: (B, maxp) i32; lengths: (B,)
     i32 valid tokens including the current one (whose K/V is already in its
-    page).  Returns (B, H, hdv) f32.  A CUDA tensor launches the kernel; a
-    CPU tensor runs the plain version.
+    page).  ``pages_per_chunk`` overrides :func:`chunk_pages` (clamped to
+    1..maxp).  Returns (B, H, hdv) f32.  A CUDA tensor launches the kernel;
+    a CPU tensor runs the plain version.
     """
     if q.is_cuda:
         core = _launch
@@ -167,12 +225,13 @@ def tcec_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     else:
         raise ValueError(f"no TCEC paged attention for device {q.device}")
     return _run(core, q, k_pages, v_pages, block_tables, lengths, policy,
-                window, softcap)
+                window, softcap, pages_per_chunk)
 
 
 def tcec_paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, *,
                                policy: str = "tcec_bf16x6", window=0,
-                               softcap: float | None = None):
+                               softcap: float | None = None,
+                               pages_per_chunk: int | None = None):
     """Kernel 3's function in plain PyTorch, on any device."""
     return _run(_plain_core, q, k_pages, v_pages, block_tables, lengths,
-                policy, window, softcap)
+                policy, window, softcap, pages_per_chunk)

@@ -158,3 +158,93 @@ def test_paged_attention_matches_plain(dev, window):
     assert bool((out[0] == 0).all())
     assert float((out - ref).abs().max()) <= 1e-5 * float(
         vp.float().abs().max())
+
+
+def _paged_inputs(dev, lengths, Hkv, rep, hd, hdv, ps, maxp, seed):
+    """Pools with one spare page beyond the slots' tables (page 0, never
+    listed), a random table and q."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lengths)
+    NP = 1 + B * maxp
+    kp = torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16()
+    vp = torch.randn(NP, ps, Hkv, hdv, generator=g, device=dev).bfloat16()
+    q = torch.randn(B, Hkv * rep, hd, generator=g, device=dev)
+    bt = (torch.randperm(NP - 1, generator=g, device=dev) + 1).reshape(
+        B, maxp).to(torch.int32)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, bt, ln
+
+
+# Kernel against plain at the same C (pages a chunk): the lengths sit on the
+# edges of a page and of a chunk (0, 1, ps, C ps - 1, C ps, C ps + 1 and the
+# whole table), windows cut across a chunk edge, maxp 1 normalises before
+# P.V, C 2 at pages of 64 takes 107 KB of shared memory at x10 (above the
+# 48 KB default), head dims not a multiple of 8 take the element-wise
+# gather, and two cases cap the scores (softcap 30).  Each case runs twice:
+# the two outputs are bitwise equal.
+@pytest.mark.parametrize("policy,ps,C,maxp,rep,hd,hdv,window,softcap", [
+    ("tcec_bf16x6", 16, 4, 10, 2, 128, 128, 0, None),
+    ("tcec_bf16x6", 16, 4, 10, 2, 128, 128, 50, None),
+    ("tcec_bf16x3", 8, 8, 9, 1, 64, 64, 0, None),
+    ("tcec_bf16x3", 8, 3, 9, 1, 64, 64, 30, None),
+    ("tcec_bf16x10", 64, 2, 3, 8, 128, 128, 0, None),
+    ("tcec_bf16x6", 64, 1, 3, 8, 128, 128, 100, None),
+    ("tcec_bf16x6", 16, 1, 1, 2, 128, 128, 0, None),
+    ("tcec_bf16x10", 16, 3, 7, 8, 64, 64, 20, None),
+    ("tcec_bf16x6", 16, 2, 4, 2, 36, 20, 0, None),
+    ("tcec_bf16x6", 16, 4, 10, 2, 128, 128, 0, 30.0),
+    ("tcec_bf16x10", 8, 3, 9, 4, 64, 64, 30, 30.0)])
+def test_paged_attention_chunks_match_plain(dev, policy, ps, C, maxp, rep, hd,
+                                            hdv, window, softcap):
+    n = C * ps
+    lengths = sorted({0, 1, ps, n - 1, n, n + 1, maxp * ps} - {-1})
+    lengths = [min(x, maxp * ps) for x in lengths]
+    q, kp, vp, bt, ln = _paged_inputs(dev, lengths, 2, rep, hd, hdv, ps, maxp,
+                                      seed=ps + C + maxp + window)
+    kw = dict(policy=policy, window=window, softcap=softcap,
+              pages_per_chunk=C)
+    before = tcec_paged_attention.launches
+    out = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    assert tcec_paged_attention.launches == before + 1   # one a call
+    again = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    ref = tcec_paged_attention.tcec_paged_attention_plain(q, kp, vp, bt, ln,
+                                                          **kw)
+    assert torch.equal(out, again)
+    assert bool((out[ln <= 0] == 0).all())
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 1e-5 * float(
+        vp.float().abs().max())
+
+
+@pytest.mark.parametrize("C", [1, 2, 4])
+def test_paged_attention_ignores_stale_pages(dev, C):
+    """NaN and Inf in pages no slot lists, in listed pages past a slot's
+    length and in the tail of a slot's last page leave the output as it
+    was, bit for bit."""
+    ps, maxp = 16, 6
+    lengths = [0, 5, 40, 70]
+    q, kp, vp, bt, ln = _paged_inputs(dev, lengths, 8, 2, 128, 128, ps, maxp,
+                                      seed=C)
+    kw = dict(window=0, pages_per_chunk=C)
+    clean = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    kp[0], vp[0] = float("nan"), float("inf")         # listed by no slot
+    for row, n in zip(bt.tolist(), lengths):
+        used = -(-n // ps)
+        for page in row[used:]:                       # past the length
+            kp[page], vp[page] = float("inf"), float("nan")
+        if used and n % ps:                           # the last page's tail
+            kp[row[used - 1], n % ps:] = float("nan")
+            vp[row[used - 1], n % ps:] = float("-inf")
+    dirty = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    assert bool(torch.isfinite(dirty).all())
+    assert torch.equal(dirty, clean)
+
+
+def test_paged_wrapper_raises_instead_of_falling_back(dev):
+    q, kp, vp, bt, ln = _paged_inputs(dev, [5], 1, 2, 64, 64, 16, 2, seed=0)
+    with pytest.raises(TypeError):                    # f32 pools
+        tcec_paged_attention.tcec_paged_attention(q, kp.float(), vp.float(),
+                                                  bt, ln)
+    with pytest.raises(ValueError):                   # rep 9
+        tcec_paged_attention.tcec_paged_attention(q.repeat(1, 9, 1)[:, :9],
+                                                  kp, vp, bt, ln)

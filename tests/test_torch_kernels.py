@@ -247,6 +247,94 @@ def test_paged_plain_ignores_stale_garbage_in_recycled_pages():
     assert np.max(np.abs(clean.numpy() - ref)) <= 1e-5 * vmax
 
 
+@pytest.mark.parametrize("window", [0, 5, 13])
+@pytest.mark.parametrize("C", [1, 2, "maxp"])
+def test_paged_chunked_plain_matches_jax_kernel(window, C):
+    """The plain version with the kernel's chunks (C pages each, a partial
+    per chunk, combined in chunk order) against the JAX kernel."""
+    q, kp, vp, bt, lengths = _paged_case(seed=20 + window)
+    lengths = lengths.at[1].set(0)                  # an empty slot
+    C = bt.shape[1] if C == "maxp" else C
+    ref = np.asarray(jax_tcec_paged_attention(
+        q, kp, vp, bt, lengths, window=window, pages_per_step=1,
+        interpret=True))
+    tq, tk, tv, tbt, tl = _port(q, kp, vp, bt, lengths)
+    out = tcec_paged_attention.tcec_paged_attention(
+        tq, tk, tv, tbt, tl, window=window, pages_per_chunk=C).numpy()
+    assert np.all(out[1] == 0.0)
+    vmax = float(np.max(np.abs(np.asarray(vp, np.float32))))
+    assert np.max(np.abs(out - ref)) <= 1e-5 * vmax
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_paged_chunked_plain_softcap_matches_jax_kernel(C):
+    q, kp, vp, bt, lengths = _paged_case(seed=31)
+    ref = np.asarray(jax_tcec_paged_attention(
+        q, kp, vp, bt, lengths, window=7, softcap=30.0, pages_per_step=1,
+        interpret=True))
+    tq, tk, tv, tbt, tl = _port(q, kp, vp, bt, lengths)
+    out = tcec_paged_attention.tcec_paged_attention(
+        tq, tk, tv, tbt, tl, window=7, softcap=30.0,
+        pages_per_chunk=C).numpy()
+    vmax = float(np.max(np.abs(np.asarray(vp, np.float32))))
+    assert np.max(np.abs(out - ref)) <= 1e-5 * vmax
+
+
+def test_paged_plain_ignores_stale_garbage_across_chunks():
+    """The stale-garbage check at C 2: non-finite data in a dead page of a
+    live chunk, in a dead chunk and in the current page's tail."""
+    q, kp, vp, bt, lengths = _paged_case(B=2, maxp=3, seed=13)
+    short = jnp.asarray([3, 5], jnp.int32)          # well inside page 0
+    ref = np.asarray(jax_tcec_paged_attention(q, kp, vp, bt, short,
+                                              pages_per_step=1,
+                                              interpret=True))
+    tq, tk, tv, tbt, tl = _port(q, kp, vp, bt, short)
+    kw = dict(pages_per_chunk=2)
+    clean = tcec_paged_attention.tcec_paged_attention(tq, tk, tv, tbt, tl,
+                                                      **kw)
+    p0, p1, p2 = (int(bt[0, j]) for j in range(3))
+    tk[p1], tv[p1] = float("nan"), float("inf")     # dead page, live chunk
+    tk[p2], tv[p2] = float("inf"), float("nan")     # a dead chunk
+    tk[p0, 3:], tv[p0, 3:] = float("nan"), float("inf")   # the page's tail
+    dirty = tcec_paged_attention.tcec_paged_attention(tq, tk, tv, tbt, tl,
+                                                      **kw)
+    assert bool(torch.isfinite(dirty).all())
+    assert torch.equal(dirty, clean)
+    vmax = float(np.max(np.abs(np.asarray(vp, np.float32))))
+    assert np.max(np.abs(clean.numpy() - ref)) <= 1e-5 * vmax
+
+
+def test_paged_chunk_rule():
+    """chunk_pages at qwen3-0.6b's decode (4 slots, 8 kv heads, 40 pages of
+    16, hd 128): 4 pages, 32 KB of K and V, 320 blocks, of which the engine's
+    lengths keep about 200 live; every chunk it picks stays within the
+    budget, and small tables get smaller chunks to fill the card."""
+    tp = tcec_paged_attention
+    assert tp.chunk_pages(4, 8, 40, 16, 128, 128) == 4
+    live = tp.live_chunks(torch.tensor([520, 520, 208, 208]), 40, 16, 4)
+    assert live.shape == (4, 10)
+    assert int(live.sum()) * 8 == 208             # phase 2's decode row
+    live = tp.live_chunks(torch.tensor([520, 520, 208, 64]), 40, 16, 4)
+    assert int(live.sum()) * 8 == 184             # the engine's 4 slots
+    for B, Hkv, maxp, ps, hd in [(4, 8, 40, 16, 128), (32, 8, 64, 16, 128),
+                                 (1, 8, 40, 16, 128), (64, 2, 30, 64, 128),
+                                 (64, 2, 30, 8, 64), (64, 2, 300, 1, 16)]:
+        C = tp.chunk_pages(B, Hkv, maxp, ps, hd, hd)
+        assert 1 <= C <= maxp
+        assert 2 * C * ps * 2 * hd <= tp.KV_BUDGET or C == 1
+        assert C * ps <= max(tp.CHUNK_TOKENS, ps)
+        nblocks = B * Hkv * -(-maxp // C)
+        assert nblocks >= 2 * tp.SMS or C == 1
+    assert tp.chunk_pages(1, 8, 40, 16, 128, 128) == 1
+    # windows and empty slots: exactly the chunks holding a valid token
+    ln = torch.tensor([0, 1, 64, 65, 300])
+    live = tp.live_chunks(ln, 20, 16, 4, window=100)
+    for b, n in enumerate(ln.tolist()):
+        want = [any(max(0, n - 100) <= pos < n
+                    for pos in range(c * 64, (c + 1) * 64)) for c in range(5)]
+        assert live[b].tolist() == want
+
+
 def _attention_direct(q, k, v, dtype):
     """Causal GQA attention computed directly in ``dtype`` (no split)."""
     S, hd, rep = q.shape[1], q.shape[3], q.shape[2] // k.shape[2]
