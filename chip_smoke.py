@@ -38,15 +38,24 @@ Phases, each of which raises on a failed check (nothing is caught):
      prompts (512, 512, 200, 200, 64, 64, 17, 17 tokens) arrive so that each
      admission prefills two prompts of one padded length together: the
      prefills are 2 x 512, 2 x 208, 2 x 64 and 2 x 32, the shapes phase 2
-     times;
+     times.  Decode steps are replays of the engine's captured CUDA graph
+     (one eager warm-up step before the capture); the row gives the capture
+     time, the replays and the host seconds spent in prefills;
+  4b. the decode program against eager decode: a second engine at full
+     width (4 slots, greedy and sampled requests) runs 8 decode steps, each
+     replayed and also run eagerly through ``_decode_and_sample`` on a copy
+     of the same state; logits, guard bits, tokens and the page pools must
+     be bitwise equal;
   5. one 64-token prefill through the kernels against the same prefill with
      ``dispatch.use_plain()`` (relative logits difference <= 1e-3);
-  6. where the time goes: a second engine with four slots (512, 512, 200
-     and 64 tokens) times decode steps with the profiler off, then profiles
-     as many steps and one 2 x 512 prefill under ``torch.profiler``: each
-     window's wall time, the device time of its kernels, the device's idle
-     share, each port kernel's device time and launches, and the largest
-     kernels.
+  6. where the time goes: a third engine with four slots (512, 512, 200
+     and 64 tokens) times 32 decode steps one by one with the profiler off
+     (median and spread), then profiles 4 steps and one 2 x 512 prefill
+     under ``torch.profiler``: each window's wall time, the device time of
+     its kernels, the device's idle share, each port kernel's device time
+     and launches, and the largest kernels.  Last, the decode program's
+     two graphs are replayed back to back between CUDA events: their
+     device time with the host taken out.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -412,6 +421,7 @@ def main_path(dev):
     # four are admitted together too)
     lens = [512, 512, 200, 200, 64, 64, 17, 17]
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    prefill_s = timed_method(engine, "_admit_and_prefill")
     mods = (tm, ta, tp)
     for m in mods:
         m.launches = 0
@@ -428,8 +438,14 @@ def main_path(dev):
            "requests": len(prompts), "prompt_lengths": lens,
            "max_tokens": 16, "max_slots": 4, "page_size": 16,
            "generated_tokens": tokens, "seconds": dt,
-           "tokens_per_s": tokens / dt, "prefills": stats["prefills"],
+           "tokens_per_s": tokens / dt, "prefill_s": sum(prefill_s),
+           "prefill_share": sum(prefill_s) / dt,
+           "prefills": stats["prefills"],
            "decode_steps": stats["decode_steps"],
+           "decode_warmups": stats["decode_warmups"],
+           "capture_s": stats["capture_s"],
+           "graph_replays": stats["graph_replays"],
+           "sampler_replays": stats["sampler_replays"],
            "preemptions": stats["preemptions"], "launches": launches,
            "finish_reasons": sorted({v.finish_reason for v in out.values()})}
     emit(row)
@@ -439,14 +455,23 @@ def main_path(dev):
     check(all(n > 0 for n in launches.values()), "every kernel launched")
     check(stats["prefills"] == 4 and stats["preemptions"] == 0,
           "four prefills of two prompts each: 2x512, 2x208, 2x64, 2x32")
+    check(stats["decode_warmups"] == 1
+          and stats["graph_replays"] == stats["decode_steps"]
+          and stats["sampler_replays"] == 0,
+          "every decode step a replay of the graph captured after one "
+          "warm-up step; all greedy, so no sampler replay")
     L = cfg.n_layers
+    # decode forwards: every step, plus the warm-up before the capture
+    decodes = stats["decode_steps"] + stats["decode_warmups"]
     check(launches["tcec_matmul"] == (7 * L + 1) * (stats["prefills"]
-                                                    + stats["decode_steps"]),
+                                                    + decodes),
           "kernel 1: 7 products a layer + the unembed, every forward")
     check(launches["tcec_attention"] == L * stats["prefills"],
           "kernel 2: one launch a layer, every prefill")
-    check(launches["tcec_paged_attention"] == L * stats["decode_steps"],
+    check(launches["tcec_paged_attention"] == L * decodes,
           "kernel 3: one launch a layer, every decode step")
+
+    replay_equals_eager(dev, cfg, params)          # phase 4b
 
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
     with torch.no_grad():
@@ -460,6 +485,76 @@ def main_path(dev):
     RECORD["logits_check"] = row
     check(math.isfinite(rel) and rel <= 1e-3, "prefill logits vs plain path")
     return launches, (cfg, model, params)
+
+
+def timed_method(obj, name):
+    """Wrap ``obj.name`` so that each call's host seconds are appended to
+    the returned list (the engine's prefill ends in a sync of its own)."""
+    fn, spent = getattr(obj, name), []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    setattr(obj, name, timed)
+    return spent
+
+
+def replay_equals_eager(dev, cfg, params, steps=8):
+    """Phase 4b: each of ``steps`` decode steps of a full-width engine is
+    replayed and also run eagerly through ``_decode_and_sample`` on copies
+    of the same pools and inputs; everything must be bitwise equal."""
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.serving import Engine, SamplingParams
+    from repro_torch.serving import engine as em
+    engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
+                    page_size=16, max_pages_per_slot=40, device=dev)
+    rng = np.random.default_rng(2)
+    knobs = [dict(), dict(temperature=0.8, top_k=50, top_p=0.9, seed=1),
+             dict(), dict(temperature=1.0, seed=2)]
+    for n, kw in zip((512, 200, 64, 17), knobs):
+        engine.add_request(rng.integers(0, cfg.vocab_size, n),
+                           SamplingParams(max_tokens=steps + 4, **kw))
+    engine.step()                      # prefills, warm-up, capture, replay
+    graph = engine._graph
+    B, maxp = engine.max_slots, engine.max_pages_per_slot
+    compared = []
+
+    def checked(staged, sample):
+        pools = tree_map(torch.clone, engine.pools)
+        v = em._input_views(staged.to(dev), B, maxp)
+        out, done = em._DecodeGraph.launch(graph, staged, sample)
+        done.synchronize()
+        toks, finite, logits = em._decode_and_sample(
+            params, pools, v["block_tables"], v["lengths"], v["next_tok"],
+            v["temps"], v["topks"], v["topps"], v["uniforms"],
+            model=engine.model, cfg=cfg)
+        check(torch.equal(logits, graph.logits), "replayed logits == eager")
+        check(out[0].tolist() == finite.long().tolist(),
+              "replayed guard bits == eager")
+        check(out[1].tolist() == toks.tolist(), "replayed tokens == eager")
+        check(all(torch.equal(a, b) for a, b in zip(tree_leaves(pools),
+                                                    tree_leaves(
+                                                        engine.pools))),
+              "page pools after the replay == after the eager step")
+        compared.append(sample)
+        return out, done
+
+    graph.launch = checked
+    for _ in range(steps):
+        engine.step()
+    del graph.launch
+    row = {"replay_vs_eager": "qwen3-0.6b full width, 4 slots (512, 200, "
+           "64, 17 tokens; 2 greedy, 2 sampled)", "steps": len(compared),
+           "sampler_replays": sum(compared), "bitwise_equal": True,
+           "capture_s": graph.capture_s}
+    emit(row)
+    RECORD["replay_vs_eager"] = row
+    check(len(compared) == steps and all(compared),
+          f"{steps} compared steps, each with the sampler graph")
 
 
 # ------------------------------------------------------------ phase 6
@@ -508,9 +603,10 @@ def profile_window(name, fn, top=8):
                        for ms, n, key in kernels[:top]]}
     emit(row)
     RECORD["profile"].append(row)
+    return row
 
 
-def where_time_goes(dev, cfg, model, params, steps=4):
+def where_time_goes(dev, cfg, model, params, timed=32, steps=4):
     from repro_torch.serving import Engine, SamplingParams
     RECORD["profile"] = []
     rng = np.random.default_rng(1)
@@ -518,24 +614,44 @@ def where_time_goes(dev, cfg, model, params, steps=4):
                     page_size=16, max_pages_per_slot=40, device=dev)
     for n in (512, 512, 200, 64):
         engine.add_request(rng.integers(0, cfg.vocab_size, n),
-                           SamplingParams(max_tokens=2 * steps + 8))
-    engine.step()                       # admission, prefills, one decode
+                           SamplingParams(max_tokens=timed + steps + 8))
+    engine.step()                       # admission, prefills, capture
     engine.step()                       # one decode step to warm up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(timed):              # each step ends in its one sync
+        t0 = time.perf_counter()
+        engine.step()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(walls))
+    row = {"window": f"decode step, 4 slots, profiler off ({timed} steps)",
+           "decode_step_ms": med, "tokens_per_s": 4e3 / med,
+           "min_ms": min(walls), "p10_ms": float(np.percentile(walls, 10)),
+           "p90_ms": float(np.percentile(walls, 90)), "max_ms": max(walls),
+           "capture_s": engine.stats()["capture_s"]}
+    emit(row)
+    RECORD["profile"].append(row)
 
     def decode():
         for _ in range(steps):
             engine.step()
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode()
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / steps
-    row = {"window": "decode step, 4 slots, profiler off",
-           "decode_step_ms": ms, "tokens_per_s": 4e3 / ms}
+    prof = profile_window(f"{steps} decode steps, 4 slots", decode)
+    # the two graphs on the device alone (replaying the last step's inputs
+    # rewrites the same K/V in place).  The profiler's own host cost
+    # lengthens its window, so the idle share of a step is its kernels'
+    # summed time (from the profile) against the unprofiled median
+    graph = engine._graph
+    main_ms = device_only_ms(lambda i: graph.main.replay(), 20)
+    sampler_ms = device_only_ms(lambda i: graph.sampler.replay(), 20)
+    kernels_ms = prof["device_busy_ms"] / steps
+    row = {"window": "decode graphs, device only (CUDA events)",
+           "main_graph_ms": main_ms, "sampler_graph_ms": sampler_ms,
+           "kernels_ms_per_step": kernels_ms,
+           "idle_share_of_median_step": 1 - kernels_ms / med,
+           "graph_share_of_median_step": main_ms / med}
     emit(row)
     RECORD["profile"].append(row)
-    profile_window(f"{steps} decode steps, 4 slots", decode)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).to(dev)
     with torch.no_grad():
         model.prefill(params, toks)     # warm

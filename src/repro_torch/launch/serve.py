@@ -84,7 +84,8 @@ def main(argv=None):
     print(f"engine on {device}: {args.batch} requests, {slots} slots, "
           f"{engine.n_prefills} prefills, {engine.n_decode_steps} decode "
           f"steps -> {toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s, "
-          "kernel builds included on a first run)")
+          "kernel builds on a first run and the decode graph's capture "
+          "included)")
     print(f"finish reasons: {reasons}")
     print(f"stats: {engine.stats()}")
     print("sample:", list(out[0][:16]))

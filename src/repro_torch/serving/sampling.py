@@ -1,11 +1,19 @@
 """Per-request sampling: temperature / top-k / top-p / greedy + stop tokens.
 
-Every request carries its own :class:`SamplingParams`.  Greedy rows
-(``temperature <= 0``) take the argmax.  Sampled rows draw from the
-request's own ``torch.Generator``, seeded from ``SamplingParams.seed``, so a
-request's stream does not depend on the batch it shares.  The JAX
-package's PRNG stream cannot be reproduced in PyTorch: sampled tokens match
-it only in distribution, greedy tokens match exactly.
+Every request carries its own :class:`SamplingParams`.  :func:`sample` draws
+one token for every engine slot under that slot's parameters in one
+vectorized call (the per-slot knobs are tensors, so a mixed greedy/sampled
+batch is one call, on the device where the logits lie).  Greedy rows
+(``temperature <= 0``) take the argmax, whatever the other knobs say.
+
+Sampled rows draw by inverse CDF: the token is the first one whose
+cumulative masked probability reaches the row's uniform.  Each request's
+own ``torch.Generator``, seeded from ``SamplingParams.seed``, draws that
+uniform on the host, one a generated token (:func:`draw_uniform`), so a
+request's stream depends only on its seed and on how many tokens it has
+drawn, never on the batch it shares.  The JAX package draws with
+per-request PRNG keys, whose stream cannot be reproduced in PyTorch:
+sampled tokens match it only in distribution, greedy tokens match exactly.
 
 Filtering order: temperature scales the logits, top-k masks to the k
 highest, top-p keeps the smallest set whose probability mass reaches p
@@ -45,36 +53,79 @@ class SamplingParams:
         return self.temperature <= 0.0
 
 
-def _top_k_mask(logits, k: int):
-    """Mask a row's logits outside its k highest (k <= 0 = off)."""
-    if k <= 0:
-        return logits
-    kth = torch.topk(logits, min(k, logits.shape[-1])).values[-1]
-    return torch.where(logits >= kth, logits, NEG_INF)
+def _top_k_mask(logits, k):
+    """Mask logits outside each row's k highest.  k: (B,) i32, 0 = off."""
+    V = logits.shape[-1]
+    kk = torch.clamp(k.long(), 1, V)
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    kth = torch.take_along_dim(sorted_desc, (kk - 1)[:, None], dim=-1)
+    keep = (k <= 0)[:, None] | (logits >= kth)
+    return torch.where(keep, logits, NEG_INF)
 
 
-def _top_p_mask(logits, p: float):
-    """Nucleus mask of one row (p >= 1 = off): every token whose
-    probability reaches the threshold of the first sorted index where the
-    cumulative mass reaches p is kept (ties keep extra mass)."""
-    if p >= 1.0:
-        return logits
+def _top_p_mask(logits, p):
+    """Nucleus mask: keep the smallest prefix of the sorted distribution
+    whose cumulative probability reaches p.  p: (B,) f32, >= 1 = off."""
     probs = torch.softmax(logits.float(), dim=-1)
-    sp = torch.sort(probs, descending=True).values
+    sp = torch.sort(probs, dim=-1, descending=True).values
     csum = torch.cumsum(sp, dim=-1)
-    idx = int(torch.argmax((csum >= p).to(torch.int8)))
-    return torch.where(probs >= sp[idx], logits, NEG_INF)
+    # first sorted index where the cumulative mass reaches p; every token
+    # with probability >= that threshold is kept (ties keep extra mass)
+    idx = torch.argmax((csum >= p[:, None]).to(torch.int8), dim=-1)
+    thr = torch.take_along_dim(sp, idx[:, None], dim=-1)
+    keep = (p >= 1.0)[:, None] | (probs >= thr)
+    return torch.where(keep, logits, NEG_INF)
+
+
+def _inverse_cdf(masked, uniforms):
+    """First index whose cumulative probability reaches the row's uniform.
+    The sum runs in f64, so a vocabulary of 10^5 tokens keeps every token's
+    share; a uniform past the sum's end (rounding) takes the last kept
+    token, which is also the first index where the sum reaches its end."""
+    probs = torch.softmax(masked.float(), dim=-1)
+    cdf = torch.cumsum(probs, dim=-1, dtype=torch.float64)
+    u = uniforms.to(torch.float64)[:, None]
+    tok = torch.searchsorted(cdf, u)
+    last = torch.searchsorted(cdf, cdf[:, -1:].contiguous())
+    return torch.minimum(tok, last)[:, 0]
+
+
+def sample(logits, temperature, top_k, top_p, uniforms):
+    """Draw one token per row under per-row parameters.
+
+    logits: (B, V) f32; temperature/top_p: (B,) f32; top_k: (B,) i32;
+    uniforms: (B,) in (0, 1], one a row (greedy rows ignore theirs).
+    Returns (B,) int64 on the logits' device.
+    """
+    greedy_tok = torch.argmax(logits, dim=-1)
+    scaled = logits / torch.clamp_min(temperature, 1e-6)[:, None]
+    masked = _top_p_mask(_top_k_mask(scaled, top_k), top_p)
+    drawn = _inverse_cdf(masked, uniforms)
+    return torch.where(temperature <= 0.0, greedy_tok, drawn)
 
 
 def new_generator(params: SamplingParams) -> torch.Generator:
     return torch.Generator().manual_seed(int(params.seed))
 
 
-def sample_one(logits, params: SamplingParams, gen: torch.Generator) -> int:
-    """Draw one token from a (V,) row under ``params``."""
+def draw_uniform(params: SamplingParams, gen: torch.Generator) -> float:
+    """The uniform of a request's next token, in (0, 1]: one draw from its
+    generator when it samples, none (and 1.0) when it is greedy."""
     if params.greedy:
-        return int(torch.argmax(logits))
-    row = logits.float().cpu() / max(params.temperature, 1e-6)
-    row = _top_p_mask(_top_k_mask(row, params.top_k), params.top_p)
-    probs = torch.softmax(row, dim=-1)
-    return int(torch.multinomial(probs, 1, generator=gen))
+        return 1.0
+    return 1.0 - float(torch.rand((), generator=gen, dtype=torch.float64))
+
+
+def sample_one(logits, params: SamplingParams, gen: torch.Generator) -> int:
+    """Single-row convenience over :func:`sample` (prefill-time draw), on
+    the row's device."""
+    dev = logits.device
+    out = sample(logits[None].float(),
+                 torch.tensor([params.temperature], dtype=torch.float32,
+                              device=dev),
+                 torch.tensor([params.top_k], dtype=torch.int32, device=dev),
+                 torch.tensor([params.top_p], dtype=torch.float32,
+                              device=dev),
+                 torch.tensor([draw_uniform(params, gen)],
+                              dtype=torch.float64, device=dev))
+    return int(out[0])

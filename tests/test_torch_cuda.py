@@ -248,3 +248,117 @@ def test_paged_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError):                   # rep 9
         tcec_paged_attention.tcec_paged_attention(q.repeat(1, 9, 1)[:, :9],
                                                   kp, vp, bt, ln)
+
+
+# ----------------------------------------------------- the decode program
+
+def _smoke_engine(dev, maxp=66):
+    """The engine at the smoke config (2 layers, 2 kv heads, head dim 16)
+    on the card, pages of 4 tokens.  66 table columns make kernel 3 take
+    chunks of 2 pages (8 tokens), so the combine pass runs too."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = get_model(cfg).init(seed=0, device=dev)
+    assert tcec_paged_attention.chunk_pages(4, cfg.n_kv_heads, maxp, 4,
+                                            cfg.head_dim) == 2
+    return Engine(cfg, params, max_slots=4, num_pages=65, page_size=4,
+                  max_pages_per_slot=maxp, device=dev)
+
+
+def test_decode_graph_replay_bitwise_equals_eager(dev, monkeypatch):
+    """Every replayed step against eager ``_decode_and_sample`` on a copy
+    of the same state: logits, guard bits, tokens and the pools after the
+    step are bitwise equal.  Over 12 steps the lengths cross page (4) and
+    chunk (8) boundaries, greedy and sampled slots share steps (and the
+    last steps are all greedy: the sampler graph is skipped), a slot
+    finishes and stays empty for two steps, and a new request takes it."""
+    import numpy as np
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving import engine as em
+    eng = _smoke_engine(dev)
+    B, maxp = eng.max_slots, eng.max_pages_per_slot
+    launch = em._DecodeGraph.launch
+    sampled_steps = []
+
+    def checked(self, staged, sample):
+        pools = tree_map(torch.clone, eng.pools)
+        v = em._input_views(staged.to(dev), B, maxp)
+        out, done = launch(self, staged, sample)
+        done.synchronize()
+        toks, finite, logits = em._decode_and_sample(
+            eng.params, pools, v["block_tables"], v["lengths"],
+            v["next_tok"], v["temps"], v["topks"], v["topps"],
+            v["uniforms"], model=eng.model, cfg=eng.cfg)
+        assert torch.equal(logits, self.logits)
+        assert out[0].tolist() == finite.long().tolist()
+        assert out[1].tolist() == toks.tolist()
+        for a, b in zip(tree_leaves(pools), tree_leaves(eng.pools)):
+            assert torch.equal(a, b)
+        sampled_steps.append(sample)
+        return out, done
+
+    monkeypatch.setattr(em._DecodeGraph, "launch", checked)
+    rng = np.random.default_rng(0)
+    V = eng.cfg.vocab_size
+    for n, kw in ((6, dict(max_tokens=13)),
+                  (13, dict(max_tokens=5, temperature=0.8, top_k=20,
+                            top_p=0.9, seed=1)),
+                  (3, dict(max_tokens=3)),
+                  (21, dict(max_tokens=7, temperature=1.1, seed=2))):
+        eng.add_request(rng.integers(0, V, n), SamplingParams(**kw))
+    for step in range(12):
+        if step == 4:        # slot 2 has been empty since step 2
+            eng.add_request(rng.integers(0, V, 9), SamplingParams(
+                max_tokens=6, temperature=0.7, top_p=0.5, seed=3))
+        eng.step()
+    stats = eng.stats()
+    assert stats["decode_steps"] == stats["graph_replays"] == 12
+    assert len(sampled_steps) == 12
+    assert True in sampled_steps and False in sampled_steps
+    assert stats["sampler_replays"] == sum(sampled_steps)
+    assert all(r.finish_reason == "length" for r in eng.results().values())
+
+
+def test_decode_graph_counts_launches(dev):
+    """Each replay adds 7L + 1 to kernel 1's count and L to kernel 3's;
+    the capture adds nothing, the eager warm-up one step's worth."""
+    from repro_torch.serving import SamplingParams
+    eng = _smoke_engine(dev)
+    L = eng.cfg.n_layers
+    for n in (5, 7):          # one prefill of two prompts padded to 8
+        eng.add_request(list(range(1, n + 1)), SamplingParams(max_tokens=6))
+    mods = (tcec_matmul, tcec_attention, tcec_paged_attention)
+    before = [m.launches for m in mods]
+    eng.step()                    # prefill, warm-up, capture, one replay
+    stats = eng.stats()
+    assert stats["prefills"] == 1 and stats["decode_warmups"] == 1
+    assert stats["graph_replays"] == 1 and stats["capture_s"] > 0
+    assert [m.launches - n for m, n in zip(mods, before)] == [
+        (7 * L + 1) * 3, L, 2 * L]
+    for _ in range(3):
+        before = [m.launches for m in mods]
+        eng.step()
+        assert [m.launches - n for m, n in zip(mods, before)] == [
+            7 * L + 1, 0, L]
+
+
+def test_decode_graph_non_finite_slot_fails_only_that_slot(dev):
+    """NaN in one slot's cached K makes only that slot's guard bit false:
+    it finishes with ``error``, the others run to their length."""
+    from repro_torch.serving import SamplingParams
+    eng = _smoke_engine(dev)
+    rids = [eng.add_request(list(range(1, n + 1)), SamplingParams(
+        max_tokens=5, temperature=0.0 if i else 0.9, seed=i))
+        for i, n in enumerate((7, 9, 12))]
+    eng.step()
+    bad = eng._requests[rids[1]]
+    eng.pools["dense_blocks"]["k"][0, bad.pages[0], 2] = float("nan")
+    out = eng.run()
+    assert out[rids[1]].finish_reason == "error"
+    assert len(out[rids[1]]) == 2         # the tokens from before the NaN
+    for r in (rids[0], rids[2]):
+        assert out[r].finish_reason == "length" and len(out[r]) == 5
+    assert eng.stats()["numerics_errors"] == 1

@@ -25,6 +25,7 @@ from repro.launch.serve import generate as jax_generate  # noqa: E402
 from repro.models import get_model as jax_get_model  # noqa: E402
 from repro.serving import Engine as JaxEngine  # noqa: E402
 from repro.serving import SamplingParams as JaxSamplingParams  # noqa: E402
+from repro.serving import sampling as jax_sampling  # noqa: E402
 from repro.serving.kv_cache import (  # noqa: E402
     write_prompt_pages as jax_write_prompt_pages)
 from repro_torch.bridge import (numpy_from_tensor,  # noqa: E402
@@ -34,6 +35,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.serving import (Engine, PagePool, PagePoolError,  # noqa: E402
                                  RequestRejected, SamplingParams)
+from repro_torch.serving import sampling  # noqa: E402
 
 FORCED = dict(force=True, interpret=True, min_dim=0)
 ARCH = "qwen3-0.6b"
@@ -200,3 +202,132 @@ def test_serve_cli_runs_on_cpu(capsys):
     serve.main(["--arch", ARCH, "--smoke", "--batch", "3", "--prompt-len",
                 "6", "--gen", "4", "--max-slots", "2", "--device", "cpu"])
     assert "finish reasons: {'length': 3}" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------- sampler
+
+def _knob_rows(V, reps=2):
+    """Every (k, p) of k in {0, 1, 5, V + 3} x p in {0.3, 0.9, 1.0}, ``reps``
+    rows each, in one batch: (top_k i32, top_p f32)."""
+    ks, ps = np.meshgrid([0, 1, 5, V + 3], [0.3, 0.9, 1.0], indexing="ij")
+    return (np.repeat(ks.ravel(), reps).astype(np.int32),
+            np.repeat(ps.ravel(), reps).astype(np.float32))
+
+
+def test_sample_masks_equal_jax():
+    """The vectorized masks keep exactly what JAX's keep (same tie rules,
+    same "off" values), bit for bit, on rows with many tied logits."""
+    V = 40
+    k, p = _knob_rows(V)
+    rng = np.random.default_rng(11)
+    # logits on a coarse grid: every row has ties, at the k-th value too
+    logits = (np.round(rng.standard_normal((len(k), V)) * 2) / 2).astype(
+        np.float32)
+    t_logits = torch.from_numpy(logits)
+    tk = sampling._top_k_mask(t_logits, torch.from_numpy(k))
+    jk = jax_sampling._top_k_mask(jnp.asarray(logits), jnp.asarray(k))
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+    tp = sampling._top_p_mask(t_logits, torch.from_numpy(p))
+    jp = jax_sampling._top_p_mask(jnp.asarray(logits), jnp.asarray(p))
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    both = sampling._top_p_mask(tk, torch.from_numpy(p))
+    jboth = jax_sampling._top_p_mask(jk, jnp.asarray(p))
+    np.testing.assert_array_equal(both.numpy(), np.asarray(jboth))
+    kept = (np.asarray(jboth) > sampling.NEG_INF / 2).sum(-1)
+    assert kept.min() >= 1 and kept.max() == V       # masks on and off
+
+
+def test_sample_inverse_cdf_draw():
+    """A sampled row's token is the first index of its masked cumulative
+    distribution (float64 numpy reference) that reaches its uniform; a
+    greedy row's is the argmax.  The device sums f32 probabilities, which
+    lie within ~V 2^-24 of the f64 ones, so a uniform within 1e-6 of a
+    step of the distribution may land on either side of it."""
+    V = 50
+    k, p = _knob_rows(V, reps=5)
+    B = len(k)
+    rng = np.random.default_rng(12)
+    logits = rng.standard_normal((B, V)).astype(np.float32)
+    temps = rng.uniform(0.5, 1.5, B).astype(np.float32)
+    temps[::5] = 0.0                                   # greedy rows
+    u = 1.0 - rng.random(B)                            # (0, 1]
+    u[1] = 1.0
+    tok = sampling.sample(torch.from_numpy(logits), torch.from_numpy(temps),
+                          torch.from_numpy(k), torch.from_numpy(p),
+                          torch.from_numpy(u)).numpy()
+    masked = np.asarray(jax_sampling._top_p_mask(jax_sampling._top_k_mask(
+        jnp.asarray(logits / np.maximum(temps, 1e-6)[:, None]),
+        jnp.asarray(k)), jnp.asarray(p)), np.float64)
+    for b in range(B):
+        if temps[b] <= 0:
+            assert tok[b] == int(np.argmax(logits[b]))
+            continue
+        keep = masked[b] > sampling.NEG_INF / 2
+        w = np.where(keep, np.exp(masked[b] - masked[b][keep].max()), 0.0)
+        cdf = np.cumsum(w / w.sum())
+        ref = min(int(np.searchsorted(cdf, u[b], side="left")),
+                  int(np.flatnonzero(keep)[-1]))
+        assert keep[tok[b]]
+        if tok[b] != ref:
+            lo, hi = sorted((tok[b], ref))
+            assert abs(cdf[lo] - u[b]) <= 1e-6 and hi == lo + 1, (b, tok[b],
+                                                                   ref)
+
+
+@pytest.mark.parametrize("top_k,top_p", [(0, 1.0), (6, 0.8)])
+def test_sample_matches_jax_in_distribution(top_k, top_p):
+    """Draws from seeded uniforms have JAX's support and pass a chi-square
+    test against the masked softmax (p-value above 1e-3); JAX's own
+    draws, from seeded keys, pass the same test."""
+    from scipy import stats
+    V, N, temp = 10, 20000, 0.8
+    rng = np.random.default_rng(13)
+    row = rng.standard_normal(V).astype(np.float32) * 1.5
+    logits = np.tile(row, (N, 1))
+    temps = np.full(N, temp, np.float32)
+    ks = np.full(N, top_k, np.int32)
+    pp = np.full(N, top_p, np.float32)
+    gen = torch.Generator().manual_seed(0)
+    u = 1.0 - torch.rand(N, generator=gen, dtype=torch.float64)
+    tok = sampling.sample(torch.from_numpy(logits), torch.from_numpy(temps),
+                          torch.from_numpy(ks), torch.from_numpy(pp),
+                          u).numpy()
+    masked = np.asarray(jax_sampling._top_p_mask(jax_sampling._top_k_mask(
+        jnp.asarray(row[None] / temp), jnp.asarray(ks[:1])),
+        jnp.asarray(pp[:1])), np.float64)[0]
+    keep = masked > sampling.NEG_INF / 2
+    w = np.where(keep, np.exp(masked - masked[keep].max()), 0.0)
+    probs = w / w.sum()
+    counts = np.bincount(tok, minlength=V)
+    assert set(np.flatnonzero(counts)) == set(np.flatnonzero(keep))
+    assert stats.chisquare(counts[keep], N * probs[keep]).pvalue > 1e-3
+    keys = jax.random.split(jax.random.PRNGKey(0), N)
+    jtok = np.asarray(jax_sampling.sample(
+        jnp.asarray(logits), jnp.asarray(temps), jnp.asarray(ks),
+        jnp.asarray(pp), keys))
+    jcounts = np.bincount(jtok, minlength=V)
+    assert set(np.flatnonzero(jcounts)) == set(np.flatnonzero(keep))
+    assert stats.chisquare(jcounts[keep], N * probs[keep]).pvalue > 1e-3
+
+
+def test_engine_mixed_batch_greedy_rows_equal_jax(smoke):
+    """Greedy requests that share decode steps with sampled ones give
+    exactly the JAX engine's tokens; the sampled ones only their count."""
+    jcfg, jparams, cfg, params = smoke
+    rng = np.random.default_rng(14)
+    lens = [5, 9, 12, 4, 7, 10]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    knobs = [dict(), dict(temperature=0.9, top_k=20, top_p=0.9, seed=1),
+             dict(), dict(temperature=1.2, seed=2), dict(),
+             dict(temperature=0.7, top_p=0.5, seed=3)]
+    kw = dict(max_slots=3, num_pages=33, page_size=4)
+    with numerics.use(**FORCED):
+        jout = JaxEngine(jcfg, jparams, **kw).run(
+            prompts, [JaxSamplingParams(max_tokens=6, **k) for k in knobs])
+    out = Engine(cfg, params, device="cpu", **kw).run(
+        prompts, [SamplingParams(max_tokens=6, **k) for k in knobs])
+    for rid, k in enumerate(knobs):
+        assert out[rid].finish_reason == jout[rid].finish_reason == "length"
+        assert len(out[rid]) == len(jout[rid]) == 6
+        if not k:
+            assert list(out[rid]) == list(jout[rid])
