@@ -21,8 +21,13 @@ Phases, each of which raises on a failed check (nothing is caught):
      kernel's and ``torch.matmul``'s times with the host taken out
      (``device_only_ms``: launches queued behind a sleeping kernel); the
      MLP gate also runs at the largest M of the decode path and the
-     smallest of the wgmma path.  Kernel 2 runs at all four of the engine's
-     prefill shapes and once at x10 with a softcap and a window; its
+     smallest of the wgmma path; three rows take the backward's products
+     of a training step at 8 x 128 tokens (the unembedding's and the MLP
+     down projection's weight gradients, whose A is a transposed view the
+     entry copies first, ``copy_ms``; the tied unembedding's input
+     gradient, K 151936).  Kernel 2 runs at all four of the engine's
+     prefill shapes, at the training shape 8 x 128 and once at x10 with a
+     softcap and a window; its
      ``ms`` is the public entry's, ``kernel_only_ms`` the kernel's launch
      alone on operands already contiguous f32.  Kernel 3 runs at the
      engine's decode shape, a ragged one with a window, and 32 slots of
@@ -55,7 +60,20 @@ Phases, each of which raises on a failed check (nothing is caught):
      its kernels, the device's idle share, each port kernel's device time
      and launches, and the largest kernels.  Last, the decode program's
      two graphs are replayed back to back between CUDA events: their
-     device time with the host taken out.
+     device time with the host taken out;
+  7. training: (a) ``train()`` on qwen3-0.6b at full width, random
+     weights from seed 0, batch 8 x 128, lr 1e-3, warmup 2, 8 steps, no
+     checkpoint; the launch counts are zeroed before and read after (34L
+     + 3 of kernel 1 and 2L of kernel 2 a step), every loss is finite and
+     the last below the first; the row gives the step time (median and
+     spread of steps 3-8) and the peak memory, then one more step is
+     profiled as in phase 6; (b) one full-width ``loss_fn`` and backward
+     through the kernels against the same under ``dispatch.use_plain()``:
+     loss, gradient norm and the worst leaf within 1e-3 (relative); the
+     kernel side launches kernel 1 34L + 3 and kernel 2 2L times, the plain
+     side (backward and recomputes included) neither;
+     (c) a 2-layer cut at full widths trains 2 steps and checkpoints,
+     resumes to 4, and must end within 1e-5 of a fresh run to 4.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -63,6 +81,7 @@ also written to ``chiprun_out/chip_smoke.json``.
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -132,33 +151,39 @@ def bound(nbytes, ops, rate):
 # ------------------------------------------------------------- kernel 1
 
 def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
-                plain_reps=2, policy="tcec_bf16x6"):
+                plain_reps=2, policy="tcec_bf16x6", trans_a=False):
+    """Kernel 1 at one product.  ``trans_a``: A is the transpose of a
+    contiguous (K, M) tensor, as in a weight gradient ``x^T . g``; the
+    entry then copies it first (``dispatch._canonicalize`` does), and the
+    row gives that copy's time alone (``copy_ms``, device only)."""
     from repro_torch.core import get_policy
     from repro_torch.kernels import ops, tcec_matmul as tm
     g = torch.Generator(device=dev).manual_seed(M + N + K)
-    a = torch.randn(M, K, generator=g, device=dev)
+    a = (torch.randn(K, M, generator=g, device=dev).T if trans_a
+         else torch.randn(M, K, generator=g, device=dev))
+
+    def entry(b):
+        return ops.tcec_matmul(a.contiguous(), b, policy)
     # `copies` weight copies of more than the 50 MB L2 in all, so a timed
     # launch reads its weight cold, as each layer of a decode step does
     shape = (N, K) if trans_b else (K, N)
     ws = [torch.randn(shape, generator=g, device=dev) * K ** -0.5
           for _ in range(copies)]
     bs = [w.T if trans_b else w for w in ws]
-    out = ops.tcec_matmul(a, bs[0], policy)
+    out = entry(bs[0])
     ref = tm.tcec_matmul_plain(a, bs[0], policy)
     tol = 8 * K * U24 * (a.abs() @ bs[0].abs())
     err = (out - ref).abs()
     check(bool((err <= tol).all()), f"{name}: kernel 1 vs plain beyond "
           "8 K 2^-24 (|A| @ |B|)")
-    ms = time_ms(rotating(lambda i: ops.tcec_matmul(a, bs[i % copies],
-                                                    policy)), reps)
+    ms = time_ms(rotating(lambda i: entry(bs[i % copies])), reps)
     plain_ms = time_ms(rotating(lambda i: tm.tcec_matmul_plain(
         a, bs[i % copies], policy)), plain_reps)
     lib_ms = time_ms(rotating(lambda i: torch.matmul(a, bs[i % copies])),
                      reps)
     # the same launches with host time taken out (decode rows are host
     # bound through the entry, as torch.matmul is)
-    dev_ms = device_only_ms(lambda i: ops.tcec_matmul(a, bs[i % copies],
-                                                      policy), reps)
+    dev_ms = device_only_ms(lambda i: entry(bs[i % copies]), reps)
     lib_dev_ms = device_only_ms(lambda i: torch.matmul(a, bs[i % copies]),
                                 reps)
     passes = get_policy(policy).passes
@@ -167,7 +192,8 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
     blocks, per_sm = tm.grid(M, N, 1, trans_b, policy)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     row = {"kernel": "tcec_matmul", "shape": name, "M": M, "N": N, "K": K,
-           "trans_b": trans_b, "policy": policy, "path": tm.path(M),
+           "trans_a": trans_a, "trans_b": trans_b, "policy": policy,
+           "path": tm.path(M),
            "blocks": blocks, "blocks_per_sm": per_sm,
            "waves": blocks / (per_sm * sms),
            "max_abs_err": float(err.max()),
@@ -177,11 +203,13 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
            "library_device_only_ms": lib_dev_ms,
            "library": "torch.matmul f32, TF32 off"}
+    if trans_a:
+        row["copy_ms"] = device_only_ms(lambda i: a.contiguous(), reps)
     if policy == "tcec_bf16x6":
         f32_gate(row, a.double() @ bs[0].double(), out, a @ bs[0])
     emit(row)
     RECORD["kernel_checks"].append(row)
-    del ws, bs, out, ref, tol, err
+    del a, ws, bs, out, ref, tol, err
     torch.cuda.empty_cache()
     return row
 
@@ -578,8 +606,9 @@ def profile_window(name, fn, top=8):
     """Run ``fn`` under ``torch.profiler``; where its time went on the card:
     wall time (host clock around work that ends in a synchronize), the
     summed device time of its kernels, the idle share, each port kernel's
-    device time and launches (kernel 3's two passes together), the largest
-    kernels."""
+    device time and launches (kernel 3's two passes together), the device
+    time of PyTorch's copy kernels (contiguous copies: ``_canonicalize``'s
+    among them), the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -595,8 +624,10 @@ def profile_window(name, fn, top=8):
     busy = sum(k[0] for k in kernels) if kernels else None
     port = {name: [sum(k[i] for k in kernels if any(p in k[2] for p in pats))
                    for i in (0, 1)] for name, pats in PORT_KERNELS.items()}
+    copies = sum(k[0] for k in kernels if "copy" in k[2])
     row = {"window": name, "wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": 1 - busy / wall_ms if kernels else None,
+           "copy_kernels_ms": copies,
            "port_kernels": {k: {"ms": ms, "count": n}
                             for k, (ms, n) in port.items()},
            "kernels": [{"ms": ms, "count": n, "name": key[:90]}
@@ -658,6 +689,200 @@ def where_time_goes(dev, cfg, model, params, timed=32, steps=4):
         profile_window("prefill 2 x 512", lambda: model.prefill(params, toks))
 
 
+# ------------------------------------------------------------ phase 7
+
+def training(dev):
+    """Phase 7: the training path at full width; returns its launches."""
+    launches, state = train_full_width(dev)         # 7a
+    grads_vs_plain(dev, state["params"])            # 7b
+    del state
+    torch.cuda.empty_cache()
+    restart_replay(dev)                             # 7c
+    return launches
+
+
+def _quiet(*_):
+    pass
+
+
+def train_full_width(dev, steps=8):
+    """7a: ``train()`` on qwen3-0.6b at full width, seed-0 weights, batch
+    8 x 128, lr 1e-3, warmup 2, no checkpoint; then one more step under
+    ``torch.profiler``."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.kernels import tcec_attention as ta, tcec_matmul as tm
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainLoopConfig, train
+    cfg = get_config("qwen3-0.6b")
+    opt = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    data = DataConfig(seed=0, global_batch=8, seq_len=128)
+    loop = TrainLoopConfig(total_steps=steps, ckpt_every=steps + 1,
+                           straggler_factor=1e9)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mods = (tm, ta)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        for m in mods:
+            m.launches = 0
+        state, hist = train(cfg, opt, data, loop, ckpt_dir, device=dev,
+                            log=_quiet)
+        torch.cuda.synchronize()
+        launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+        check(not os.listdir(ckpt_dir), "no checkpoint written")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    times = [h["time_s"] * 1e3 for h in hist[2:]]       # steps 3 to 8
+    L = cfg.n_layers
+    # a step: the forward's 7L + 1 products, the remat recompute's 7L, two
+    # gradient products each, and in each layer's attention backward the
+    # recomputed composition's 2 products and their 4 gradient products;
+    # kernel 2 in each layer's forward and again in its recompute
+    per_step = {"tcec_matmul": 34 * L + 3, "tcec_attention": 2 * L}
+    row = {"training": "qwen3-0.6b full width, random weights (seed 0), "
+           "batch 8 x 128, lr 1e-3, warmup 2, remat", "steps": steps,
+           "losses": losses, "step_ms_median": float(np.median(times)),
+           "step_ms_min": min(times), "step_ms_max": max(times),
+           "step_ms_all": [h["time_s"] * 1e3 for h in hist],
+           "tokens_per_s": 1024e3 / float(np.median(times)),
+           "peak_memory_gb": peak / 1e9, "launches": launches,
+           "launches_per_step": per_step}
+    emit(row)
+    RECORD["training"] = row
+    check(all(math.isfinite(x) for x in losses), "every loss finite")
+    check(losses[-1] < losses[0], "the last loss below the first")
+    check(all(launches[k] == steps * n for k, n in per_step.items()),
+          "kernel 1: 34L + 3 and kernel 2: 2L launches a training step")
+    step_fn = make_train_step(cfg, opt)
+    batch = device_batch(cfg, data, steps, dev)
+    prof = profile_window("train step 8 x 128",
+                          lambda: step_fn(state, batch), top=10)
+    # the profiler's own host cost stretches its window, so the idle share
+    # of a step is its kernels' summed time against the unprofiled median
+    busy = prof["device_busy_ms"]
+    row = {"window": "train step 8 x 128, shares of device busy time",
+           "device_busy_ms": busy,
+           "idle_share_of_median_step": 1 - busy / row["step_ms_median"],
+           "copy_share": prof["copy_kernels_ms"] / busy,
+           **{f"{k}_share": v["ms"] / busy
+              for k, v in prof["port_kernels"].items() if v["count"]}}
+    emit(row)
+    RECORD["profile"].append(row)
+    return launches, state
+
+
+def grads_vs_plain(dev, params):
+    """7b: one full-width ``loss_fn`` and backward through the kernels
+    against the same under ``dispatch.use_plain()``; the kernel side must
+    launch kernels 1 and 2 as a training step does, and the plain side,
+    backward and recomputes included, must launch neither."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.kernels import (dispatch, tcec_attention as ta,
+                                     tcec_matmul as tm)
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import tree_leaves, tree_map
+    cfg = get_config("qwen3-0.6b")
+    model = get_model(cfg)
+    batch = device_batch(cfg, DataConfig(seed=1, global_batch=8,
+                                         seq_len=128), 0, dev)
+
+    def loss_and_grads():
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = model.loss_fn(p, batch)
+        return float(loss.detach()), torch.autograd.grad(loss,
+                                                         tree_leaves(p))
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"tcec_matmul": tm.launches, "tcec_attention": ta.launches}
+
+    c0 = counts()
+    loss, grads = loss_and_grads()
+    c1 = counts()
+    with dispatch.use_plain():
+        ploss, pgrads = loss_and_grads()
+    c2 = counts()
+    kernel_launches = {k: c1[k] - c0[k] for k in c0}
+    plain_launches = {k: c2[k] - c1[k] for k in c0}
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    pnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in pgrads)))
+    leaf = max(float((g - p).abs().max() / p.abs().max())
+               for g, p in zip(grads, pgrads))
+    row = {"grads_check": "qwen3-0.6b full width, 8 x 128: loss_fn + "
+           "backward, kernels vs dispatch.use_plain()",
+           "loss": loss, "plain_loss": ploss,
+           "loss_rel_diff": abs(loss - ploss) / abs(ploss),
+           "grad_norm": norm, "plain_grad_norm": pnorm,
+           "grad_norm_rel_diff": abs(norm - pnorm) / pnorm,
+           "worst_leaf_rel_diff": leaf,
+           "tolerance": "1e-3 each (leaf: max|g - g_plain| / max|g_plain|)",
+           "kernel_launches": kernel_launches,
+           "plain_launches": plain_launches}
+    emit(row)
+    RECORD["grads_check"] = row
+    L = cfg.n_layers
+    check(kernel_launches == {"tcec_matmul": 34 * L + 3,
+                              "tcec_attention": 2 * L},
+          "kernel side: 34L + 3 kernel-1 and 2L kernel-2 launches")
+    check(plain_launches == {"tcec_matmul": 0, "tcec_attention": 0},
+          "plain side: no kernel launch, backward included")
+    check(row["loss_rel_diff"] <= 1e-3, "loss vs plain")
+    check(row["grad_norm_rel_diff"] <= 1e-3, "gradient norm vs plain")
+    check(leaf <= 1e-3, "every gradient leaf vs plain")
+
+
+def restart_replay(dev):
+    """7c: a 2-layer cut of qwen3-0.6b at full widths trains 2 steps and
+    checkpoints, resumes to 4; a fresh run to 4 in another directory must
+    end within 1e-5 of it (not bitwise: the embedding's gradient is a
+    scatter-add with atomics)."""
+    import tempfile
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.train.loop import TrainLoopConfig, train
+    cfg = get_config("qwen3-0.6b").replace(n_layers=2)
+    opt = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=4)
+    data = DataConfig(seed=0, global_batch=8, seq_len=128)
+
+    def loop(steps, every):
+        return TrainLoopConfig(total_steps=steps, ckpt_every=every,
+                               straggler_factor=1e9)
+
+    with tempfile.TemporaryDirectory() as run, \
+            tempfile.TemporaryDirectory() as fresh_dir:
+        t0 = time.perf_counter()
+        train(cfg, opt, data, loop(2, 2), run, device=dev, log=_quiet)
+        first_s = time.perf_counter() - t0
+        check(ckpt.latest_step(run) == 2, "a checkpoint at step 2")
+        ckpt_mb = sum(f.stat().st_size for f in
+                      Path(run, "step_00000002").iterdir()) / 1e6
+        t0 = time.perf_counter()
+        resumed, hist = train(cfg, opt, data, loop(4, 100), run, device=dev,
+                              log=_quiet)
+        resume_s = time.perf_counter() - t0
+        fresh, fhist = train(cfg, opt, data, loop(4, 100), fresh_dir,
+                             device=dev, log=_quiet)
+    check([h["step"] for h in hist] == [3, 4], "the resume runs steps 3-4")
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(resumed["params"]), tree_leaves(fresh["params"])))
+    row = {"restart_replay": "qwen3-0.6b cut to 2 layers, full widths, "
+           "8 x 128: 2 steps + checkpoint, resume to 4, against a fresh "
+           "run to 4", "max_abs_param_diff": diff, "limit": 1e-5,
+           "checkpoint_mb": ckpt_mb, "first_run_s": first_s,
+           "resume_run_s": resume_s,
+           "resumed_losses": [h["loss"] for h in hist],
+           "fresh_losses": [h["loss"] for h in fhist]}
+    emit(row)
+    RECORD["restart_replay"] = row
+    check(diff <= 1e-5, "resumed params within 1e-5 of the fresh run's")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -702,6 +927,15 @@ def main():
                 trans_b=True, reps=20, plain_reps=3)
     matmul_case("ragged 1000^3", 1000, 1000, 1000, dev, reps=10,
                 plain_reps=5)
+    # the backward of a training step at 8 x 128 tokens (phase 7): the
+    # weight gradients x^T . g read A transposed, the tied unembedding's
+    # input gradient g . E contracts over the vocabulary
+    matmul_case("unembed dW at training (8x128)", 1024, 151936, 1024, dev,
+                trans_a=True, reps=3, plain_reps=1)
+    matmul_case("unembed dx at training (8x128)", 1024, 1024, 151936, dev,
+                reps=3, plain_reps=1)
+    matmul_case("mlp down dW at training (8x128)", 3072, 1024, 1024, dev,
+                trans_a=True, reps=20, plain_reps=5)
     matmul_epilogue_check(dev)
     # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
     # and a window (ragged: 150 is a multiple of neither key tile)
@@ -709,6 +943,7 @@ def main():
     attention_case("prefill 2x208 (ragged)", 2, 208, 16, 8, 128, dev)
     attention_case("prefill 2x64", 2, 64, 16, 8, 128, dev)
     attention_case("prefill 2x32", 2, 32, 16, 8, 128, dev)
+    attention_case("training 8x128, 16/8 heads", 8, 128, 16, 8, 128, dev)
     attention_case("x10, softcap 30, window 100, 2x150", 2, 150, 16, 8, 128,
                    dev, policy="tcec_bf16x10", window=100, softcap=30.0)
     k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
@@ -722,6 +957,7 @@ def main():
     paper_check(dev)                               # phase 3
     launches, model = main_path(dev)               # phases 4 and 5
     where_time_goes(dev, *model)                   # phase 6
+    train_launches = training(dev)                 # phase 7
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -732,7 +968,8 @@ def main():
             ("tcec_paged_attention", k3, "tcec_paged_attention.py:61")):
         kernels.append({
             "name": name, "route": "cuda", "source": src.format(name),
-            "replaces": rep.format(replaces), "launches": launches[name],
+            "replaces": rep.format(replaces),
+            "launches": launches[name] + train_launches.get(name, 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

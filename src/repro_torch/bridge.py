@@ -1,8 +1,9 @@
 """Carry parameters and arrays between numpy (and so JAX) and the port.
 
 ``torch`` cannot reproduce ``jax.random``, so the parity tests build a
-model with the JAX package's ``lm.init``, turn its leaves into numpy arrays
-and hand them here.  numpy has no native bf16 or fp8: those dtypes (from
+model (and its optimizer state) with the JAX package, turn its leaves into
+numpy arrays and hand them here.  numpy has no native bf16 or fp8: those
+dtypes (from
 ``ml_dtypes``, as JAX makes them) are moved bit for bit through uint16 /
 uint8 views, so the round trip is exact.
 """
@@ -24,7 +25,7 @@ _TORCH_NARROW = {tdt: (ti, ni) for ni, ti, tdt in _NARROW.values()}
 
 def tensor_from_numpy(arr, device="cpu") -> torch.Tensor:
     """An exact torch copy of ``arr`` (bf16 and fp8 included)."""
-    arr = np.ascontiguousarray(np.asarray(arr))
+    arr = np.asarray(arr, order="C")      # keeps 0-d arrays 0-d
     narrow = _NARROW.get(arr.dtype.name)
     if narrow is None:
         return torch.from_numpy(arr.copy()).to(device)
@@ -46,8 +47,11 @@ def numpy_from_tensor(t: torch.Tensor, np_dtype=None) -> np.ndarray:
 
 
 def params_from_jax(tree, device=None):
-    """Map a JAX ``lm.init`` parameter tree (nested dicts whose leaves are
-    numpy or JAX arrays) onto the port's parameter tree, key for key."""
+    """Map a JAX tree of nested dicts whose leaves are numpy or JAX arrays
+    onto the port's tree, key for key and bit for bit: an ``lm.init``
+    parameter tree, or a whole train state ``{"params", "opt"}`` whose
+    AdamW state ``{"m", "v", "step"}`` keeps its dtypes (the int32 step,
+    bf16 moments, factored ``{"row", "col"}`` second moments)."""
     dev = resolve_device(device)
 
     def go(node):
@@ -56,3 +60,4 @@ def params_from_jax(tree, device=None):
         return tensor_from_numpy(node, dev)
 
     return go(tree)
+

@@ -11,9 +11,13 @@ bf16 split policies to ``kernels.dispatch`` (kernel 1 on a CUDA tensor, its
 plain version on the CPU) and keeps the term expansion :func:`_tcec_dot`
 for the policies the kernel does not take (fp16 / fp8 upcast policies).
 
-Forward only in this package so far: the ``autograd.Function`` that runs
-the same policy for the gradient GEMMs comes with training.  The
-compensated (TwoSum) x9 path is not ported yet and raises.
+Gradients keep the policy: :class:`_PolicyDot` (the counterpart of the JAX
+package's ``_make_dg`` ``custom_vjp``) runs the backward's two products
+``da = g . b`` and ``db = a . g`` through :func:`_dot_impl` under the same
+policy, so on the card they run kernel 1 too.  The front-ends take it only
+when autograd needs it (grad mode on and an operand that requires grad);
+otherwise they call :func:`_dot_impl` directly, so serving pays nothing
+for it.  The compensated (TwoSum) x9 path is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -210,14 +214,56 @@ def _canonical_dims(nbatch: int, nm: int, nk: int):
     return ((ak, bk), (bdims, bdims))
 
 
+class _PolicyDot(torch.autograd.Function):
+    """The canonical core ``(batch..., m..., k...) x (batch..., k..., n...)
+    -> (batch..., m..., n...)`` with a policy-preserving backward: both
+    gradient products run through :func:`_dot_impl` under the forward's
+    policy (a ``bf16`` policy rounds the cotangent to bf16 as well), and
+    come back in the operands' dtypes."""
+
+    @staticmethod
+    def forward(ctx, at, bt, policy, nbatch, nm, nk, nn):
+        ctx.save_for_backward(at, bt)
+        ctx.policy, ctx.counts = policy, (nbatch, nm, nk, nn)
+        return _dot_impl(at, bt, policy, _canonical_dims(nbatch, nm, nk))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        at, bt = ctx.saved_tensors
+        nbatch, nm, nk, nn = ctx.counts
+        bdims = tuple(range(nbatch))
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            # g: (batch, m, n); da = g . bt over n -> (batch, m, k)
+            gn = tuple(range(nbatch + nm, nbatch + nm + nn))
+            btn = tuple(range(nbatch + nk, nbatch + nk + nn))
+            da = _dot_impl(g, bt, ctx.policy,
+                           ((gn, btn), (bdims, bdims))).to(at.dtype)
+        if ctx.needs_input_grad[1]:
+            # db = at . g over m -> (batch, k, n)
+            m = tuple(range(nbatch, nbatch + nm))
+            db = _dot_impl(at, g, ctx.policy,
+                           ((m, m), (bdims, bdims))).to(bt.dtype)
+        return da, db, None, None, None, None, None
+
+
+def _core(at, bt, policy: PrecisionPolicy, nbatch, nm, nk, nn):
+    """The canonical core: through :class:`_PolicyDot` when autograd needs
+    a gradient, else :func:`_dot_impl` alone."""
+    if torch.is_grad_enabled() and (at.requires_grad or bt.requires_grad):
+        return _PolicyDot.apply(at, bt, policy, nbatch, nm, nk, nn)
+    return _dot_impl(at, bt, policy, _canonical_dims(nbatch, nm, nk))
+
+
 def policy_mm(a, b, policy=None):
-    """(M, K) @ (K, N) -> (M, N) f32 under ``policy`` (forward only)."""
-    return _dot_impl(a, b, get_policy(policy), _canonical_dims(0, 1, 1))
+    """(M, K) @ (K, N) -> (M, N) f32 under ``policy``."""
+    return _core(a, b, get_policy(policy), 0, 1, 1, 1)
 
 
 def policy_bmm(a, b, policy=None):
     """(B, M, K) @ (B, K, N) -> (B, M, N) f32 under ``policy``."""
-    return _dot_impl(a, b, get_policy(policy), _canonical_dims(1, 1, 1))
+    return _core(a, b, get_policy(policy), 1, 1, 1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -272,8 +318,8 @@ def pdot(subscripts: str, a, b, policy=None):
 
     at = a.permute(ax(a_sub, batch + m_dims + contract))
     bt = b.permute(ax(b_sub, batch + contract + n_dims))
-    o = _dot_impl(at, bt, policy,
-                  _canonical_dims(len(batch), len(m_dims), len(contract)))
+    o = _core(at, bt, policy, len(batch), len(m_dims), len(contract),
+              len(n_dims))
     cur = batch + m_dims + n_dims
     return o.permute(ax("".join(cur), out))
 

@@ -1,0 +1,58 @@
+"""Deterministic synthetic data pipeline (the port's copy of the JAX
+package's ``data/pipeline.py``).
+
+Token/label batches come from a counter-based numpy generator seeded by
+``(seed, step, host)``, so a restart replays the exact stream, and each
+host makes only its slice of the global batch.  The numpy code is the JAX
+package's, so a batch is bitwise the one JAX makes for the same
+``(seed, step, host)``.  Only the text-only families are ported: the VLM
+and audio stubs' extra inputs raise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    seed: int = 0
+    global_batch: int = 8
+    seq_len: int = 128
+
+
+def _rng(seed: int, step: int, host: int):
+    return np.random.default_rng(
+        np.random.SeedSequence([seed, step, host]))
+
+
+def host_batch(cfg, data_cfg: DataConfig, step: int,
+               host_index: int = 0, num_hosts: int = 1) -> dict:
+    """The host-local slice of the global batch at ``step`` (numpy int32
+    ``tokens`` and ``labels``, (b, seq_len))."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family's inputs are not ported "
+            "to PyTorch yet")
+    if data_cfg.global_batch % num_hosts:
+        raise ValueError(f"global batch {data_cfg.global_batch} does not "
+                         f"split over {num_hosts} hosts")
+    b = data_cfg.global_batch // num_hosts
+    s = data_cfg.seq_len
+    rng = _rng(data_cfg.seed, step, host_index)
+    # zipf-ish marginals: more realistic logit/softmax magnitudes than uniform
+    z = rng.zipf(1.3, size=(b, s + 1))
+    tokens_full = np.minimum(z - 1, cfg.vocab_size - 1).astype(np.int32)
+    return {"tokens": tokens_full[:, :s],
+            "labels": tokens_full[:, 1:s + 1].copy()}
+
+
+def device_batch(cfg, data_cfg: DataConfig, step: int, device=None) -> dict:
+    """The global batch at ``step`` as int32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in host_batch(cfg, data_cfg, step).items()}

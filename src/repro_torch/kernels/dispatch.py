@@ -16,7 +16,10 @@ The decision follows the tensor's device and the policy:
 to the kernels' plain PyTorch versions instead, on any device (the
 counterpart of the JAX package's ``numerics.use(enabled=False)``); it exists
 to compare the kernel path with the plain path on the card, and nothing on
-the main path enters it.
+the main path enters it.  The scope is process-wide, not per thread:
+autograd runs a CUDA backward on a worker thread of its own, and the
+backward's products, the attention recompute and the remat recompute must
+be plain too.
 
 Routing difference from the JAX package: JAX's ``_canonicalize`` declines
 contractions with more than one free dim per operand, so on the TPU every
@@ -39,22 +42,26 @@ from .tcec_matmul import takes_policy, tcec_matmul_plain
 from .tcec_paged_attention import (tcec_paged_attention,
                                    tcec_paged_attention_plain)
 
-_scope = threading.local()
+_lock = threading.Lock()
+_plain_depth = 0
 
 
 @contextlib.contextmanager
 def use_plain():
-    """Run every dispatched kernel call as its plain PyTorch version."""
-    prev = getattr(_scope, "plain", False)
-    _scope.plain = True
+    """Run every dispatched kernel call as its plain PyTorch version, on
+    every thread of the process, until the scope exits."""
+    global _plain_depth
+    with _lock:
+        _plain_depth += 1
     try:
         yield
     finally:
-        _scope.plain = prev
+        with _lock:
+            _plain_depth -= 1
 
 
 def plain_active() -> bool:
-    return getattr(_scope, "plain", False)
+    return _plain_depth > 0
 
 
 def eligible_policy(policy: PrecisionPolicy) -> bool:

@@ -16,6 +16,7 @@ def get_model(cfg) -> SimpleNamespace:
             f"family {cfg.family!r} is not ported to PyTorch yet")
     return SimpleNamespace(
         init=lambda seed=0, device=None: lm.init(cfg, seed, device),
+        loss_fn=lambda params, batch: lm.loss_fn(params, batch, cfg),
         forward_logits=lambda params, tokens: lm.forward(params, tokens, cfg),
         prefill=lambda params, tokens, positions=None: lm.prefill(
             params, cfg, tokens, positions),

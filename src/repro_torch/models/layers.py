@@ -1,7 +1,10 @@
 """Shared neural layers of the dense family.  Every contraction routes
 through ``repro_torch.core.pdot``, so the paper's error-corrected GEMM is a
 config knob for the whole model; attention routes to kernel 2 (prefill)
-and kernel 3 (paged decode) through ``kernels.dispatch``.
+and kernel 3 (paged decode) through ``kernels.dispatch``.  Kernel 2 has no
+backward of its own: under autograd :func:`sdpa` wraps it in
+:class:`_FusedSDPA`, whose backward recomputes the pdot composition
+:func:`mha` and differentiates that (JAX's ``_fused_sdpa``).
 
 Layouts follow the JAX package: activations (B, S, H, hd), projection
 weights (D, H, hd) and (H, hd, D).  Two details that are easy to get
@@ -12,11 +15,12 @@ pairs.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import pdot
+from repro_torch.core import get_policy, pdot
 from repro_torch.kernels import dispatch
 from .modules import dense_init, zeros
 
@@ -109,9 +113,41 @@ def mha(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
     return out.reshape(B, S, H, hdv)
 
 
+class _FusedSDPA(torch.autograd.Function):
+    """Kernel 2 forward; the backward recomputes attention through the pdot
+    composition :func:`mha` on the saved q, k, v and differentiates it.  The
+    composition's pdots carry ``core.policy._PolicyDot``, so the gradient
+    GEMMs run kernel 1 under the same policy."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, policy, softcap, causal, window):
+        ctx.save_for_backward(q, k, v, q_pos, k_pos)
+        ctx.cfg = SimpleNamespace(mix_policy=policy, attn_softcap=softcap)
+        ctx.causal, ctx.window = causal, window
+        return dispatch.attention(q, k, v, policy=policy, q_pos=q_pos,
+                                  k_pos=k_pos, causal=causal, window=window,
+                                  softcap=softcap)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, q_pos, k_pos = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = mha(*qkv, ctx.cfg, q_pos, k_pos, ctx.causal, ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g.float())
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 def sdpa(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
     """Scaled-dot-product attention router: kernel 2 for the split
-    policies, the pdot composition for the others."""
+    policies (through :class:`_FusedSDPA` when autograd needs a gradient),
+    the pdot composition for the others."""
+    if dispatch.eligible_policy(get_policy(cfg.mix_policy)) and (
+            torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return _FusedSDPA.apply(q, k, v, q_pos, k_pos, cfg.mix_policy,
+                                cfg.attn_softcap, causal, window)
     out = dispatch.attention(q, k, v, policy=cfg.mix_policy, q_pos=q_pos,
                              k_pos=k_pos, causal=causal, window=window,
                              softcap=cfg.attn_softcap)

@@ -3,8 +3,11 @@
 Parameters are the JAX package's ``lm.init`` tree as nested dicts of
 tensors: ``embed``, ``ln_f`` and ``dense_blocks`` whose leaves carry a
 leading layer axis.  The layer loop is a Python loop over that axis (the
-counterpart of ``lax.scan``).  The MoE, MLA and multi-token-prediction
-variants of the JAX module are not ported yet.
+counterpart of ``lax.scan``) over one ``unbind`` of the stack, so a
+training backward stacks the layers' gradients once; under autograd with
+``cfg.remat`` it recomputes each block in the backward (``jax.checkpoint``
+of ``stack_apply``).  The MoE, MLA and multi-token-prediction variants of the
+JAX module are not ported yet.
 """
 from __future__ import annotations
 
@@ -12,11 +15,13 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import pdot
 from . import layers as L
-from .modules import dense_init, embed_init, generator, layer, stack_init, zeros
+from .modules import (dense_init, embed_init, generator, layer, layer_views,
+                      stack_init, tree_leaves, zeros)
 
 
 def _check_dense(cfg):
@@ -109,14 +114,31 @@ def _positions(B, S, device):
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
+def _grad_needed(params) -> bool:
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
+
+
+def _block_out(p, x, cfg, positions, window):
+    return block_prefill(p, x, cfg, positions, window)[0]
+
+
 def backbone(params, tokens, cfg, positions, kv_out=None):
     """Embed, run every block, final norm -> (B, S, d_model).  Each block's
-    K/V is appended to ``kv_out`` when a list is given."""
+    K/V is appended to ``kv_out`` when a list is given.  The layers come
+    from one ``unbind`` of the stack; when autograd needs the parameters'
+    gradient and ``cfg.remat`` is set, each block is recomputed in the
+    backward (K/V are then not kept)."""
     x = embed(params, tokens, cfg)
     windows = layer_windows(cfg, cfg.n_layers)
-    for i in range(cfg.n_layers):
-        x, kv = block_prefill(layer(params["dense_blocks"], i), x, cfg,
-                              positions, int(windows[i]))
+    remat = cfg.remat and kv_out is None and _grad_needed(params)
+    for p, w in zip(layer_views(params["dense_blocks"], cfg.n_layers),
+                    windows):
+        if remat:
+            x = checkpoint(_block_out, p, x, cfg, positions, int(w),
+                           use_reentrant=False)
+            continue
+        x, kv = block_prefill(p, x, cfg, positions, int(w))
         if kv_out is not None:
             kv_out.append(kv)
     return L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -128,6 +150,33 @@ def forward(params, tokens, cfg):
     B, S = tokens.shape
     x = backbone(params, tokens, cfg, _positions(B, S, tokens.device))
     return unembed_logits(params, x, cfg)
+
+
+def cross_entropy(logits, labels, z_loss_w: float = 1e-4):
+    """Masked CE with z-loss; labels < 0 are ignored.  Returns ``(loss,
+    tokens counted)``.  The label's logit is gathered, where JAX sums
+    against a one-hot: the same value, without a (B, S, V) one-hot."""
+    mask = (labels >= 0).float()
+    lbl = labels.clamp_min(0).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, lbl[..., None])[..., 0]
+    nll = (logz - ll) * mask
+    zl = z_loss_w * logz.square() * mask
+    denom = mask.sum().clamp_min(1.0)
+    return (nll + zl).sum() / denom, denom
+
+
+def loss_fn(params, batch, cfg):
+    """``(loss, metrics)`` of a batch ``{"tokens", "labels"}`` (B, S):
+    metrics ``lm_loss``, ``aux_loss`` (0 in the dense family), ``tokens``
+    and ``loss``."""
+    _check_dense(cfg)
+    logits = forward(params, batch["tokens"], cfg)
+    loss, denom = cross_entropy(logits, batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    return loss, {"lm_loss": loss, "aux_loss": aux, "tokens": denom,
+                  "loss": loss}
 
 
 def prefill(params, cfg, tokens, positions=None):
@@ -179,6 +228,6 @@ def decode_step_paged(params, cfg, pools, block_tables, lengths, tokens):
 
 
 __all__ = ["init", "embed", "unembed_logits", "backbone", "prefill",
-           "forward", "init_paged_cache", "decode_step_paged",
-           "layer_windows", "block_init", "block_prefill",
+           "forward", "cross_entropy", "loss_fn", "init_paged_cache",
+           "decode_step_paged", "layer_windows", "block_init", "block_prefill",
            "block_decode_paged"]

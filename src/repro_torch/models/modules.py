@@ -13,7 +13,11 @@ import math
 import torch
 
 
-def generator(seed: int, device) -> torch.Generator:
+def generator(seed: int, device) -> torch.Generator | None:
+    """A seeded generator on ``device``; None on the ``meta`` device, where
+    a parameter tree has shapes and no values (a checkpoint's template)."""
+    if torch.device(device).type == "meta":
+        return None
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
@@ -54,6 +58,15 @@ def stack_init(init_fn, n: int):
 def layer(stacked, i: int):
     """Layer ``i``'s view of a stacked parameter (or cache) tree."""
     return tree_map(lambda x: x[i], stacked)
+
+
+def layer_views(stacked, n: int) -> list:
+    """Every layer's view of a stacked tree, from one ``unbind`` a leaf.
+    Under autograd its backward stacks the layers' gradients once, where
+    ``n`` calls of :func:`layer` would each add a zero tensor the size of
+    the whole stack into the leaf's gradient."""
+    views = tree_map(lambda x: torch.unbind(x, 0), stacked)
+    return [tree_map(lambda t: t[i], views) for i in range(n)]
 
 
 def param_count(params) -> int:

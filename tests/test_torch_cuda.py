@@ -362,3 +362,62 @@ def test_decode_graph_non_finite_slot_fails_only_that_slot(dev):
     for r in (rids[0], rids[2]):
         assert out[r].finish_reason == "length" and len(out[r]) == 5
     assert eng.stats()["numerics_errors"] == 1
+
+
+# ------------------------------------------------------------- training
+
+def test_policy_function_keeps_the_forward_and_runs_kernel_1(dev):
+    """With autograd the forward's bits are those without it; the backward
+    launches kernel 1 twice, and its gradients are the bits of the same
+    products called directly."""
+    from repro_torch.core import pdot, policy_mm
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(70, 300, generator=g, device=dev)
+    b = torch.randn(300, 72, generator=g, device=dev)
+    plain = policy_mm(a, b, "tcec_bf16x6")
+    ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
+    out = policy_mm(ta, tb, "tcec_bf16x6")
+    assert out.grad_fn is not None and torch.equal(out.detach(), plain)
+    go = torch.randn(70, 72, generator=g, device=dev)
+    before = tcec_matmul.launches
+    out.backward(go)
+    assert tcec_matmul.launches - before == 2
+    assert torch.equal(ta.grad, pdot("mn,kn->mk", go, b, "tcec_bf16x6"))
+    assert torch.equal(tb.grad, pdot("mk,mn->kn", a, go, "tcec_bf16x6"))
+
+
+def test_train_step_through_kernels_matches_plain(dev):
+    """One train step of the smoke model through kernels 1 and 2 against the
+    same step under ``dispatch.use_plain()``: 34L + 3 kernel-1 and 2L
+    kernel-2 launches, and none on the plain side (its backward runs on
+    autograd's worker thread, which must see the scope too); loss and gradient norm within 1e-5 relative, the new
+    parameters within 1e-6 of their scale (eps 1 keeps the update smooth in
+    the gradient)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.optim import adamw
+    cfg = get_smoke_config("qwen3-0.6b")
+    L = cfg.n_layers
+    opt = adamw.OptConfig(lr=1e-3, warmup_steps=1, eps=1.0)
+    params = get_model(cfg).init(0, device=dev)
+    state = {"params": params, "opt": adamw.init_state(params, opt)}
+    batch = device_batch(cfg, DataConfig(global_batch=4, seq_len=16), 0, dev)
+    step = make_train_step(cfg, opt)
+    before = (tcec_matmul.launches, tcec_attention.launches)
+    new, met = step(state, batch)
+    assert (tcec_matmul.launches - before[0],
+            tcec_attention.launches - before[1]) == (34 * L + 3, 2 * L)
+    before = (tcec_matmul.launches, tcec_attention.launches)
+    with dispatch.use_plain():
+        pnew, pmet = step(state, batch)
+    assert (tcec_matmul.launches, tcec_attention.launches) == before
+    for k in ("loss", "grad_norm"):
+        assert abs(float(met[k]) - float(pmet[k])) <= 1e-5 * abs(
+            float(pmet[k]))
+    for a, b in zip(tree_leaves(new["params"]), tree_leaves(pnew["params"])):
+        assert float((a - b).abs().max()) <= 1e-6 * max(
+            float(b.abs().max()), 1e-3)

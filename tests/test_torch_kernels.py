@@ -431,3 +431,25 @@ def test_use_plain_scope_sends_calls_to_the_plain_versions():
         plain = dispatch.maybe_dispatch(_t(a), _t(b), pol, dims)
     assert not dispatch.plain_active()
     assert torch.equal(routed, plain)
+
+
+def test_use_plain_scope_reaches_other_threads():
+    """The scope is process-wide: a CUDA backward runs on autograd's worker
+    thread, and its products must see the scope the caller entered."""
+    import threading
+    seen = []
+
+    def probe():
+        seen.append(dispatch.plain_active())
+
+    with dispatch.use_plain():
+        with dispatch.use_plain():
+            t = threading.Thread(target=probe)
+            t.start()
+            t.join()
+        assert dispatch.plain_active()
+    t = threading.Thread(target=probe)
+    t.start()
+    t.join()
+    assert seen == [True, False]
+    assert not dispatch.plain_active()
