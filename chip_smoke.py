@@ -25,16 +25,19 @@ Phases, each of which raises on a failed check (nothing is caught):
      of a training step at 8 x 128 tokens (the unembedding's and the MLP
      down projection's weight gradients, whose A is a transposed view the
      entry copies first, ``copy_ms``; the tied unembedding's input
-     gradient, K 151936).  Kernel 2 runs at all four of the engine's
-     prefill shapes, at the training shape 8 x 128 and once at x10 with a
-     softcap and a window; its
-     ``ms`` is the public entry's, ``kernel_only_ms`` the kernel's launch
-     alone on operands already contiguous f32.  Kernel 3 runs at the
-     engine's decode shape, a ragged one with a window, and 32 slots of
-     1024 tokens (bound by bytes); copies of its page pools are rotated so
-     that each timed call reads K/V cold, and each row names the chunk size
-     ``chunk_pages``, the blocks and live blocks of the first pass and the
-     share of the bound reached on the device (``bound_share``);
+     gradient, K 151936); two take granite-moe-1b-a400m's expert gate
+     product as a batch of 32 (at decode, M 4, and at the 2 x 512
+     prefill, M 320; ``torch.bmm`` beside it).  Kernel 2 runs at all four
+     of the engine's prefill shapes, at the training shape 8 x 128, at 2 x
+     512 with head_dim 64 (granite) and once at x10 with a softcap and a
+     window; its ``ms`` is the public entry's, ``kernel_only_ms`` the
+     kernel's launch alone on operands already contiguous f32.  Kernel 3
+     runs at the engine's decode shape (head_dim 128, and 64 for granite),
+     a ragged one with a window, and 32 slots of 1024 tokens (bound by
+     bytes); copies of its page pools are rotated so that each timed call
+     reads K/V cold, and each row names the chunk size ``chunk_pages``, the
+     blocks and live blocks of the first pass and the share of the bound
+     reached on the device (``bound_share``);
   3. the paper's check: at 2048^3, kernel 1's x6 residual against an f64
      product is at most twice that of an f32 ``torch.matmul``;
   4. the main path: the serving engine at the full width of qwen3-0.6b with
@@ -73,12 +76,30 @@ Phases, each of which raises on a failed check (nothing is caught):
      kernel side launches kernel 1 34L + 3 and kernel 2 2L times, the plain
      side (backward and recomputes included) neither;
      (c) a 2-layer cut at full widths trains 2 steps and checkpoints,
-     resumes to 4, and must end within 1e-5 of a fresh run to 4.
+     resumes to 4, and must end within 1e-5 of a fresh run to 4;
+  8. the MoE family: granite-moe-1b-a400m at full width (24 layers,
+     d_model 1024, 32 experts top 8), random weights from seed 0.  (a)
+     phase 4's engine run with its checks (7L + 1 = 169 launches of kernel
+     1 a forward: q, k, v, o, the three expert products and the unembed;
+     the router and the bf16 dispatch and combine products are plain
+     products) and phase 4b's replay comparison; (b) phase 5's 64-token
+     prefill against ``dispatch.use_plain()``: each MoE layer's routes are
+     compared first and the count of moved routes printed; where none
+     moved, the logits are held to 1e-3; where routes moved, (c) decides,
+     and the positions before the first moved route are held to 2^-8 (the
+     MoE layers round the experts' inputs and outputs to bf16); (c) one
+     MoE layer at 2 x 512 on identical inputs, kernels against plain:
+     equal routes, 3 / 0 launches, the experts' f32 outputs within 8 F
+     2^-24 and the layer's output within 2^-8 of their largest entries;
+     (d) phase 6's windows (decode step median and spread of 32, 4
+     profiled steps, the graphs' device time, a profiled 2 x 512
+     prefill).
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
 also written to ``chiprun_out/chip_smoke.json``.
 """
+import contextlib
 import json
 import math
 import os
@@ -151,22 +172,26 @@ def bound(nbytes, ops, rate):
 # ------------------------------------------------------------- kernel 1
 
 def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
-                plain_reps=2, policy="tcec_bf16x6", trans_a=False):
+                plain_reps=2, policy="tcec_bf16x6", trans_a=False,
+                batch=None):
     """Kernel 1 at one product.  ``trans_a``: A is the transpose of a
     contiguous (K, M) tensor, as in a weight gradient ``x^T . g``; the
     entry then copies it first (``dispatch._canonicalize`` does), and the
-    row gives that copy's time alone (``copy_ms``, device only)."""
+    row gives that copy's time alone (``copy_ms``, device only).
+    ``batch``: a batch of that many products (the MoE expert products;
+    the library call is then ``torch.bmm``)."""
     from repro_torch.core import get_policy
     from repro_torch.kernels import ops, tcec_matmul as tm
     g = torch.Generator(device=dev).manual_seed(M + N + K)
+    bsh = () if batch is None else (batch,)
     a = (torch.randn(K, M, generator=g, device=dev).T if trans_a
-         else torch.randn(M, K, generator=g, device=dev))
+         else torch.randn(*bsh, M, K, generator=g, device=dev))
 
     def entry(b):
         return ops.tcec_matmul(a.contiguous(), b, policy)
     # `copies` weight copies of more than the 50 MB L2 in all, so a timed
     # launch reads its weight cold, as each layer of a decode step does
-    shape = (N, K) if trans_b else (K, N)
+    shape = bsh + ((N, K) if trans_b else (K, N))
     ws = [torch.randn(shape, generator=g, device=dev) * K ** -0.5
           for _ in range(copies)]
     bs = [w.T if trans_b else w for w in ws]
@@ -179,20 +204,21 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
     ms = time_ms(rotating(lambda i: entry(bs[i % copies])), reps)
     plain_ms = time_ms(rotating(lambda i: tm.tcec_matmul_plain(
         a, bs[i % copies], policy)), plain_reps)
-    lib_ms = time_ms(rotating(lambda i: torch.matmul(a, bs[i % copies])),
-                     reps)
+    lib = torch.bmm if batch else torch.matmul
+    lib_ms = time_ms(rotating(lambda i: lib(a, bs[i % copies])), reps)
     # the same launches with host time taken out (decode rows are host
     # bound through the entry, as torch.matmul is)
     dev_ms = device_only_ms(lambda i: entry(bs[i % copies]), reps)
-    lib_dev_ms = device_only_ms(lambda i: torch.matmul(a, bs[i % copies]),
-                                reps)
+    lib_dev_ms = device_only_ms(lambda i: lib(a, bs[i % copies]), reps)
     passes = get_policy(policy).passes
-    b_ms, by = bound(4 * (M * K + K * N + M * N), passes * 2 * M * N * K,
-                     H100_BF16_OPS)
-    blocks, per_sm = tm.grid(M, N, 1, trans_b, policy)
+    nb = batch or 1
+    b_ms, by = bound(4 * nb * (M * K + K * N + M * N),
+                     passes * 2 * nb * M * N * K, H100_BF16_OPS)
+    blocks, per_sm = tm.grid(M, N, nb, trans_b, policy)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    row = {"kernel": "tcec_matmul", "shape": name, "M": M, "N": N, "K": K,
-           "trans_a": trans_a, "trans_b": trans_b, "policy": policy,
+    row = {"kernel": "tcec_matmul", "shape": name, "batch": batch, "M": M,
+           "N": N, "K": K, "trans_a": trans_a, "trans_b": trans_b,
+           "policy": policy,
            "path": tm.path(M),
            "blocks": blocks, "blocks_per_sm": per_sm,
            "waves": blocks / (per_sm * sms),
@@ -202,7 +228,7 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
            "ms": ms, "device_only_ms": dev_ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
            "library_device_only_ms": lib_dev_ms,
-           "library": "torch.matmul f32, TF32 off"}
+           "library": f"torch.{'bmm' if batch else 'matmul'} f32, TF32 off"}
     if trans_a:
         row["copy_ms"] = device_only_ms(lambda i: a.contiguous(), reps)
     if policy == "tcec_bf16x6":
@@ -427,15 +453,20 @@ def paper_check(dev):
 
 # ------------------------------------------------------------ phase 4/5
 
-def main_path(dev):
+def serve_run(dev, arch, key):
+    """Phase 4 (8 for granite): the engine at the full width of ``arch``,
+    random weights from seed 0, the 8 greedy requests; the launch counts
+    are zeroed just before the run and read just after.  Then phase 4b on
+    the same weights.  Returns the launches, ``(cfg, model, params)`` and
+    the 64 tokens of phase 5 (drawn after the prompts); the rows go to
+    ``RECORD[key]``."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import (dispatch, tcec_attention as ta,
-                                     tcec_matmul as tm,
+    from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
                                      tcec_paged_attention as tp)
     from repro_torch.models import get_model
     from repro_torch.models.modules import param_count
     from repro_torch.serving import Engine, SamplingParams
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
     model = get_model(cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
@@ -449,6 +480,7 @@ def main_path(dev):
     # four are admitted together too)
     lens = [512, 512, 200, 200, 64, 64, 17, 17]
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    probe = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
     prefill_s = timed_method(engine, "_admit_and_prefill")
     mods = (tm, ta, tp)
     for m in mods:
@@ -461,7 +493,7 @@ def main_path(dev):
     launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
     stats = engine.stats()
     tokens = sum(len(v) for v in out.values())
-    row = {"engine": "qwen3-0.6b full width, random weights (seed 0)",
+    row = {"engine": f"{arch} full width, random weights (seed 0)",
            "params": param_count(params), "init_s": init_s,
            "requests": len(prompts), "prompt_lengths": lens,
            "max_tokens": 16, "max_slots": 4, "page_size": 16,
@@ -477,7 +509,7 @@ def main_path(dev):
            "preemptions": stats["preemptions"], "launches": launches,
            "finish_reasons": sorted({v.finish_reason for v in out.values()})}
     emit(row)
-    RECORD["engine"] = row
+    RECORD[key] = {"engine": row}
     check(all(v.finish_reason == "length" and len(v) == 16
               for v in out.values()), "every request finished with 16 tokens")
     check(all(n > 0 for n in launches.values()), "every kernel launched")
@@ -493,15 +525,23 @@ def main_path(dev):
     decodes = stats["decode_steps"] + stats["decode_warmups"]
     check(launches["tcec_matmul"] == (7 * L + 1) * (stats["prefills"]
                                                     + decodes),
-          "kernel 1: 7 products a layer + the unembed, every forward")
+          "kernel 1: 7 products a layer (q, k, v, o and the MLP's or the "
+          "experts' three) + the unembed, every forward")
     check(launches["tcec_attention"] == L * stats["prefills"],
           "kernel 2: one launch a layer, every prefill")
     check(launches["tcec_paged_attention"] == L * decodes,
           "kernel 3: one launch a layer, every decode step")
 
-    replay_equals_eager(dev, cfg, params)          # phase 4b
+    RECORD[key]["replay_vs_eager"] = replay_equals_eager(
+        dev, cfg, params)                          # phase 4b
+    return launches, (cfg, model, params), probe
 
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
+
+def main_path(dev):
+    """Phases 4, 4b and 5 on qwen3-0.6b."""
+    from repro_torch.kernels import dispatch
+    launches, (cfg, model, params), toks = serve_run(dev, "qwen3-0.6b",
+                                                     "serving")
     with torch.no_grad():
         fast, _ = model.prefill(params, toks)
         with dispatch.use_plain():
@@ -510,7 +550,7 @@ def main_path(dev):
     row = {"logits_check": "64-token prefill, kernels vs dispatch.use_plain()",
            "max_rel_diff": rel, "limit": 1e-3}
     emit(row)
-    RECORD["logits_check"] = row
+    RECORD["serving"]["logits_check"] = row
     check(math.isfinite(rel) and rel <= 1e-3, "prefill logits vs plain path")
     return launches, (cfg, model, params)
 
@@ -575,14 +615,14 @@ def replay_equals_eager(dev, cfg, params, steps=8):
     for _ in range(steps):
         engine.step()
     del graph.launch
-    row = {"replay_vs_eager": "qwen3-0.6b full width, 4 slots (512, 200, "
+    row = {"replay_vs_eager": f"{cfg.name} full width, 4 slots (512, 200, "
            "64, 17 tokens; 2 greedy, 2 sampled)", "steps": len(compared),
            "sampler_replays": sum(compared), "bitwise_equal": True,
            "capture_s": graph.capture_s}
     emit(row)
-    RECORD["replay_vs_eager"] = row
     check(len(compared) == steps and all(compared),
           f"{steps} compared steps, each with the sampler graph")
+    return row
 
 
 # ------------------------------------------------------------ phase 6
@@ -637,9 +677,11 @@ def profile_window(name, fn, top=8):
     return row
 
 
-def where_time_goes(dev, cfg, model, params, timed=32, steps=4):
+def where_time_goes(dev, cfg, model, params, timed=32, steps=4, label=""):
+    """Phase 6 (and 8 with ``label``, which prefixes every window's
+    name); returns the timed window's row."""
     from repro_torch.serving import Engine, SamplingParams
-    RECORD["profile"] = []
+    RECORD.setdefault("profile", [])
     rng = np.random.default_rng(1)
     engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
                     page_size=16, max_pages_per_slot=40, device=dev)
@@ -655,11 +697,13 @@ def where_time_goes(dev, cfg, model, params, timed=32, steps=4):
         engine.step()
         walls.append((time.perf_counter() - t0) * 1e3)
     med = float(np.median(walls))
-    row = {"window": f"decode step, 4 slots, profiler off ({timed} steps)",
-           "decode_step_ms": med, "tokens_per_s": 4e3 / med,
-           "min_ms": min(walls), "p10_ms": float(np.percentile(walls, 10)),
-           "p90_ms": float(np.percentile(walls, 90)), "max_ms": max(walls),
-           "capture_s": engine.stats()["capture_s"]}
+    step_row = row = {
+        "window": f"{label}decode step, 4 slots, profiler off ({timed} "
+                  "steps)",
+        "decode_step_ms": med, "tokens_per_s": 4e3 / med,
+        "min_ms": min(walls), "p10_ms": float(np.percentile(walls, 10)),
+        "p90_ms": float(np.percentile(walls, 90)), "max_ms": max(walls),
+        "capture_s": engine.stats()["capture_s"]}
     emit(row)
     RECORD["profile"].append(row)
 
@@ -667,7 +711,7 @@ def where_time_goes(dev, cfg, model, params, timed=32, steps=4):
         for _ in range(steps):
             engine.step()
 
-    prof = profile_window(f"{steps} decode steps, 4 slots", decode)
+    prof = profile_window(f"{label}{steps} decode steps, 4 slots", decode)
     # the two graphs on the device alone (replaying the last step's inputs
     # rewrites the same K/V in place).  The profiler's own host cost
     # lengthens its window, so the idle share of a step is its kernels'
@@ -676,7 +720,7 @@ def where_time_goes(dev, cfg, model, params, timed=32, steps=4):
     main_ms = device_only_ms(lambda i: graph.main.replay(), 20)
     sampler_ms = device_only_ms(lambda i: graph.sampler.replay(), 20)
     kernels_ms = prof["device_busy_ms"] / steps
-    row = {"window": "decode graphs, device only (CUDA events)",
+    row = {"window": f"{label}decode graphs, device only (CUDA events)",
            "main_graph_ms": main_ms, "sampler_graph_ms": sampler_ms,
            "kernels_ms_per_step": kernels_ms,
            "idle_share_of_median_step": 1 - kernels_ms / med,
@@ -686,7 +730,9 @@ def where_time_goes(dev, cfg, model, params, timed=32, steps=4):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).to(dev)
     with torch.no_grad():
         model.prefill(params, toks)     # warm
-        profile_window("prefill 2 x 512", lambda: model.prefill(params, toks))
+        profile_window(f"{label}prefill 2 x 512",
+                       lambda: model.prefill(params, toks))
+    return step_row
 
 
 # ------------------------------------------------------------ phase 7
@@ -883,6 +929,159 @@ def restart_replay(dev):
     check(diff <= 1e-5, "resumed params within 1e-5 of the fresh run's")
 
 
+# ------------------------------------------------------------ phase 8
+
+@contextlib.contextmanager
+def recorded(module, name, when=lambda *a: True):
+    """Inside the scope, the results of ``module.name`` (looked up at each
+    call) are appended to the list it yields, for the calls whose
+    arguments satisfy ``when``."""
+    results, fn = [], getattr(module, name)
+
+    def wrapped(*a, **kw):
+        out = fn(*a, **kw)
+        if when(*a, **kw):
+            results.append(out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield results
+    finally:
+        setattr(module, name, fn)
+
+
+def moved_routes(a, b):
+    """Two runs' routes, call by call: the count of tokens whose expert
+    sets differ in each call, and the first such token (its position in
+    the flattened (G, gs) groups, its call, and the gap between its K-th
+    and (K+1)-th gate in ``b``), or None."""
+    counts, first = [], None
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        differ = (ra["topi"].sort(-1).values != rb["topi"].sort(-1).values
+                  ).any(-1).reshape(-1)
+        counts.append(int(differ.sum()))
+        if counts[-1] and (first is None
+                           or int(differ.nonzero()[0]) < first["token"]):
+            t = int(differ.nonzero()[0])
+            K = rb["topi"].shape[-1]
+            g = rb["gates"].reshape(-1, rb["gates"].shape[-1])[t]
+            top = g.sort(descending=True).values
+            first = {"token": t, "call": i,
+                     "gate_gap": float(top[K - 1] - top[K]),
+                     "gate_k": float(top[K - 1])}
+    return counts, first
+
+
+def moe_path(dev):
+    """Phase 8: granite-moe-1b-a400m at full width.  (a) phases 4 and 4b's
+    engine run and replay comparison; (b) the 64-token prefill through the
+    kernels against ``dispatch.use_plain()``: the routes of each MoE layer
+    are compared first.  Where none moved, the logits are held to 1e-3.
+    A moved route changes its token far beyond any product tolerance, and
+    every later position through attention: then (c) decides, and the
+    positions before the first moved route are held to 2^-8 (the MoE
+    layers round the experts' inputs and outputs to bf16, so two
+    f32-accurate paths differ there by bf16 rounding steps; (c) shows it on
+    one layer); (c) one MoE layer on identical inputs, kernels against
+    plain; (d) phase 6's timing windows.  Returns (a)'s launches."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import layers
+    arch = "granite-moe-1b-a400m"
+    launches, (cfg, model, params), toks = serve_run(dev, arch, "moe")
+    with recorded(layers, "moe_route") as routes, torch.no_grad():
+        fast, _ = model.prefill(params, toks)
+        n = len(routes)
+        with dispatch.use_plain():
+            plain, _ = model.prefill(params, toks)
+    moved, first = moved_routes(routes[:n], routes[n:])
+    held = toks.shape[1] if first is None else first["token"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+    row = {"logits_check": f"{arch}: 64-token prefill, kernels vs "
+           "dispatch.use_plain()", "max_rel_diff": rel(fast, plain),
+           "limit": 1e-3, "moved_routes": sum(moved),
+           "moved_routes_by_layer": moved, "routed_tokens": 64 * n,
+           "first_moved": first, "positions_held": held,
+           "max_rel_diff_held": rel(fast[:, :held], plain[:, :held])
+           if held else None,
+           "limit_held": 2.0 ** -8,
+           "decided_by": ("the logits" if first is None else
+                          f"the layer check on identical inputs (and "
+                          f"positions 0-{held - 1} to 2^-8)")}
+    emit(row)
+    RECORD["moe"]["logits_check"] = row
+    check(n == cfg.n_layers and math.isfinite(row["max_rel_diff"]),
+          "one routing a MoE layer on each side, finite logits")
+    if first is None:
+        check(row["max_rel_diff"] <= 1e-3,
+              f"{arch}: prefill logits vs plain path, no route moved")
+    else:
+        check(not held or row["max_rel_diff_held"] <= 2.0 ** -8,
+              f"{arch}: prefill logits vs plain path before the first "
+              "moved route, within a bf16 step")
+    moe_layer_check(dev, cfg, params)
+    del fast, plain
+    RECORD["moe"]["decode"] = where_time_goes(dev, cfg, model, params,
+                                              label=f"{arch}: ")
+    return launches
+
+
+def moe_layer_check(dev, cfg, params, B=2, S=512):
+    """8c: the first MoE layer's weights on identical random inputs (B, S,
+    d_model), through the kernels and under ``dispatch.use_plain()``: the
+    routes must be equal (the router and the bf16 dispatch and combine
+    products are plain products on both sides), kernel 1 launched 3 times
+    (gate, up, down) on the kernel side and never on the plain side, the
+    experts' f32 outputs (the down product, before the combine rounds them
+    to bf16) within 8 F 2^-24 of their largest entry, the layer's output
+    within 2^-8 of its largest entry, and the aux term equal.  The row
+    also gives the share of output entries that differ by more than 2^-20
+    of the largest: the bf16 roundings the two sides do not share."""
+    from repro_torch.kernels import dispatch, tcec_matmul as tm
+    from repro_torch.models import layers
+    from repro_torch.models.modules import layer
+    p = layer(params["moe_blocks"], 0)["moe"]
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn(B, S, cfg.d_model, generator=g, device=dev)
+    down = "gecf,efd->gecd"
+    with recorded(layers, "moe_route") as routes, recorded(
+            layers, "pdot", lambda spec, *a: spec == down) as ye, \
+            torch.no_grad():
+        n0 = tm.launches
+        y, aux = layers.moe(p, x, cfg)
+        n1 = tm.launches
+        with dispatch.use_plain():
+            py, paux = layers.moe(p, x, cfg)
+        n2 = tm.launches
+    same = all(torch.equal(routes[0][k], routes[1][k])
+               for k in ("topi", "pos", "keep"))
+    diff, top = (y - py).abs(), float(py.abs().max())
+    ye_rel = float((ye[0] - ye[1]).abs().max() / ye[1].abs().max())
+    ye_limit = 8 * cfg.moe_d_ff * U24
+    row = {"moe_layer_check": f"{cfg.name} layer 0 at {B} x {S}, identical "
+           "inputs, kernels vs dispatch.use_plain()", "routes_equal": same,
+           "kept_share": float(routes[0]["keep"].float().mean()),
+           "capacity": routes[0]["C"],
+           "expert_out_max_rel_diff": ye_rel, "expert_out_limit": ye_limit,
+           "max_rel_diff": float(diff.max()) / top, "limit": 2.0 ** -8,
+           "share_above_2^-20": float((diff > 2.0 ** -20 * top).float()
+                                      .mean()),
+           "aux": float(aux), "plain_aux": float(paux),
+           "kernel_launches": n1 - n0, "plain_launches": n2 - n1}
+    emit(row)
+    RECORD["moe"]["layer_check"] = row
+    check(same, "equal routes, positions and keep masks on both sides")
+    check((n1 - n0, n2 - n1) == (3, 0),
+          "kernel 1: 3 launches on the kernel side, none on the plain side")
+    check(ye_rel <= ye_limit, "experts' f32 outputs vs plain within "
+          "8 F 2^-24 of their largest entry")
+    check(bool(torch.isfinite(y).all()) and row["max_rel_diff"] <= 2.0 ** -8,
+          "MoE layer output vs plain within 2^-8 of its largest entry")
+    check(float(aux) == float(paux), "aux term equal")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -936,6 +1135,13 @@ def main():
                 reps=3, plain_reps=1)
     matmul_case("mlp down dW at training (8x128)", 3072, 1024, 1024, dev,
                 trans_a=True, reps=20, plain_reps=5)
+    # granite-moe-1b-a400m's expert gate product (phase 8), a batch of 32
+    # experts: at decode (4 slots, capacity 4) and at the 2 x 512 prefill
+    # (8 groups of 128 tokens, capacity 40)
+    matmul_case("expert gate at decode (4 slots), batch 32", 4, 512, 1024,
+                dev, batch=32, copies=2, reps=40, plain_reps=5)
+    matmul_case("expert gate at 2x512 prefill, batch 32", 320, 512, 1024,
+                dev, batch=32, reps=20, plain_reps=3)
     matmul_epilogue_check(dev)
     # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
     # and a window (ragged: 150 is a multiple of neither key tile)
@@ -946,8 +1152,12 @@ def main():
     attention_case("training 8x128, 16/8 heads", 8, 128, 16, 8, 128, dev)
     attention_case("x10, softcap 30, window 100, 2x150", 2, 150, 16, 8, 128,
                    dev, policy="tcec_bf16x10", window=100, softcap=30.0)
+    attention_case("prefill 2x512, 16/8 heads, hd 64", 2, 512, 16, 8, 64,
+                   dev)
     k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
                     40, dev)
+    paged_case("decode 4 slots, hd 64", [520, 520, 208, 208], 16, 8, 64, 16,
+               40, dev)
     paged_case("ragged, window 100", [0, 1, 17, 300], 16, 8, 128, 16, 40,
                dev, window=100)
     # bound by bytes: 134 MB of K/V, more than the L2 in one call
@@ -957,7 +1167,9 @@ def main():
     paper_check(dev)                               # phase 3
     launches, model = main_path(dev)               # phases 4 and 5
     where_time_goes(dev, *model)                   # phase 6
+    del model
     train_launches = training(dev)                 # phase 7
+    moe_launches = moe_path(dev)                   # phase 8
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -969,7 +1181,8 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": src.format(name),
             "replaces": rep.format(replaces),
-            "launches": launches[name] + train_launches.get(name, 0),
+            "launches": launches[name] + train_launches.get(name, 0)
+            + moe_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

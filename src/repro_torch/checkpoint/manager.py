@@ -89,23 +89,35 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
+def check_fits(ckpt_dir: str, step: int, like_tree) -> dict:
+    """The manifest of checkpoint ``step``, once its leaf paths and shapes
+    equal those of ``like_tree`` (any leaves with a ``shape``).  Otherwise
+    a ``ValueError`` names the first leaf, in sorted path order, that is
+    missing on either side or has another shape: the checkpoint is of
+    another model, and nothing has been read but its manifest."""
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    have = {p: tuple(m["shape"]) for p, m in manifest["leaves"].items()}
+    want = {p: tuple(leaf.shape) for p, leaf in _leaf_paths(like_tree)}
+    for path in sorted(have.keys() | want.keys()):
+        if have.get(path) != want.get(path):
+            raise ValueError(
+                f"checkpoint {d} does not fit this model: leaf {path} has "
+                f"shape {have.get(path, 'none (absent)')} there, "
+                f"{want.get(path, 'none (absent)')} in the model")
+    return manifest
+
+
 def restore(ckpt_dir: str, step: int, like_tree, device=None,
             verify: bool = True):
     """Restore into the structure of ``like_tree`` (any leaves with a
     ``shape``: tensors on the ``meta`` device will do), onto ``device``
-    (default: the CPU).  Every leaf's path and shape are checked against
-    the manifest before any file is read, so a checkpoint of another model
-    is refused at once."""
+    (default: the CPU).  :func:`check_fits` holds the leaves' paths and
+    shapes against the manifest before any file is read, so a checkpoint
+    of another model is refused at once."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
-    with open(os.path.join(d, "manifest.json")) as f:
-        manifest = json.load(f)
-    for path, leaf in _leaf_paths(like_tree):
-        meta = manifest["leaves"].get(path)
-        shape = None if meta is None else tuple(meta["shape"])
-        if shape != tuple(leaf.shape):
-            raise ValueError(f"checkpoint {d} does not fit this model: leaf "
-                             f"{path} has shape {shape}, expected "
-                             f"{tuple(leaf.shape)}")
+    manifest = check_fits(ckpt_dir, step, like_tree)
 
     def load(path, leaf):
         meta = manifest["leaves"][path]

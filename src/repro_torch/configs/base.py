@@ -133,4 +133,4 @@ def list_archs() -> list[str]:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from . import qwen3_0_6b  # noqa: F401
+    from . import granite_moe_1b, qwen3_0_6b  # noqa: F401

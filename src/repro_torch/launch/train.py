@@ -6,7 +6,10 @@
 Parameters start random, from ``--seed``; the data is the synthetic
 stream of ``data.pipeline``.  A run resumes from the newest checkpoint in
 ``--ckpt-dir`` (by default ``repro_torch_ckpt`` in the temporary
-directory).  It runs on ``cuda`` unless ``--device cpu`` is given.
+directory); a checkpoint there whose leaf paths or shapes differ from the
+requested config's (another arch's run) is refused before any step, with
+a ``ValueError`` that names the first leaf that differs.  It runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 

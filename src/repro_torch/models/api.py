@@ -1,6 +1,7 @@
 """Family-dispatched model handle with the JAX package's entry names.
 
-Only the dense family is ported so far; other families raise.
+The dense and MoE families are ported (both ``models.lm``, as in the JAX
+package); the other families raise.
 """
 from __future__ import annotations
 
@@ -10,8 +11,8 @@ from . import lm
 
 
 def get_model(cfg) -> SimpleNamespace:
-    """Build the model handle for ``cfg`` (dense family)."""
-    if cfg.family != "dense":
+    """Build the model handle for ``cfg`` (dense or MoE family)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet")
     return SimpleNamespace(

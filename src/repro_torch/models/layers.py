@@ -1,8 +1,8 @@
-"""Shared neural layers of the dense family.  Every contraction routes
-through ``repro_torch.core.pdot``, so the paper's error-corrected GEMM is a
-config knob for the whole model; attention routes to kernel 2 (prefill)
-and kernel 3 (paged decode) through ``kernels.dispatch``.  Kernel 2 has no
-backward of its own: under autograd :func:`sdpa` wraps it in
+"""Shared neural layers of the dense and MoE families.  Every contraction
+routes through ``repro_torch.core.pdot``, so the paper's error-corrected
+GEMM is a config knob for the whole model; attention routes to kernel 2
+(prefill) and kernel 3 (paged decode) through ``kernels.dispatch``.  Kernel
+2 has no backward of its own: under autograd :func:`sdpa` wraps it in
 :class:`_FusedSDPA`, whose backward recomputes the pdot composition
 :func:`mha` and differentiates that (JAX's ``_fused_sdpa``).
 
@@ -240,3 +240,115 @@ def mlp(p, x, cfg):
     u = pdot("bsd,df->bsf", x, p["w_up"], cfg.policy)
     h = _act(g, cfg.activation) * u
     return pdot("bsf,fd->bsd", h, p["w_down"], cfg.policy)
+
+
+# ------------------------------------------------------------------- MoE
+
+def moe_init(gen, cfg, device=None):
+    D, E, F_ = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    p = {
+        "router": dense_init(gen, (D, E), fan_in=D, device=device),
+        "w_gate": dense_init(gen, (E, D, F_), fan_in=D, device=device),
+        "w_up": dense_init(gen, (E, D, F_), fan_in=D, device=device),
+        "w_down": dense_init(gen, (E, F_, D), fan_in=F_, device=device),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, cfg,
+                               d_ff=cfg.moe_d_ff * cfg.n_shared_experts,
+                               device=device)
+    return p
+
+
+def group_size(n_tokens: int, cfg) -> int:
+    """The routing group: the largest divisor of ``n_tokens`` that is at
+    most ``cfg.moe_groups``."""
+    gs = min(cfg.moe_groups, n_tokens)
+    while n_tokens % gs:
+        gs -= 1
+    return gs
+
+
+def capacity(gs: int, cfg) -> int:
+    """Slots an expert has in a group of ``gs`` tokens (a multiple of 4)."""
+    return int(math.ceil(gs * cfg.moe_top_k / cfg.n_experts
+                         * cfg.capacity_factor / 4) * 4)
+
+
+def moe_route(p, xg, cfg):
+    """GShard top-k routing with capacity over token groups ``xg`` (G, gs,
+    D).  Returns a dict: ``gates`` (G, gs, E) f32, ``topv`` (renormalised)
+    and ``topi`` (G, gs, K), ``onehot`` (G, gs, K, E) f32, ``pos`` (G, gs,
+    K): each route's position within its expert, counted over the (s, k)
+    slot order, ``keep`` (G, gs, K) bf16 (0 past capacity) and the
+    capacity ``C``.
+
+    Every shape is static and nothing reads the device (the decode graph
+    captures this).  The top-k is a stable descending sort, so ties keep
+    the lower expert first, as ``jax.lax.top_k`` does.  The running count
+    is an f32 ``cumsum`` of ones, exact at these sizes (JAX: an
+    ``associative_scan``)."""
+    G, gs, _ = xg.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    logits = pdot("gsd,de->gse", xg, p["router"], "fp32")
+    gates = torch.softmax(logits.float(), dim=-1)
+    topv, topi = torch.sort(gates, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :K], topi[..., :K]
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    C = capacity(gs, cfg)
+    experts = torch.arange(E, device=xg.device)
+    onehot = (topi[..., None] == experts).float()          # (G, gs, K, E)
+    flat = onehot.reshape(G, gs * K, E)
+    pos = torch.cumsum(flat, dim=1)
+    pos = ((pos - 1.0) * flat).sum(-1).reshape(G, gs, K)
+    return {"gates": gates, "topv": topv, "topi": topi, "onehot": onehot,
+            "pos": pos, "keep": (pos < C).to(torch.bfloat16), "C": C}
+
+
+def moe(p, x, cfg):
+    """GShard-style top-k MoE with capacity and one-hot dispatch products
+    (the JAX package's formulation, shape for shape).  Returns ``(y,
+    aux)``: the output (B, S, D) and the GShard load-balancing term.
+
+    Tokens are routed in groups (:func:`group_size`); a route past its
+    expert's capacity is dropped.  Dispatch and combine are (G, gs, E, C)
+    bf16 tensors built by a loop over the K routes; the dispatch and
+    combine products run the ``bf16`` policy, the expert products
+    ``gecd,edf->gecf`` and ``gecf,efd->gecd`` ``cfg.policy`` (kernel 1 as
+    a batch of E products).  Every expert computes all of its C slots of
+    every group, used or not."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    N = B * S
+    gs = group_size(N, cfg)
+    G = N // gs
+    xg = x.reshape(G, gs, D)
+    r = moe_route(p, xg, cfg)
+    C = r["C"]
+    posc = r["pos"].clamp(0, C - 1).long()
+    oh_c = (posc[..., None] == torch.arange(C, device=x.device)).to(
+        torch.bfloat16)                                     # (G, gs, K, C)
+    oh_e = r["onehot"].to(torch.bfloat16)
+    keep, topv = r["keep"], r["topv"].to(torch.bfloat16)
+    # K-unrolled outer products: only (G, gs, E, C) accumulators live
+    disp = torch.zeros((G, gs, E, C), dtype=torch.bfloat16, device=x.device)
+    combine = torch.zeros_like(disp)
+    for k in range(K):
+        t = (oh_e[:, :, k, :, None] * oh_c[:, :, k, None, :]
+             * keep[:, :, k, None, None])
+        disp = disp + t
+        combine = combine + t * topv[:, :, k, None, None]
+
+    xe = pdot("gsec,gsd->gecd", disp, xg.to(torch.bfloat16), "bf16")
+    hg = pdot("gecd,edf->gecf", xe, p["w_gate"], cfg.policy)
+    hu = pdot("gecd,edf->gecf", xe, p["w_up"], cfg.policy)
+    he = _act(hg, cfg.activation) * hu
+    ye = pdot("gecf,efd->gecd", he, p["w_down"], cfg.policy)
+    y = pdot("gsec,gecd->gsd", combine, ye.to(torch.bfloat16), "bf16")
+    y = y.reshape(B, S, D)
+
+    if cfg.n_shared_experts:
+        y = y + mlp(p["shared"], x, cfg)
+    # load-balancing auxiliary (GShard aux loss), returned for training
+    me = r["gates"].mean(dim=(0, 1))
+    ce = r["onehot"].sum(2).mean(dim=(0, 1))
+    return y, (me * ce).sum() * E

@@ -1,13 +1,16 @@
-"""Decoder-only LM, dense family (qwen3 / gemma-style blocks).
+"""Decoder-only LM: the dense family (qwen3 / gemma-style blocks) and the
+MoE family (granite-style: GShard top-k experts in place of the MLP).
 
 Parameters are the JAX package's ``lm.init`` tree as nested dicts of
-tensors: ``embed``, ``ln_f`` and ``dense_blocks`` whose leaves carry a
-leading layer axis.  The layer loop is a Python loop over that axis (the
-counterpart of ``lax.scan``) over one ``unbind`` of the stack, so a
-training backward stacks the layers' gradients once; under autograd with
-``cfg.remat`` it recomputes each block in the backward (``jax.checkpoint``
-of ``stack_apply``).  The MoE, MLA and multi-token-prediction variants of the
-JAX module are not ported yet.
+tensors: ``embed``, ``ln_f``, ``dense_blocks`` for the first
+``cfg.first_dense_layers`` layers (every layer in the dense family) and
+``moe_blocks`` for the rest, whose leaves carry a leading layer axis.  The
+layer loop is a Python loop over that axis (the counterpart of
+``lax.scan``) over one ``unbind`` of each stack, so a training backward
+stacks the layers' gradients once; under autograd with ``cfg.remat`` it
+recomputes each block in the backward (``jax.checkpoint`` of
+``stack_apply``).  The MLA attention and the multi-token-prediction head
+of the JAX module are not ported yet, and configs that use them raise.
 """
 from __future__ import annotations
 
@@ -24,48 +27,74 @@ from .modules import (dense_init, embed_init, generator, layer, layer_views,
                       stack_init, tree_leaves, zeros)
 
 
-def _check_dense(cfg):
-    if cfg.family != "dense" or cfg.n_experts or cfg.use_mla or cfg.mtp:
+def _check_ported(cfg):
+    missing = [what for what, used in (
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
+        ("MLA attention (use_mla)", cfg.use_mla),
+        ("multi-token prediction (mtp)", cfg.mtp)) if used]
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported to PyTorch so far")
+            f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet")
+
+
+def stacks(cfg) -> list[tuple[str, int, bool]]:
+    """``(tree key, layers, moe)`` of each layer stack, in layer order:
+    ``dense_blocks`` for the first ``first_dense_layers`` layers (all of
+    them without experts), ``moe_blocks`` for the rest."""
+    n_moe = (cfg.n_layers - cfg.first_dense_layers) if cfg.n_experts else 0
+    n_dense = cfg.n_layers - n_moe
+    return [(name, n, moe) for name, n, moe in (
+        ("dense_blocks", n_dense, False), ("moe_blocks", n_moe, True)) if n]
 
 
 # --------------------------------------------------------------- blocks
 
-def block_init(gen, cfg, device=None):
+def block_init(gen, cfg, device=None, *, moe: bool = False):
     p = {"ln1": zeros((cfg.d_model,), device),
          "ln2": zeros((cfg.d_model,), device),
-         "attn": L.attn_init(gen, cfg, device),
-         "mlp": L.mlp_init(gen, cfg, device=device)}
+         "attn": L.attn_init(gen, cfg, device)}
+    if moe:
+        p["moe"] = L.moe_init(gen, cfg, device)
+    else:
+        p["mlp"] = L.mlp_init(gen, cfg, device=device)
     if cfg.sandwich_norms:
         p["post_ln1"] = zeros((cfg.d_model,), device)
         p["post_ln2"] = zeros((cfg.d_model,), device)
     return p
 
 
-def _residual_mlp(p, x, a, cfg):
+def _residual_ffn(p, x, a, cfg, moe):
+    """The block after attention: ``(x + ffn, aux)``; ``aux`` is the MoE
+    layer's load-balancing term, None in a dense block."""
     if cfg.sandwich_norms:
         a = L.rmsnorm(p["post_ln1"], a, cfg.norm_eps)
     x = x + a
-    m = L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    if moe:
+        m, aux = L.moe(p["moe"], h, cfg)
+    else:
+        m, aux = L.mlp(p["mlp"], h, cfg), None
     if cfg.sandwich_norms:
         m = L.rmsnorm(p["post_ln2"], m, cfg.norm_eps)
-    return x + m
+    return x + m, aux
 
 
-def block_prefill(p, x, cfg, positions, window):
-    """One block over a whole sequence; also returns the block's K/V."""
+def block_prefill(p, x, cfg, positions, window, *, moe: bool = False):
+    """One block over a whole sequence: ``(x, aux, kv)`` with the block's
+    K/V."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, kv = L.attention_prefill(p["attn"], h, cfg, positions, window=window)
-    return _residual_mlp(p, x, a, cfg), kv
+    x, aux = _residual_ffn(p, x, a, cfg, moe)
+    return x, aux, kv
 
 
-def block_decode_paged(p, x, cfg, pool, block_tables, lengths, window):
+def block_decode_paged(p, x, cfg, pool, block_tables, lengths, window, *,
+                       moe: bool = False):
     """One block for one decode token per slot, against its page pool."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a = L.attention_decode_paged(p["attn"], h, cfg, pool, block_tables,
                                  lengths, window=window)
-    return _residual_mlp(p, x, a, cfg)
+    return _residual_ffn(p, x, a, cfg, moe)[0]
 
 
 def layer_windows(cfg, n_layers: int) -> np.ndarray:
@@ -79,18 +108,30 @@ def layer_windows(cfg, n_layers: int) -> np.ndarray:
     return np.zeros((n_layers,), dtype=np.int32)
 
 
+def _stack_layers(cfg, views_of):
+    """``(name, moe, layer index in its stack, layer tree, window)`` of
+    every layer in order; ``views_of(name, n)`` gives a stack's layers."""
+    windows = layer_windows(cfg, cfg.n_layers)
+    first = 0
+    for name, n, moe in stacks(cfg):
+        for i, p in enumerate(views_of(name, n)):
+            yield name, moe, i, p, int(windows[first + i])
+        first += n
+
+
 # ----------------------------------------------------------- top level
 
 def init(cfg, seed: int = 0, device=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     device = resolve_device(device)
     gen = generator(seed, device)
     params = {"embed": embed_init(gen, (cfg.padded_vocab, cfg.d_model),
                                   device),
-              "ln_f": zeros((cfg.d_model,), device),
-              "dense_blocks": stack_init(
-                  lambda: block_init(gen, cfg, device), cfg.n_layers)}
+              "ln_f": zeros((cfg.d_model,), device)}
+    for name, n, moe in stacks(cfg):
+        params[name] = stack_init(
+            lambda: block_init(gen, cfg, device, moe=moe), n)
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                                        fan_in=cfg.d_model, device=device)
@@ -119,36 +160,39 @@ def _grad_needed(params) -> bool:
         t.requires_grad for t in tree_leaves(params))
 
 
-def _block_out(p, x, cfg, positions, window):
-    return block_prefill(p, x, cfg, positions, window)[0]
+def _block_out(p, x, cfg, positions, window, moe):
+    return block_prefill(p, x, cfg, positions, window, moe=moe)[:2]
 
 
 def backbone(params, tokens, cfg, positions, kv_out=None):
-    """Embed, run every block, final norm -> (B, S, d_model).  Each block's
-    K/V is appended to ``kv_out`` when a list is given.  The layers come
-    from one ``unbind`` of the stack; when autograd needs the parameters'
-    gradient and ``cfg.remat`` is set, each block is recomputed in the
-    backward (K/V are then not kept)."""
+    """Embed, run every block, final norm -> ``(x (B, S, d_model), aux)``;
+    ``aux`` sums the MoE layers' load-balancing terms (None without MoE
+    layers).  Each block's K/V is appended to ``kv_out[stack name]`` when a
+    dict is given.  The layers come from one ``unbind`` of each stack; when
+    autograd needs the parameters' gradient and ``cfg.remat`` is set, each
+    block is recomputed in the backward (K/V are then not kept)."""
     x = embed(params, tokens, cfg)
-    windows = layer_windows(cfg, cfg.n_layers)
     remat = cfg.remat and kv_out is None and _grad_needed(params)
-    for p, w in zip(layer_views(params["dense_blocks"], cfg.n_layers),
-                    windows):
+    aux = None
+    for name, moe, _, p, w in _stack_layers(
+            cfg, lambda name, n: layer_views(params[name], n)):
         if remat:
-            x = checkpoint(_block_out, p, x, cfg, positions, int(w),
-                           use_reentrant=False)
-            continue
-        x, kv = block_prefill(p, x, cfg, positions, int(w))
-        if kv_out is not None:
-            kv_out.append(kv)
-    return L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+            x, a = checkpoint(_block_out, p, x, cfg, positions, w, moe,
+                              use_reentrant=False)
+        else:
+            x, a, kv = block_prefill(p, x, cfg, positions, w, moe=moe)
+            if kv_out is not None:
+                kv_out.setdefault(name, []).append(kv)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
 def forward(params, tokens, cfg):
     """Logits of whole sequences: tokens (B, S) -> (B, S, V)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     B, S = tokens.shape
-    x = backbone(params, tokens, cfg, _positions(B, S, tokens.device))
+    x, _ = backbone(params, tokens, cfg, _positions(B, S, tokens.device))
     return unembed_logits(params, x, cfg)
 
 
@@ -169,44 +213,57 @@ def cross_entropy(logits, labels, z_loss_w: float = 1e-4):
 
 def loss_fn(params, batch, cfg):
     """``(loss, metrics)`` of a batch ``{"tokens", "labels"}`` (B, S):
-    metrics ``lm_loss``, ``aux_loss`` (0 in the dense family), ``tokens``
-    and ``loss``."""
-    _check_dense(cfg)
-    logits = forward(params, batch["tokens"], cfg)
+    metrics ``lm_loss``, ``aux_loss`` (the MoE layers' summed
+    load-balancing term; 0 in the dense family), ``tokens`` and ``loss``
+    (``lm_loss + 0.01 aux_loss`` with experts)."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x, aux = backbone(params, tokens, cfg, _positions(B, S, tokens.device))
+    logits = unembed_logits(params, x, cfg)
     loss, denom = cross_entropy(logits, batch["labels"])
-    aux = torch.zeros((), dtype=torch.float32, device=loss.device)
-    return loss, {"lm_loss": loss, "aux_loss": aux, "tokens": denom,
-                  "loss": loss}
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+    metrics = {"lm_loss": loss, "aux_loss": aux, "tokens": denom}
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(params, cfg, tokens, positions=None):
     """Sequence-level prefill: logits (B, P, V) and every layer's K/V.
 
     tokens: (B, P) (right-padded prompts; causal masking keeps padded tails
-    from influencing earlier positions).  ``kv`` mirrors the cache tree:
-    ``{"dense_blocks": {"k": (n_layers, B, P, Hkv, hd), "v": ...}}``.
+    from influencing earlier positions, though in the MoE layers they take
+    expert capacity).  ``kv`` mirrors the cache tree: ``{stack: {"k":
+    (layers, B, P, Hkv, hd), "v": ...}}`` for each of :func:`stacks`.
     """
-    _check_dense(cfg)
+    _check_ported(cfg)
     B, P = tokens.shape
     if positions is None:
         positions = _positions(B, P, tokens.device)
-    kvs: list = []
-    x = backbone(params, tokens, cfg, positions, kvs)
-    return unembed_logits(params, x, cfg), {"dense_blocks": {
-        name: torch.stack([kv[name] for kv in kvs]) for name in ("k", "v")}}
+    kvs: dict = {}
+    x, _ = backbone(params, tokens, cfg, positions, kvs)
+    return unembed_logits(params, x, cfg), {
+        name: {k: torch.stack([kv[k] for kv in per_layer])
+               for k in ("k", "v")} for name, per_layer in kvs.items()}
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, device=None):
-    """The paged KV cache: ``{"dense_blocks": {"k", "v"}}`` with leaves
-    (n_layers, num_pages, page_size, Hkv, hd) shared by all slots.  Page 0
-    is the engine's scrap page — inactive slots write into it."""
-    _check_dense(cfg)
+    """The paged KV cache: ``{stack: {"k", "v"}}`` for each of
+    :func:`stacks`, leaves (layers, num_pages, page_size, Hkv, hd) shared
+    by all slots.  Page 0 is the engine's scrap page — inactive slots write
+    into it."""
+    _check_ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {"dense_blocks": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    pools = {}
+    for name, n, _ in stacks(cfg):
+        shape = (n, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+        pools[name] = {k: torch.zeros(shape, dtype=dtype, device=device)
+                       for k in ("k", "v")}
+    return pools
 
 
 def decode_step_paged(params, cfg, pools, block_tables, lengths, tokens):
@@ -215,19 +272,18 @@ def decode_step_paged(params, cfg, pools, block_tables, lengths, tokens):
     tokens: (B,) — one token per slot; block_tables: (B, maxp) i32; lengths:
     (B,) i32 tokens already cached per slot (the current token's position).
     Writes each slot's new K/V into ``pools`` in place and returns the
-    logits (B, V)."""
+    logits (B, V).  In the MoE layers every slot, active or not, is routed
+    as one token of a group of B."""
     x = embed(params, tokens[:, None], cfg)
-    windows = layer_windows(cfg, cfg.n_layers)
-    stacked = pools["dense_blocks"]
-    for i in range(cfg.n_layers):
-        x = block_decode_paged(layer(params["dense_blocks"], i), x, cfg,
-                               layer(stacked, i), block_tables, lengths,
-                               int(windows[i]))
+    for name, moe, i, p, w in _stack_layers(
+            cfg, lambda name, n: (layer(params[name], j) for j in range(n))):
+        x = block_decode_paged(p, x, cfg, layer(pools[name], i),
+                               block_tables, lengths, w, moe=moe)
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return unembed_logits(params, x, cfg)[:, 0]
 
 
 __all__ = ["init", "embed", "unembed_logits", "backbone", "prefill",
            "forward", "cross_entropy", "loss_fn", "init_paged_cache",
-           "decode_step_paged", "layer_windows", "block_init", "block_prefill",
-           "block_decode_paged"]
+           "decode_step_paged", "layer_windows", "stacks", "block_init",
+           "block_prefill", "block_decode_paged"]

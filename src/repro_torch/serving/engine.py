@@ -6,9 +6,11 @@ The core of the JAX package's engine, in PyTorch:
     enough pages are free (``scheduler.py``); admissions with the same
     padded prompt length prefill together as one batch;
   * prefill: one sequence-level forward (``models.lm.prefill``: kernel 1
-    for every projection and the unembed, kernel 2 for attention) returns
-    the logits and every layer's K/V, which are written into the request's
-    pages;
+    for every projection, expert product and the unembed, kernel 2 for
+    attention) returns the logits and every layer's K/V, which are written
+    into the request's pages.  In the MoE family a prompt's padding takes
+    expert capacity, so grouping admissions by padded length (as the JAX
+    engine does) is part of the result, not only of the speed;
   * decode: one step advances every slot through
     :func:`_decode_and_sample` (``models.lm.decode_step_paged``, kernel 3
     over the pages, then the vectorized sampler); inactive slots point at
@@ -93,7 +95,7 @@ class _Staging:
 
 
 class Engine:
-    """Continuous-batching engine for the dense family.
+    """Continuous-batching engine for the dense and MoE families.
 
     max_slots: decode batch width (inactive slots are masked).
     num_pages: pool size including the reserved scrap page 0.

@@ -3,7 +3,8 @@
   * checkpoint/restart: atomic saves every ``ckpt_every`` steps (keep-k
     retention, integrity hashes); on start the loop resumes from the newest
     checkpoint and replays the data stream (``data.pipeline`` seeds by
-    (run seed, step));
+    (run seed, step)).  A newest checkpoint whose leaves differ from the
+    model's is refused before any step (``checkpoint.manager.check_fits``);
   * straggler watchdog: an EMA of step wall time; a step slower than
     ``straggler_factor`` x EMA writes an emergency checkpoint and raises
     :class:`StragglerEvent`;

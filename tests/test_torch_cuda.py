@@ -85,6 +85,23 @@ def test_matmul_wrapper_raises_instead_of_falling_back(dev):
         ops.tcec_matmul(a.T.contiguous().T, a.T)     # a not contiguous
 
 
+# Kernel 1 as the MoE layers call it: granite-moe-1b-a400m's expert products
+# as one batch of 32, M = groups x capacity of the engine's decode step and
+# prefills (4, 20, 40 on path S; 144, 320 on path W), the gate and up
+# products (K 1024, N 512) and the down product (K 512, N 1024).
+@pytest.mark.parametrize("M", [4, 20, 40, 144, 320])
+@pytest.mark.parametrize("K,N", [(1024, 512), (512, 1024)])
+def test_matmul_expert_batch_matches_plain(dev, M, K, N):
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    a = torch.randn(32, M, K, generator=g, device=dev)
+    b = torch.randn(32, K, N, generator=g, device=dev) * K ** -0.5
+    before = tcec_matmul.launches
+    out = ops.tcec_matmul(a, b, "tcec_bf16x6")
+    assert tcec_matmul.launches == before + 1
+    ref = tcec_matmul.tcec_matmul_plain(a, b, "tcec_bf16x6")
+    assert bool(((out - ref).abs() <= 8 * K * U24 * (a.abs() @ b.abs())).all())
+
+
 # S = 150 and 100 are multiples of neither key tile (64 keys, 32 at x10);
 # S = 20 and 64 are one tile (the normalize-first branch); the non-causal
 # case has its queries at the tail of a longer key sequence.  Heads are
@@ -267,19 +284,15 @@ def _smoke_engine(dev, maxp=66):
                   max_pages_per_slot=maxp, device=dev)
 
 
-def test_decode_graph_replay_bitwise_equals_eager(dev, monkeypatch):
-    """Every replayed step against eager ``_decode_and_sample`` on a copy
-    of the same state: logits, guard bits, tokens and the pools after the
-    step are bitwise equal.  Over 12 steps the lengths cross page (4) and
-    chunk (8) boundaries, greedy and sampled slots share steps (and the
-    last steps are all greedy: the sampler graph is skipped), a slot
-    finishes and stays empty for two steps, and a new request takes it."""
-    import numpy as np
+def _check_replays(eng, monkeypatch) -> list:
+    """From now on, hold every replayed step of ``eng`` against eager
+    ``_decode_and_sample`` on a copy of the same state: logits, guard bits,
+    tokens and the pools after the step bitwise equal.  Returns the list to
+    which each compared step appends whether it sampled."""
     from repro_torch.models.modules import tree_leaves, tree_map
-    from repro_torch.serving import SamplingParams
     from repro_torch.serving import engine as em
-    eng = _smoke_engine(dev)
     B, maxp = eng.max_slots, eng.max_pages_per_slot
+    dev = eng.device
     launch = em._DecodeGraph.launch
     sampled_steps = []
 
@@ -301,6 +314,20 @@ def test_decode_graph_replay_bitwise_equals_eager(dev, monkeypatch):
         return out, done
 
     monkeypatch.setattr(em._DecodeGraph, "launch", checked)
+    return sampled_steps
+
+
+def test_decode_graph_replay_bitwise_equals_eager(dev, monkeypatch):
+    """Every replayed step against eager ``_decode_and_sample`` on a copy
+    of the same state: logits, guard bits, tokens and the pools after the
+    step are bitwise equal.  Over 12 steps the lengths cross page (4) and
+    chunk (8) boundaries, greedy and sampled slots share steps (and the
+    last steps are all greedy: the sampler graph is skipped), a slot
+    finishes and stays empty for two steps, and a new request takes it."""
+    import numpy as np
+    from repro_torch.serving import SamplingParams
+    eng = _smoke_engine(dev)
+    sampled_steps = _check_replays(eng, monkeypatch)
     rng = np.random.default_rng(0)
     V = eng.cfg.vocab_size
     for n, kw in ((6, dict(max_tokens=13)),
@@ -347,7 +374,10 @@ def test_decode_graph_counts_launches(dev):
 
 def test_decode_graph_non_finite_slot_fails_only_that_slot(dev):
     """NaN in one slot's cached K makes only that slot's guard bit false:
-    it finishes with ``error``, the others run to their length."""
+    it finishes with ``error``, the others run to their length.  This holds
+    for dense configs only: in a MoE layer the one-hot dispatch and combine
+    products carry ``0 * NaN`` into every slot of the routing group, as the
+    JAX package does."""
     from repro_torch.serving import SamplingParams
     eng = _smoke_engine(dev)
     rids = [eng.add_request(list(range(1, n + 1)), SamplingParams(
@@ -421,3 +451,77 @@ def test_train_step_through_kernels_matches_plain(dev):
     for a, b in zip(tree_leaves(new["params"]), tree_leaves(pnew["params"])):
         assert float((a - b).abs().max()) <= 1e-6 * max(
             float(b.abs().max()), 1e-3)
+
+
+# ------------------------------------------------------------------ MoE
+
+@pytest.mark.parametrize("B,S", [(2, 512), (4, 1)])
+def test_moe_layer_through_kernels_matches_plain(dev, monkeypatch, B, S):
+    """One granite-moe-1b-a400m MoE layer at full width, on identical
+    inputs, through the kernels and under ``dispatch.use_plain()``: the
+    router and the bf16 dispatch and combine products are plain products on
+    both sides, so the routes are bitwise equal; the kernel side launches
+    kernel 1 three times (gate, up, down), the plain side never; the output
+    is within 2^-8 of its largest entry (the combine product rounds the
+    experts' outputs to bf16) and the aux term equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import layers
+    from repro_torch.models.modules import generator
+    cfg = get_config("granite-moe-1b-a400m")
+    p = layers.moe_init(generator(0, dev), cfg, dev)
+    x = torch.randn(B, S, cfg.d_model, generator=generator(1, dev),
+                    device=dev)
+    seen, route = [], layers.moe_route
+    monkeypatch.setattr(layers, "moe_route",
+                        lambda *a: seen.append(route(*a)) or seen[-1])
+    with torch.no_grad():
+        n0 = tcec_matmul.launches
+        y, aux = layers.moe(p, x, cfg)
+        n1 = tcec_matmul.launches
+        with dispatch.use_plain():
+            py, paux = layers.moe(p, x, cfg)
+    assert (n1 - n0, tcec_matmul.launches - n1) == (3, 0)
+    for k in ("topi", "pos", "keep"):
+        assert torch.equal(seen[0][k], seen[1][k])
+    assert torch.equal(aux, paux)
+    assert bool(torch.isfinite(y).all())
+    assert float((y - py).abs().max()) <= 2.0 ** -8 * float(py.abs().max())
+
+
+def test_moe_decode_graph_replays_and_counts(dev, monkeypatch):
+    """granite-moe-1b-a400m cut to 2 layers at full widths: the first three
+    replayed decode steps are bitwise equal to eager (greedy and sampled
+    slots); then, without the eager comparison (which launches kernels of
+    its own), a step launches kernel 1 2 x 7 + 1 times (q, k, v, o, the
+    three expert products, the unembed) and kernel 3 twice."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, SamplingParams
+    cfg = get_config("granite-moe-1b-a400m").replace(n_layers=2)
+    params = get_model(cfg).init(0, device=dev)
+    L = cfg.n_layers
+    eng = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 6,
+                 page_size=16, max_pages_per_slot=6, device=dev)
+    sampled_steps = _check_replays(eng, monkeypatch)
+    rng = np.random.default_rng(0)
+    for n, kw in ((40, {}), (17, dict(temperature=0.8, top_k=50, seed=1)),
+                  (33, {}), (5, dict(temperature=1.0, seed=2))):
+        eng.add_request(rng.integers(0, cfg.vocab_size, n),
+                        SamplingParams(max_tokens=7, **kw))
+    for _ in range(3):            # prefills, warm-up, capture; replays
+        eng.step()
+    monkeypatch.undo()
+    assert len(sampled_steps) == 3 and all(sampled_steps)
+    mods = (tcec_matmul, tcec_attention, tcec_paged_attention)
+    for _ in range(3):
+        before = [m.launches for m in mods]
+        eng.step()
+        assert [m.launches - n for m, n in zip(mods, before)] == [
+            7 * L + 1, 0, L]
+    out = eng.run()
+    assert all(len(v) == 7 and v.finish_reason == "length"
+               for v in out.values())
+    stats = eng.stats()
+    assert stats["graph_replays"] == stats["decode_steps"] == 6

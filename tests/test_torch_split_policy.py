@@ -23,7 +23,8 @@ from repro.configs import get_smoke_config as jax_get_smoke  # noqa: E402
 from repro.configs.base import ModelConfig as JaxModelConfig  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.bridge import numpy_from_tensor, tensor_from_numpy  # noqa
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (get_config, get_smoke_config,  # noqa: E402
+                                 list_archs)
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 
 # the packages re-export the function ``split`` over the module's name
@@ -108,13 +109,22 @@ def test_keep_schedules_equal_jax(n):
 
 
 def test_model_config_fields_equal_jax():
+    """Every arch the port registers is the JAX package's, field for field
+    (full and smoke), derived properties included."""
     assert [(f.name, f.default) for f in dataclasses.fields(ModelConfig)] \
         == [(f.name, f.default) for f in dataclasses.fields(JaxModelConfig)]
-    for port, ref in ((get_config, jax_get_config),
-                      (get_smoke_config, jax_get_smoke)):
-        assert dataclasses.asdict(port("qwen3-0.6b")) == \
-            dataclasses.asdict(ref("qwen3-0.6b"))
+    assert list_archs() == ["granite-moe-1b-a400m", "qwen3-0.6b"]
+    for arch in list_archs():
+        for port, ref in ((get_config, jax_get_config),
+                          (get_smoke_config, jax_get_smoke)):
+            cfg, jcfg = port(arch), ref(arch)
+            assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+            assert (cfg.padded_vocab, cfg.moe_groups, cfg.mix_policy,
+                    cfg.n_rep) == (jcfg.padded_vocab, jcfg.moe_groups,
+                                   jcfg.mix_policy, jcfg.n_rep)
     assert get_config("qwen3-0.6b").padded_vocab == 151936
+    assert get_config("granite-moe-1b-a400m").padded_vocab == 49280
+    assert get_config("granite-moe-1b-a400m").moe_groups == 128
 
 
 @pytest.mark.parametrize("spec", ["ab,bc", "ab,bc->ac->a", "ab->b",

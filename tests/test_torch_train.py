@@ -498,3 +498,24 @@ def test_train_cli_runs_on_cpu(tmp_path, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--arch", ARCH, "--smoke", "--ckpt-dir", d])
+
+
+def test_train_cli_refuses_another_archs_checkpoint(tmp_path, capsys):
+    """A qwen3-0.6b smoke run checkpoints into a directory; a
+    granite-moe-1b-a400m smoke run given the same directory stops before
+    any step, naming the first leaf that differs (in sorted path order),
+    and leaves the checkpoint as it was."""
+    d = str(tmp_path)
+    common = ["--smoke", "--steps", "2", "--batch", "2", "--seq", "8",
+              "--ckpt-every", "2", "--ckpt-dir", d, "--device", "cpu"]
+    train_cli.main(["--arch", ARCH] + common)
+    assert ckpt.latest_step(d) == 2
+    capsys.readouterr()
+    with pytest.raises(ValueError, match="does not fit this model: leaf "
+                       "opt/m/dense_blocks/attn/k_norm has shape"):
+        train_cli.main(["--arch", "granite-moe-1b-a400m"] + common)
+    assert "step" not in capsys.readouterr().out
+    assert ckpt.latest_step(d) == 2
+    params = get_model(get_smoke_config(ARCH)).init(0, device="meta")
+    ckpt.restore(d, 2, {"params": params, "opt": adamw.init_state(
+        params, adamw.OptConfig())})
