@@ -27,11 +27,16 @@ Phases, each of which raises on a failed check (nothing is caught):
      entry copies first, ``copy_ms``; the tied unembedding's input
      gradient, K 151936); two take granite-moe-1b-a400m's expert gate
      product as a batch of 32 (at decode, M 4, and at the 2 x 512
-     prefill, M 320; ``torch.bmm`` beside it).  Kernel 2 runs at all four
+     prefill, M 320; ``torch.bmm`` beside it); three take phase 9's new
+     shapes (mamba2-130m's SSD chunk products ``y_intra``, a batch of 48 at
+     N 64, and the chunk state, a batch of 2 whose A is a transposed view;
+     zamba2-1.2b's ``w_cat`` at decode, K 4096, and its B, C and dt
+     projections at decode, N 64).  Kernel 2 runs at all four
      of the engine's prefill shapes, at the training shape 8 x 128, at 2 x
-     512 with head_dim 64 (granite) and once at x10 with a softcap and a
-     window; its ``ms`` is the public entry's, ``kernel_only_ms`` the
-     kernel's launch alone on operands already contiguous f32.  Kernel 3
+     512 with head_dim 64 (granite, and zamba2's 32/32 heads) and once at
+     x10 with a softcap and a window; its ``ms`` is the public entry's,
+     ``kernel_only_ms`` the kernel's launch alone on operands already
+     contiguous f32.  Kernel 3
      runs at the engine's decode shape (head_dim 128, and 64 for granite),
      a ragged one with a window, and 32 slots of 1024 tokens (bound by
      bytes); copies of its page pools are rotated so that each timed call
@@ -93,7 +98,25 @@ Phases, each of which raises on a failed check (nothing is caught):
      2^-24 and the layer's output within 2^-8 of their largest entries;
      (d) phase 6's windows (decode step median and spread of 32, 4
      profiled steps, the graphs' device time, a profiled 2 x 512
-     prefill).
+     prefill);
+  9. the SSM and hybrid families, served by ``generate_dense`` (no paged
+     decode path): mamba2-130m and zamba2-1.2b at full width and depth,
+     random weights from seed 0, each freed before the next.  (a)
+     ``generate_dense``, 4 greedy prompts of 64 tokens fed through
+     ``decode_step`` one at a time, 16 generated; launch counts zeroed
+     before and read after, as counted from the code (``ssm_counts``:
+     kernel 1 145 a mamba2 step and 283 a zamba2 step, kernels 2 and 3
+     none: the dense cache attends in plain bf16); tok/s, then the same
+     run with every step timed to its synchronize (median, p10/p90 of the
+     16 generated steps) beside the step's byte bound; (b)
+     ``forward_logits`` at 2 x 512 against ``dispatch.use_plain()``
+     (relative logits difference <= 1e-3; kernel 1 337 and 587, kernel 2
+     0 and 6; the plain side none); (c) one 512-token prompt, the last
+     position's logits of ``forward_logits`` (chunked) against
+     ``decode_step`` fed token by token (the recurrence): 1e-3 for mamba2,
+     2^-8 for zamba2, whose decode attends over a bf16 cache in bf16
+     products; (d) one decode step at 4 slots and one 2 x 512 forward under
+     ``torch.profiler``, idle shares against the unprofiled times.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -184,8 +207,8 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
     from repro_torch.kernels import ops, tcec_matmul as tm
     g = torch.Generator(device=dev).manual_seed(M + N + K)
     bsh = () if batch is None else (batch,)
-    a = (torch.randn(K, M, generator=g, device=dev).T if trans_a
-         else torch.randn(*bsh, M, K, generator=g, device=dev))
+    a = (torch.randn(*bsh, K, M, generator=g, device=dev).transpose(-1, -2)
+         if trans_a else torch.randn(*bsh, M, K, generator=g, device=dev))
 
     def entry(b):
         return ops.tcec_matmul(a.contiguous(), b, policy)
@@ -490,7 +513,7 @@ def serve_run(dev, arch, key):
     out = engine.run(prompts, SamplingParams(max_tokens=16))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+    launches = kernel_counts()
     stats = engine.stats()
     tokens = sum(len(v) for v in out.values())
     row = {"engine": f"{arch} full width, random weights (seed 0)",
@@ -1082,6 +1105,237 @@ def moe_layer_check(dev, cfg, params, B=2, S=512):
     check(float(aux) == float(paux), "aux term equal")
 
 
+# ------------------------------------------------------------ phase 9
+
+@contextlib.contextmanager
+def synced_times(owner, name):
+    """Inside the scope each call of ``owner.name`` (looked up at each call)
+    ends in a synchronize, and its wall milliseconds are appended to the
+    list the scope yields."""
+    times, fn = [], getattr(owner, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(owner, name, timed)
+    try:
+        yield times
+    finally:
+        setattr(owner, name, fn)
+
+
+def ssm_counts(cfg, S=None):
+    """Launches counted from the code, of one decode step (``S`` None) or
+    of one forward of S tokens: kernel 1 runs 6 products a Mamba layer (z,
+    x, B, C, dt and the output projection; a forward adds 4 chunk products
+    a chunk), 9 an application of zamba2's shared block (w_cat, q, k, v, o,
+    the MLP's three, w_out) and the unembed; kernel 2 once an application
+    in a forward.  The dense-cache decode attends in plain bf16, so kernels
+    2 and 3 are not launched at decode."""
+    from repro_torch.models.hybrid_lm import group_sizes
+    apps = group_sizes(cfg)[1] if cfg.family == "hybrid" else 0
+    per_layer = 6 if S is None else 6 + 4 * (S // min(cfg.ssm_chunk, S))
+    return {"tcec_matmul": per_layer * cfg.n_layers + 9 * apps + 1,
+            "tcec_attention": 0 if S is None else apps,
+            "tcec_paged_attention": 0}
+
+
+def kernel_counts():
+    """Every kernel's launch count, once the queued work has run."""
+    from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
+                                     tcec_paged_attention as tp)
+    torch.cuda.synchronize()
+    return {m.__name__.rsplit(".", 1)[1]: m.launches for m in (tm, ta, tp)}
+
+
+def ssm_path(dev):
+    """Phase 9: mamba2-130m and zamba2-1.2b at full width and depth, random
+    weights from seed 0; each model's weights are freed before the next.
+    Returns (a)'s launches of both."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import param_count
+    RECORD.setdefault("profile", [])
+    RECORD["ssm"] = {}
+    total = dict.fromkeys(PORT_KERNELS, 0)
+    # the recurrence of zamba2 attends over a bf16 cache in bf16 products
+    # (JAX's dense decode), so its chunked-vs-recurrent gap is a bf16 step
+    for arch, recur_limit in (("mamba2-130m", 1e-3),
+                              ("zamba2-1.2b", 2.0 ** -8)):
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=dev)
+        torch.cuda.synchronize()
+        rec = RECORD["ssm"][arch] = {
+            "params": param_count(params),
+            "init_s": time.perf_counter() - t0}
+        launches, step_ms = dense_run(dev, cfg, model, params, rec)   # 9a
+        for k in total:
+            total[k] += launches[k]
+        fwd_ms = forward_vs_plain(dev, cfg, model, params, rec)       # 9b
+        chunked_vs_recurrent(dev, cfg, model, params, rec,
+                             recur_limit)                             # 9c
+        ssm_profile(dev, cfg, model, params, rec, step_ms, fwd_ms)    # 9d
+        del params
+        torch.cuda.empty_cache()
+    return total
+
+
+def dense_run(dev, cfg, model, params, rec, B=4, P=64, gen=16):
+    """9a: ``generate_dense``, B greedy prompts of P tokens, ``gen``
+    generated; the launch counts are zeroed before the run and read after.
+    Then the same run again with every decode step timed to its
+    synchronize.  Returns the launches and the generated steps' median."""
+    from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
+                                     tcec_paged_attention as tp)
+    from repro_torch.launch import serve
+    from repro_torch.models.hybrid_lm import group_sizes
+    from repro_torch.models.modules import param_count, tree_leaves
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (B, P))
+    for m in (tm, ta, tp):
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve.generate_dense(cfg, params, prompts, gen, device=dev)
+    dt = time.perf_counter() - t0
+    launches = kernel_counts()
+    with synced_times(model.module, "decode_step") as steps:
+        again = serve.generate_dense(cfg, params, prompts, gen, device=dev)
+    gen_ms = steps[P:]                 # the steps after each drawn token
+    # the least a decode step could take: every weight it uses read once
+    # (zamba2's shared block once an application; the tied unembedding
+    # reads the table), the cache read and written once
+    apps = group_sizes(cfg)[1] if cfg.family == "hybrid" else 0
+    weights = 4 * (param_count(params["blocks"]) + params["embed"].numel()
+                   + apps * param_count(params.get("shared", {})))
+    cache = model.init_cache(B, P + gen + 1, device=dev)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(cache))
+    del cache
+    step_bytes = weights + 2 * cache_bytes
+    per_step = ssm_counts(cfg)
+    row = {"generate_dense": f"{cfg.name} full width, random weights (seed "
+           f"0): {B} greedy prompts of {P} tokens, {gen} generated",
+           "params": rec["params"], "init_s": rec["init_s"], "seconds": dt,
+           "tokens_per_s": B * gen / dt,
+           "tokens_per_s_with_prompt": B * (P + gen) / dt,
+           "decode_step_ms": float(np.median(gen_ms)),
+           "p10_ms": float(np.percentile(gen_ms, 10)),
+           "p90_ms": float(np.percentile(gen_ms, 90)),
+           "min_ms": min(gen_ms), "max_ms": max(gen_ms),
+           "prompt_step_ms": float(np.median(steps[:P])),
+           "step_bytes": step_bytes,
+           "step_bound_ms": step_bytes / H100_BYTES_PER_S * 1e3,
+           "launches": launches, "launches_per_step": per_step}
+    emit(row)
+    rec["generate_dense"] = row
+    check(len(steps) == P + gen, "one decode step a prompt and drawn token")
+    check(out.shape == (B, gen) and out.min() >= 0
+          and out.max() < cfg.vocab_size,
+          f"every request yields {gen} tokens of the vocabulary")
+    check(np.array_equal(out, again), "two greedy runs, the same tokens")
+    check(launches == {k: (P + gen) * n for k, n in per_step.items()},
+          f"{cfg.name}: launches of {P + gen} decode steps as counted")
+    return launches, row["decode_step_ms"]
+
+
+def forward_vs_plain(dev, cfg, model, params, rec, B=2, S=512):
+    """9b: ``forward_logits`` at B x S through the kernels against
+    ``dispatch.use_plain()``; returns the kernel side's median ms of 3."""
+    from repro_torch.kernels import dispatch
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    with torch.no_grad():
+        c0 = kernel_counts()
+        fast = model.forward_logits(params, toks)
+        c1 = kernel_counts()
+        with dispatch.use_plain():
+            plain = model.forward_logits(params, toks)
+        c2 = kernel_counts()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            model.forward_logits(params, toks)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    kernel_launches = {k: c1[k] - c0[k] for k in c0}
+    plain_launches = {k: c2[k] - c1[k] for k in c0}
+    rel = float((fast - plain).abs().max() / plain.abs().max())
+    row = {"logits_check": f"{cfg.name}: forward_logits {B} x {S}, kernels "
+           "vs dispatch.use_plain()", "max_rel_diff": rel, "limit": 1e-3,
+           "forward_ms": walls, "kernel_launches": kernel_launches,
+           "plain_launches": plain_launches}
+    emit(row)
+    rec["logits_check"] = row
+    check(kernel_launches == ssm_counts(cfg, S),
+          f"{cfg.name}: forward launches as counted")
+    check(not any(plain_launches.values()), "plain side: no kernel launch")
+    check(math.isfinite(rel) and rel <= 1e-3, f"{cfg.name}: forward logits "
+          "vs plain path")
+    return float(np.median(walls))
+
+
+def chunked_vs_recurrent(dev, cfg, model, params, rec, limit, S=512):
+    """9c: the last position's logits of one S-token ``forward_logits``
+    (the chunked SSD path) against ``decode_step`` fed the same tokens one
+    at a time (the recurrence; JAX's ``ssd_reference`` oracle)."""
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).to(dev)
+    with torch.no_grad():
+        chunked = model.forward_logits(params, toks)[:, -1]
+        cache = model.init_cache(1, S, device=dev)
+        t0 = time.perf_counter()
+        for i in range(S):
+            step, cache = model.decode_step(params, cache, toks[:, i], i)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    rel = float((chunked - step).abs().max() / step.abs().max())
+    row = {"chunked_vs_recurrent": f"{cfg.name}: one {S}-token prompt, "
+           "last position's logits, forward_logits vs decode_step token by "
+           "token", "max_rel_diff": rel, "limit": limit, "recurrence_s": dt}
+    emit(row)
+    rec["chunked_vs_recurrent"] = row
+    check(math.isfinite(rel) and rel <= limit,
+          f"{cfg.name}: chunked path vs recurrence")
+
+
+def ssm_profile(dev, cfg, model, params, rec, step_ms, fwd_ms):
+    """9d: one decode step at 4 slots (cache of 81 positions, as in 9a)
+    and one 2 x 512 ``forward_logits`` under ``torch.profiler``; each idle
+    share against the unprofiled time (9a's median step, 9b's median
+    forward)."""
+    rng = np.random.default_rng(3)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4,))).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).to(dev)
+    cache = model.init_cache(4, 81, device=dev)
+    rows = {}
+    with torch.no_grad():
+        model.decode_step(params, cache, tok, 0)          # warm
+        rows["decode"] = profile_window(
+            f"{cfg.name}: decode step, 4 slots, dense cache",
+            lambda: model.decode_step(params, cache, tok, 1), top=10)
+        rows["forward"] = profile_window(
+            f"{cfg.name}: forward_logits 2 x 512",
+            lambda: model.forward_logits(params, toks), top=10)
+    for key, wall in (("decode", step_ms), ("forward", fwd_ms)):
+        busy = rows[key]["device_busy_ms"]
+        row = {"window": f"{cfg.name}: {key}, shares of the unprofiled "
+               f"time ({wall:.3f} ms)", "device_busy_ms": busy,
+               "idle_share_of_unprofiled": 1 - busy / wall,
+               **{f"{k}_share_of_busy": v["ms"] / busy
+                  for k, v in rows[key]["port_kernels"].items()
+                  if v["count"]}}
+        emit(row)
+        RECORD["profile"].append(row)
+        rec[f"{key}_profile"] = rows[key] | {"shares": row}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1142,6 +1396,18 @@ def main():
                 dev, batch=32, copies=2, reps=40, plain_reps=5)
     matmul_case("expert gate at 2x512 prefill, batch 32", 320, 512, 1024,
                 dev, batch=32, reps=20, plain_reps=3)
+    # the SSM and hybrid families (phase 9): mamba2-130m's SSD chunk
+    # products at 2 x 512 (chunks of 256, 24 heads of 64, state 128), the
+    # chunk state's A a transposed view; zamba2-1.2b's w_cat at decode
+    matmul_case("mamba2 y_intra at 2x512, batch 48", 256, 64, 256, dev,
+                batch=48, reps=20, plain_reps=3)
+    matmul_case("mamba2 chunk state at 2x512, batch 2, A^T", 128, 1536, 256,
+                dev, batch=2, trans_a=True, reps=20, plain_reps=3)
+    matmul_case("zamba2 w_cat at decode (4 slots)", 4, 2048, 4096, dev,
+                copies=4, reps=40, plain_reps=5)
+    # zamba2's B, C and dt projections at decode: N 64 gives path S 4 blocks
+    matmul_case("zamba2 B/C/dt projection at decode (4 slots), N 64", 4, 64,
+                2048, dev, copies=128, reps=128, plain_reps=5)
     matmul_epilogue_check(dev)
     # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
     # and a window (ragged: 150 is a multiple of neither key tile)
@@ -1153,6 +1419,8 @@ def main():
     attention_case("x10, softcap 30, window 100, 2x150", 2, 150, 16, 8, 128,
                    dev, policy="tcec_bf16x10", window=100, softcap=30.0)
     attention_case("prefill 2x512, 16/8 heads, hd 64", 2, 512, 16, 8, 64,
+                   dev)
+    attention_case("zamba2 2x512, 32/32 heads, hd 64", 2, 512, 32, 32, 64,
                    dev)
     k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
                     40, dev)
@@ -1170,6 +1438,7 @@ def main():
     del model
     train_launches = training(dev)                 # phase 7
     moe_launches = moe_path(dev)                   # phase 8
+    ssm_launches = ssm_path(dev)                   # phase 9
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -1182,7 +1451,7 @@ def main():
             "name": name, "route": "cuda", "source": src.format(name),
             "replaces": rep.format(replaces),
             "launches": launches[name] + train_launches.get(name, 0)
-            + moe_launches[name],
+            + moe_launches[name] + ssm_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -1,5 +1,6 @@
-"""Architecture registry of the port: qwen3-0.6b (dense) and
-granite-moe-1b-a400m (MoE) so far."""
+"""Architecture registry of the port: qwen3-0.6b (dense),
+granite-moe-1b-a400m (MoE), mamba2-130m (SSM) and zamba2-1.2b (hybrid)
+so far."""
 from .base import (ModelConfig, get_config, get_smoke_config, list_archs,
                    register)
 

@@ -133,4 +133,5 @@ def list_archs() -> list[str]:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from . import granite_moe_1b, qwen3_0_6b  # noqa: F401
+    from . import (granite_moe_1b, mamba2_130m, qwen3_0_6b,  # noqa: F401
+                   zamba2_1_2b)

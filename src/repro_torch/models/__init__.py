@@ -1,4 +1,4 @@
-"""Model zoo of the port (the dense and MoE families so far)."""
+"""Model zoo of the port: the dense, MoE, SSM and hybrid families."""
 from .api import get_model
 
 __all__ = ["get_model"]

@@ -1,30 +1,47 @@
 """Family-dispatched model handle with the JAX package's entry names.
 
-The dense and MoE families are ported (both ``models.lm``, as in the JAX
-package); the other families raise.
+The dense and MoE families are ``models.lm``, the SSM family
+``models.ssm_lm`` and the hybrid family ``models.hybrid_lm``, as in the
+JAX package; the enc-dec (``audio``) and VLM families raise.  Every handle
+has ``init``, ``loss_fn``, ``forward_logits``, ``init_cache`` and
+``decode_step`` (the dense-cache loop of ``launch.serve.generate_dense``);
+the paged serving entries (``prefill``, ``init_paged_cache``,
+``decode_step_paged``) are None for the families without them, and the
+engine and ``generate`` check for that.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
 
-from . import lm
+from . import hybrid_lm, lm, ssm_lm
+
+_FAMILIES = {"dense": lm, "moe": lm, "ssm": ssm_lm, "hybrid": hybrid_lm}
 
 
 def get_model(cfg) -> SimpleNamespace:
-    """Build the model handle for ``cfg`` (dense or MoE family)."""
-    if cfg.family not in ("dense", "moe"):
+    """Build the model handle for ``cfg``."""
+    mod = _FAMILIES.get(cfg.family)
+    if mod is None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet")
+    paged = hasattr(mod, "decode_step_paged")
     return SimpleNamespace(
-        init=lambda seed=0, device=None: lm.init(cfg, seed, device),
-        loss_fn=lambda params, batch: lm.loss_fn(params, batch, cfg),
-        forward_logits=lambda params, tokens: lm.forward(params, tokens, cfg),
-        prefill=lambda params, tokens, positions=None: lm.prefill(
-            params, cfg, tokens, positions),
-        init_paged_cache=lambda num_pages, page_size, **kw:
-            lm.init_paged_cache(cfg, num_pages, page_size, **kw),
-        decode_step_paged=lambda params, pools, block_tables, lengths,
-            tokens: lm.decode_step_paged(params, cfg, pools, block_tables,
-                                         lengths, tokens),
-        module=lm,
+        init=lambda seed=0, device=None: mod.init(cfg, seed, device),
+        loss_fn=lambda params, batch: mod.loss_fn(params, batch, cfg),
+        forward_logits=lambda params, tokens: mod.forward_logits(
+            params, tokens, cfg),
+        init_cache=lambda batch, max_len, **kw: mod.init_cache(
+            cfg, batch, max_len, **kw),
+        decode_step=lambda params, cache, tokens, idx: mod.decode_step(
+            params, cfg, cache, tokens, idx),
+        prefill=(lambda params, tokens, positions=None: mod.prefill(
+            params, cfg, tokens, positions)) if paged else None,
+        init_paged_cache=(lambda num_pages, page_size, **kw:
+                          mod.init_paged_cache(cfg, num_pages, page_size,
+                                               **kw)) if paged else None,
+        decode_step_paged=(lambda params, pools, block_tables, lengths,
+                           tokens: mod.decode_step_paged(
+                               params, cfg, pools, block_tables, lengths,
+                               tokens)) if paged else None,
+        module=mod,
     )

@@ -1,4 +1,4 @@
-"""Shared neural layers of the dense and MoE families.  Every contraction
+"""Shared neural layers of the model families.  Every contraction
 routes through ``repro_torch.core.pdot``, so the paper's error-corrected
 GEMM is a config knob for the whole model; attention routes to kernel 2
 (prefill) and kernel 3 (paged decode) through ``kernels.dispatch``.  Kernel
@@ -156,18 +156,25 @@ def sdpa(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
     return mha(q, k, v, cfg, q_pos, k_pos, causal, window)
 
 
-def attention_prefill(p, x, cfg, positions, window=0):
+def attention_prefill(p, x, cfg, positions, window=0, causal=True):
     """Full attention layer that also returns the K/V it computed, so a
     sequence-level prefill fills the cache in one forward."""
     q, k, v = _project_qkv(p, x, cfg, positions)
-    o = sdpa(q, k, v, cfg, positions, positions, True, window)
+    o = sdpa(q, k, v, cfg, positions, positions, causal, window)
     out = pdot("bshk,hkd->bsd", o, p["wo"], cfg.policy)
     return out, {"k": k, "v": v}
 
 
+def attention(p, x, cfg, positions, causal=True, window=0):
+    """Full attention layer: qkv -> sdpa (kernel 2 on the card) -> out
+    projection."""
+    return attention_prefill(p, x, cfg, positions, window, causal)[0]
+
+
 def _decode_attend(q, ck, cv, cfg, cur_pos, window=0):
-    """One-token attention over a gathered cache view in plain bf16 (the
-    decode path for policies kernel 3 does not take).
+    """One-token attention over a dense cache view in plain bf16: the dense
+    cache's decode, and the paged decode for policies kernel 3 does not
+    take (over the gathered pages).
     q: (B, 1, H, hd); ck/cv: (B, T, Hkv, d); cur_pos: (B,)."""
     B, T, Hkv = ck.shape[0], ck.shape[1], ck.shape[2]
     H, hd = q.shape[2], q.shape[3]
@@ -182,6 +189,26 @@ def _decode_attend(q, ck, cv, cfg, cur_pos, window=0):
     pr = torch.softmax(s.float(), dim=-1)
     o = pdot("bhrqk,bkhd->bqhrd", pr, cv, "bf16")
     return o.reshape(B, 1, H, cv.shape[3])
+
+
+def attention_decode(p, x, cfg, cache, cache_index: int, window=0):
+    """One-token decode against a dense (B, T, Hkv, hd) KV cache
+    (``launch.serve.generate_dense``).
+
+    x: (B, 1, d_model), every row at position ``cache_index``.  The token's
+    K/V is written into ``cache`` in place (JAX returns an updated copy) and
+    the step attends over the whole cache in plain bf16, as JAX does; this
+    is not kernel 3, which takes a paged cache.  Returns ``(out, cache)``.
+    """
+    B = x.shape[0]
+    positions = torch.full((B, 1), cache_index, dtype=torch.int32,
+                           device=x.device)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    cache["k"][:, cache_index] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, cache_index] = v[:, 0].to(cache["v"].dtype)
+    o = _decode_attend(q, cache["k"], cache["v"], cfg, positions[:, 0],
+                       window)
+    return pdot("bshk,hkd->bsd", o, p["wo"], cfg.policy), cache
 
 
 def attention_decode_paged(p, x, cfg, pool, block_tables, lengths, window=0):

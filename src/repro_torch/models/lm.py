@@ -9,8 +9,12 @@ layer loop is a Python loop over that axis (the counterpart of
 ``lax.scan``) over one ``unbind`` of each stack, so a training backward
 stacks the layers' gradients once; under autograd with ``cfg.remat`` it
 recomputes each block in the backward (``jax.checkpoint`` of
-``stack_apply``).  The MLA attention and the multi-token-prediction head
-of the JAX module are not ported yet, and configs that use them raise.
+``stack_apply``).  Two caches serve decoding: the engine's paged pools
+(:func:`init_paged_cache`, :func:`decode_step_paged`, kernel 3) and the
+dense cache of ``launch.serve.generate_dense`` (:func:`init_cache`,
+:func:`decode_step`, attended in plain bf16 as JAX does); both are updated
+in place.  The MLA attention and the multi-token-prediction head of the
+JAX module are not ported yet, and configs that use them raise.
 """
 from __future__ import annotations
 
@@ -86,6 +90,15 @@ def block_prefill(p, x, cfg, positions, window, *, moe: bool = False):
     a, kv = L.attention_prefill(p["attn"], h, cfg, positions, window=window)
     x, aux = _residual_ffn(p, x, a, cfg, moe)
     return x, aux, kv
+
+
+def block_decode(p, x, cfg, cache, cache_index, window, *, moe: bool = False):
+    """One block for one decode token a row at position ``cache_index``,
+    against its dense K/V cache (written in place)."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, _ = L.attention_decode(p["attn"], h, cfg, cache, cache_index,
+                              window=window)
+    return _residual_ffn(p, x, a, cfg, moe)[0]
 
 
 def block_decode_paged(p, x, cfg, pool, block_tables, lengths, window, *,
@@ -188,7 +201,7 @@ def backbone(params, tokens, cfg, positions, kv_out=None):
     return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
-def forward(params, tokens, cfg):
+def forward_logits(params, tokens, cfg):
     """Logits of whole sequences: tokens (B, S) -> (B, S, V)."""
     _check_ported(cfg)
     B, S = tokens.shape
@@ -250,20 +263,29 @@ def prefill(params, cfg, tokens, positions=None):
                for k in ("k", "v")} for name, per_layer in kvs.items()}
 
 
-def init_paged_cache(cfg, num_pages: int, page_size: int,
-                     dtype=torch.bfloat16, device=None):
-    """The paged KV cache: ``{stack: {"k", "v"}}`` for each of
-    :func:`stacks`, leaves (layers, num_pages, page_size, Hkv, hd) shared
-    by all slots.  Page 0 is the engine's scrap page — inactive slots write
-    into it."""
+def _kv_cache(cfg, rows, dtype, device):
+    """``{stack: {"k", "v"}}`` for each of :func:`stacks`, zero leaves
+    (layers, *rows, Hkv, hd)."""
     _check_ported(cfg)
     device = resolve_device(device)
-    pools = {}
-    for name, n, _ in stacks(cfg):
-        shape = (n, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-        pools[name] = {k: torch.zeros(shape, dtype=dtype, device=device)
-                       for k in ("k", "v")}
-    return pools
+    return {name: {k: torch.zeros((n, *rows, cfg.n_kv_heads, cfg.head_dim),
+                                  dtype=dtype, device=device)
+                   for k in ("k", "v")} for name, n, _ in stacks(cfg)}
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device=None):
+    """The dense KV cache of ``launch.serve.generate_dense``: leaves
+    (layers, batch, max_len, Hkv, hd)."""
+    return _kv_cache(cfg, (batch, max_len), dtype, device)
+
+
+def init_paged_cache(cfg, num_pages: int, page_size: int,
+                     dtype=torch.bfloat16, device=None):
+    """The paged KV cache: leaves (layers, num_pages, page_size, Hkv, hd)
+    shared by all slots.  Page 0 is the engine's scrap page — inactive
+    slots write into it."""
+    return _kv_cache(cfg, (num_pages, page_size), dtype, device)
 
 
 def decode_step_paged(params, cfg, pools, block_tables, lengths, tokens):
@@ -283,7 +305,21 @@ def decode_step_paged(params, cfg, pools, block_tables, lengths, tokens):
     return unembed_logits(params, x, cfg)[:, 0]
 
 
+def decode_step(params, cfg, cache, tokens, cache_index):
+    """One decode step against the dense cache, every row at position
+    ``cache_index``. tokens: (B,); returns ``(logits (B, V), cache)``, the
+    cache updated in place."""
+    x = embed(params, tokens[:, None], cfg)
+    for name, moe, i, p, w in _stack_layers(
+            cfg, lambda name, n: (layer(params[name], j) for j in range(n))):
+        x = block_decode(p, x, cfg, layer(cache[name], i), cache_index, w,
+                         moe=moe)
+    x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return unembed_logits(params, x, cfg)[:, 0], cache
+
+
 __all__ = ["init", "embed", "unembed_logits", "backbone", "prefill",
-           "forward", "cross_entropy", "loss_fn", "init_paged_cache",
-           "decode_step_paged", "layer_windows", "stacks", "block_init",
-           "block_prefill", "block_decode_paged"]
+           "forward_logits", "cross_entropy", "loss_fn", "init_cache",
+           "init_paged_cache", "decode_step", "decode_step_paged",
+           "layer_windows", "stacks", "block_init", "block_prefill",
+           "block_decode", "block_decode_paged"]

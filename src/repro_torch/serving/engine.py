@@ -112,6 +112,11 @@ class Engine:
                  page_size: int = DEFAULT_PAGE_SIZE,
                  max_pages_per_slot: int | None = None,
                  cache_dtype=torch.bfloat16, device=None):
+        self.model = get_model(cfg)
+        if self.model.decode_step_paged is None:
+            raise ValueError(
+                f"family {cfg.family!r} has no paged decode path; use "
+                "launch.serve.generate_dense")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters on {params['embed'].device}, "
@@ -122,7 +127,6 @@ class Engine:
             max_pages_per_slot = min(64, num_pages - 1)
         self.cfg = cfg
         self.params = params
-        self.model = get_model(cfg)
         self.pool = PagePool(num_pages, page_size)
         self.sched = Scheduler(self.pool, max_slots)
         self.max_slots = max_slots

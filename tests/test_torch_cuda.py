@@ -525,3 +525,115 @@ def test_moe_decode_graph_replays_and_counts(dev, monkeypatch):
                for v in out.values())
     stats = eng.stats()
     assert stats["graph_replays"] == stats["decode_steps"] == 6
+
+
+# --------------------------------------------------- SSM and hybrid
+
+# Kernel 1 as the SSD chunk products call it at mamba2-130m's 2 x 512 (chunks
+# of 256, 24 heads of 64, state 128): y_intra a batch of B G r = 48 with N
+# 64, the chunk state a batch of 2 whose A is the transpose of a
+# contiguous (K, M) tensor (the entry copies it, as _canonicalize does), the
+# scores a batch of 2 at K 128; and zamba2-1.2b's w_cat at decode (K 4096).
+@pytest.mark.parametrize("batch,M,K,N,trans_a", [
+    (48, 256, 256, 64, False), (2, 128, 256, 1536, True),
+    (2, 256, 128, 256, False), (None, 4, 4096, 2048, False)])
+def test_matmul_ssd_products_match_plain(dev, batch, M, K, N, trans_a):
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    bsh = () if batch is None else (batch,)
+    a = (torch.randn(*bsh, K, M, generator=g, device=dev).transpose(-1, -2)
+         if trans_a else torch.randn(*bsh, M, K, generator=g, device=dev))
+    b = torch.randn(*bsh, K, N, generator=g, device=dev) * K ** -0.5
+    before = tcec_matmul.launches
+    out = ops.tcec_matmul(a.contiguous(), b, "tcec_bf16x6")
+    assert tcec_matmul.launches == before + 1
+    ref = tcec_matmul.tcec_matmul_plain(a, b, "tcec_bf16x6")
+    assert bool(((out - ref).abs() <= 8 * K * U24 * (a.abs() @ b.abs())).all())
+
+
+def _ssm_smoke(dev, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    cfg = get_smoke_config(arch)
+    model = get_model(cfg)
+    return cfg, model, model.init(seed=0, device=dev)
+
+
+def _launches():
+    return [m.launches for m in (tcec_matmul, tcec_attention,
+                                 tcec_paged_attention)]
+
+
+# Launches of one forward at 2 x 32 (two chunks of 16) and one decode step:
+# mamba2 (2 layers) 6 projections a layer + 4 chunk products a chunk + the
+# unembed; zamba2 (5 Mamba layers, the shared block applied twice) adds 9
+# products and one kernel-2 launch an application of the shared block.
+@pytest.mark.parametrize("arch,forward,step", [
+    ("mamba2-130m", [(6 + 4 * 2) * 2 + 1, 0, 0], [6 * 2 + 1, 0, 0]),
+    ("zamba2-1.2b", [14 * 5 + 9 * 2 + 1, 2, 0], [6 * 5 + 9 * 2 + 1, 0, 0])])
+def test_ssm_families_through_kernels_match_plain(dev, arch, forward, step):
+    """The smoke models' ``forward_logits`` at 2 x 32 and three decode
+    steps through the kernels against ``dispatch.use_plain()``: logits
+    within 1e-5 of their largest entry, the launch counts above on the
+    kernel side, none on the plain side."""
+    from repro_torch.kernels import dispatch
+    cfg, model, params = _ssm_smoke(dev, arch)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32),
+                         generator=torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    with torch.no_grad():
+        n0 = _launches()
+        fast = model.forward_logits(params, toks)
+        n1 = _launches()
+        with dispatch.use_plain():
+            plain = model.forward_logits(params, toks)
+        assert _launches() == n1
+        assert [b - a for a, b in zip(n0, n1)] == forward
+        assert float((fast - plain).abs().max()) <= 1e-5 * float(
+            plain.abs().max())
+        caches = [model.init_cache(2, 4, device=dev) for _ in range(2)]
+        for i in range(3):
+            n0 = _launches()
+            fast, _ = model.decode_step(params, caches[0], toks[:, i], i)
+            n1 = _launches()
+            with dispatch.use_plain():
+                plain, _ = model.decode_step(params, caches[1], toks[:, i], i)
+            assert [b - a for a, b in zip(n0, n1)] == step
+            assert _launches() == n1
+            assert float((fast - plain).abs().max()) <= 1e-5 * float(
+                plain.abs().max())
+
+
+def test_ssd_chunked_matches_recurrence_on_the_card(dev):
+    """mamba2's smoke model: the last position's logits of a 48-token
+    ``forward_logits`` (three chunks) against ``decode_step`` fed the same
+    tokens one at a time, within 1e-4 of their largest entry."""
+    cfg, model, params = _ssm_smoke(dev, "mamba2-130m")
+    toks = torch.randint(0, cfg.vocab_size, (2, 48),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    with torch.no_grad():
+        chunked = model.forward_logits(params, toks)[:, -1]
+        cache = model.init_cache(2, 48, device=dev)
+        for i in range(48):
+            step, cache = model.decode_step(params, cache, toks[:, i], i)
+    assert float((chunked - step).abs().max()) <= 1e-4 * float(
+        step.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b",
+                                  "qwen3-0.6b"])
+def test_generate_dense_on_the_card(dev, arch):
+    """Greedy ``generate_dense`` through the kernels equals the same loop
+    under ``dispatch.use_plain()`` (the smoke models' argmax margins are
+    far above the kernels' f32 differences); qwen3 takes the prefill
+    branch."""
+    import numpy as np
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve
+    cfg, _, params = _ssm_smoke(dev, arch)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (3, 8))
+    out = serve.generate_dense(cfg, params, prompts, 6, device=dev)
+    with dispatch.use_plain():
+        plain = serve.generate_dense(cfg, params, prompts, 6, device=dev)
+    assert out.shape == (3, 6)
+    np.testing.assert_array_equal(out, plain)

@@ -327,7 +327,7 @@ def test_loss_and_grads_match_jax_value_and_grad(smoke, routes):
 @pytest.mark.parametrize("arch,kw,missing", [
     ("deepseek-v3-671b", {}, "MLA attention"),
     (ARCH, dict(mtp=True), "multi-token prediction"),
-    ("mamba2-130m", {}, "family 'ssm'")])
+    ("seamless-m4t-large-v2", {}, "family 'audio'")])
 def test_unported_configs_raise_naming_what_is_missing(arch, kw, missing):
     cfg = ModelConfig(**dataclasses.asdict(jax_smoke_config(arch))).replace(
         **kw)

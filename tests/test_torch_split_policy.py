@@ -113,7 +113,8 @@ def test_model_config_fields_equal_jax():
     (full and smoke), derived properties included."""
     assert [(f.name, f.default) for f in dataclasses.fields(ModelConfig)] \
         == [(f.name, f.default) for f in dataclasses.fields(JaxModelConfig)]
-    assert list_archs() == ["granite-moe-1b-a400m", "qwen3-0.6b"]
+    assert list_archs() == ["granite-moe-1b-a400m", "mamba2-130m",
+                            "qwen3-0.6b", "zamba2-1.2b"]
     for arch in list_archs():
         for port, ref in ((get_config, jax_get_config),
                           (get_smoke_config, jax_get_smoke)):
@@ -223,4 +224,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         serve.generate(cfg, params, np.zeros((1, 4), np.int64), 2)
     with pytest.raises(RuntimeError):
         serve.main(["--arch", "qwen3-0.6b", "--smoke"])
+    ssm = get_smoke_config("mamba2-130m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(ssm).init(0)
+    ssm_params = get_model(ssm).init(0, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(ssm).init_cache(1, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.generate_dense(ssm, ssm_params, np.zeros((1, 4), np.int64), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "mamba2-130m", "--smoke"])
     assert resolve_device("cpu").type == "cpu"
