@@ -31,10 +31,15 @@ Phases, each of which raises on a failed check (nothing is caught):
      shapes (mamba2-130m's SSD chunk products ``y_intra``, a batch of 48 at
      N 64, and the chunk state, a batch of 2 whose A is a transposed view;
      zamba2-1.2b's ``w_cat`` at decode, K 4096, and its B, C and dt
-     projections at decode, N 64).  Kernel 2 runs at all four
+     projections at decode, N 64); two take phase 10's (seamless's untied
+     unembedding at decode, N 256256, and internvl2's MLP gate at decode).
+     Kernel 2 runs at all four
      of the engine's prefill shapes, at the training shape 8 x 128, at 2 x
-     512 with head_dim 64 (granite, and zamba2's 32/32 heads) and once at
-     x10 with a softcap and a window; its ``ms`` is the public entry's,
+     512 with head_dim 64 (granite, and zamba2's 32/32 heads), once at
+     x10 with a softcap and a window, and non-causal at seamless's encoder
+     (2 x 512, 16/16 heads of 64) and its cross-attention at decode (4 x 1
+     queries against 512 keys); its ``ms`` is the public entry's,
+     ``device_only_ms`` the same with the host taken out,
      ``kernel_only_ms`` the kernel's launch alone on operands already
      contiguous f32.  Kernel 3
      runs at the engine's decode shape (head_dim 128, and 64 for granite),
@@ -116,7 +121,24 @@ Phases, each of which raises on a failed check (nothing is caught):
      ``decode_step`` fed token by token (the recurrence): 1e-3 for mamba2,
      2^-8 for zamba2, whose decode attends over a bf16 cache in bf16
      products; (d) one decode step at 4 slots and one 2 x 512 forward under
-     ``torch.profiler``, idle shares against the unprofiled times.
+     ``torch.profiler``, idle shares against the unprofiled times;
+  10. the enc-dec and VLM families: seamless-m4t-large-v2 and internvl2-2b
+     at full width and depth, random weights from seed 0, each freed
+     before the next.  (a) seamless served: ``init_cache(4, 81,
+     mem_len=512)``, ``prefill_cross`` on 4 x 512 frames, then
+     ``generate_dense``'s loop (64 prompt tokens fed one ``decode_step`` at
+     a time, 16 greedy); launches as counted from the code
+     (``family_counts``: ``prefill_cross`` 217 of kernel 1 and 24 of
+     kernel 2, a decode step 217 and 24, the cross-attention one query
+     row); tok/s, the step's median and p10/p90, ``prefill_cross``'s ms and
+     the step's byte bound; two runs, the same tokens; (b)
+     ``forward_logits`` on 2 x 512 frames + 2 x 512 tokens against
+     ``dispatch.use_plain()`` (434 / 72 launches; relative logits
+     difference <= 1e-3) and one ``decode_step`` after ``prefill_cross``,
+     kernels against plain on copies of one cache state (<= 1e-3); (c)
+     internvl2 through 9a's ``generate_dense`` run (169 of kernel 1 a
+     step) and ``forward_logits`` on 2 x (256 patches + 256 tokens) against
+     ``use_plain()`` (171 / 24); (d) 9d's profiles for both.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -300,72 +322,81 @@ def f32_gate(row, ref64, out, plain_f32):
 
 # ------------------------------------------------------------- kernel 2
 
-def attention_direct(q, k, v, dtype):
-    """Causal GQA attention computed directly in ``dtype`` (no split)."""
+def attention_direct(q, k, v, dtype, causal=True):
+    """GQA attention computed directly in ``dtype`` (no split); causal
+    masks keys after the query's position (queries and keys from 0)."""
     B, S, H, hd = q.shape
-    rep = H // k.shape[2]
+    T, rep = k.shape[1], H // k.shape[2]
     qs = q.to(dtype).transpose(1, 2)
     ks = k.to(dtype).repeat_interleave(rep, 2).transpose(1, 2)
     vs = v.to(dtype).repeat_interleave(rep, 2).transpose(1, 2)
     sc = qs @ ks.transpose(-1, -2) / math.sqrt(hd)
-    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    sc = sc.masked_fill(~keep, -math.inf)
+    if causal:
+        keep = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, -math.inf)
     return (torch.softmax(sc, -1) @ vs).transpose(1, 2)
 
 
 def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
-                   window=0, softcap=None):
-    """Kernel 2 on causal self-attention at (B, S): against its plain version
-    (1e-5 max|v|) and, for plain x6 attention, against f64 (the f32 gate);
-    timed beside f32 SDPA where SDPA computes the same function."""
+                   window=0, softcap=None, causal=True, T=None):
+    """Kernel 2 at (B, S) queries against T keys (default S; positions
+    from 0): against its plain version (1e-5 max|v|) and, for plain x6
+    attention, against f64 (the f32 gate); timed beside f32 SDPA where SDPA
+    computes the same function."""
     from repro_torch.core import get_policy
     from repro_torch.kernels import tcec_attention as ta
-    g = torch.Generator(device=dev).manual_seed(S + B)
+    T = S if T is None else T
+    g = torch.Generator(device=dev).manual_seed(S + B + T)
     q = torch.randn(B, S, H, hd, generator=g, device=dev)
-    k = torch.randn(B, S, Hkv, hd, generator=g, device=dev)
-    v = torch.randn(B, S, Hkv, hd, generator=g, device=dev)
-    kw = dict(policy=policy, window=window, softcap=softcap)
+    k = torch.randn(B, T, Hkv, hd, generator=g, device=dev)
+    v = torch.randn(B, T, Hkv, hd, generator=g, device=dev)
+    kw = dict(policy=policy, window=window, softcap=softcap, causal=causal)
     out = ta.tcec_attention(q, k, v, **kw)
     ref = ta.tcec_attention_plain(q, k, v, **kw)
     err = float((out - ref).abs().max())
     tol = 1e-5 * float(v.abs().max())
     check(err <= tol, f"{name}: kernel 2 vs plain beyond 1e-5 max|v|")
     ms = time_ms(rotating(lambda i: ta.tcec_attention(q, k, v, **kw)), reps)
+    dev_ms = device_only_ms(lambda i: ta.tcec_attention(q, k, v, **kw), reps)
     # the launch alone, without the entry's policy lookup and checks
     pol = get_policy(policy)
-    qp, kp = (torch.arange(n, dtype=torch.int32, device=dev) for n in (S, S))
+    qp, kp = (torch.arange(n, dtype=torch.int32, device=dev) for n in (S, T))
     kernel_ms = time_ms(rotating(lambda i: ta._launch(
-        q, k, v, qp, kp, pol, True, window, softcap, math.sqrt(hd))), reps)
+        q, k, v, qp, kp, pol, causal, window, softcap, math.sqrt(hd))), reps)
     plain_ms = time_ms(rotating(lambda i: ta.tcec_attention_plain(q, k, v,
                                                                   **kw)), 2)
     lib_ms = None
-    if not window and not softcap:
+    if not window and not softcap and (S == T or not causal):
         rep = H // Hkv
         qs, ks, vs = (q.transpose(1, 2), k.repeat_interleave(rep, 2)
                       .transpose(1, 2), v.repeat_interleave(rep, 2)
                       .transpose(1, 2))
         lib_ms = time_ms(rotating(lambda i: torch.nn.functional
                                   .scaled_dot_product_attention(
-                                      qs, ks, vs, is_causal=True)), reps)
+                                      qs, ks, vs, is_causal=causal)), reps)
     # (q, k) pairs the mask keeps: causal, and within the window if any
-    pos = torch.arange(S, device=dev)
-    d = pos[:, None] - pos[None, :]
-    kept = (d >= 0) & (d < window) if window else d >= 0
+    d = (torch.arange(S, device=dev)[:, None]
+         - torch.arange(T, device=dev)[None, :])
+    kept = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
+    if window:
+        kept = kept & (d < window)
     pairs = int(kept.sum())
     ops = pol.passes * 2 * (hd + hd) * pairs * H * B   # QK^T and PV products
-    nbytes = 4 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd) + 8 * S
+    nbytes = 4 * (2 * B * S * H * hd + 2 * B * T * Hkv * hd) + 4 * (S + T)
     b_ms, by = bound(nbytes, ops, H100_BF16_OPS)
     row = {"kernel": "tcec_attention", "shape": name, "B": B, "S": S,
-           "T": S, "H": H, "Hkv": Hkv, "hd": hd, "policy": policy,
-           "window": window, "softcap": softcap, "max_abs_err": err,
-           "tolerance": "1e-5*max|v|", "tol": tol, "ms": ms,
-           "kernel_only_ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": by, "library_ms": lib_ms,
-           "library": ("scaled_dot_product_attention f32 causal"
+           "T": T, "H": H, "Hkv": Hkv, "hd": hd, "policy": policy,
+           "causal": causal, "window": window, "softcap": softcap,
+           "max_abs_err": err, "tolerance": "1e-5*max|v|", "tol": tol,
+           "ms": ms, "device_only_ms": dev_ms, "kernel_only_ms": kernel_ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+           "library_ms": lib_ms,
+           "library": (f"scaled_dot_product_attention f32 "
+                       f"{'causal' if causal else 'non-causal'}"
                        if lib_ms is not None else None)}
     if policy == "tcec_bf16x6" and not window and not softcap:
-        f32_gate(row, attention_direct(q, k, v, torch.float64), out,
-                 attention_direct(q, k, v, torch.float32))
+        f32_gate(row, attention_direct(q, k, v, torch.float64, causal), out,
+                 attention_direct(q, k, v, torch.float32, causal))
     emit(row)
     RECORD["kernel_checks"].append(row)
     return row
@@ -1158,6 +1189,7 @@ def ssm_path(dev):
     Returns (a)'s launches of both."""
     from repro_torch.configs import get_config
     from repro_torch.models import get_model
+    from repro_torch.models.hybrid_lm import group_sizes
     from repro_torch.models.modules import param_count
     RECORD.setdefault("profile", [])
     RECORD["ssm"] = {}
@@ -1174,10 +1206,22 @@ def ssm_path(dev):
         rec = RECORD["ssm"][arch] = {
             "params": param_count(params),
             "init_s": time.perf_counter() - t0}
-        launches, step_ms = dense_run(dev, cfg, model, params, rec)   # 9a
+        # the least a decode step could take: every weight it uses read
+        # once (zamba2's shared block once an application; the tied
+        # unembedding reads the table)
+        apps = group_sizes(cfg)[1] if cfg.family == "hybrid" else 0
+        weights = 4 * (param_count(params["blocks"]) + params["embed"].numel()
+                       + apps * param_count(params.get("shared", {})))
+        launches, step_ms = dense_run(dev, cfg, model, params, rec,
+                                      ssm_counts(cfg), weights)       # 9a
         for k in total:
             total[k] += launches[k]
-        fwd_ms = forward_vs_plain(dev, cfg, model, params, rec)       # 9b
+        rng = np.random.default_rng(1)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (2, 512))).to(dev)
+        fwd_ms = forward_vs_plain(dev, cfg, model, params, rec,
+                                  {"tokens": toks}, "2 x 512",
+                                  ssm_counts(cfg, 512))               # 9b
         chunked_vs_recurrent(dev, cfg, model, params, rec,
                              recur_limit)                             # 9c
         ssm_profile(dev, cfg, model, params, rec, step_ms, fwd_ms)    # 9d
@@ -1186,16 +1230,19 @@ def ssm_path(dev):
     return total
 
 
-def dense_run(dev, cfg, model, params, rec, B=4, P=64, gen=16):
-    """9a: ``generate_dense``, B greedy prompts of P tokens, ``gen``
-    generated; the launch counts are zeroed before the run and read after.
-    Then the same run again with every decode step timed to its
-    synchronize.  Returns the launches and the generated steps' median."""
+def dense_run(dev, cfg, model, params, rec, per_step, weight_bytes, B=4,
+              P=64, gen=16):
+    """9a (and 10c): ``generate_dense``, B greedy prompts of P tokens,
+    ``gen`` generated; the launch counts are zeroed before the run and read
+    after, and must be ``per_step`` a decode step.  Then the same run again
+    with every decode step timed to its synchronize.  The step's byte bound
+    is ``weight_bytes`` (what a step reads of the weights) with the cache
+    read and written once.  Returns the launches and the generated steps'
+    median."""
     from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
                                      tcec_paged_attention as tp)
     from repro_torch.launch import serve
-    from repro_torch.models.hybrid_lm import group_sizes
-    from repro_torch.models.modules import param_count, tree_leaves
+    from repro_torch.models.modules import tree_leaves
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (B, P))
     for m in (tm, ta, tp):
@@ -1208,18 +1255,11 @@ def dense_run(dev, cfg, model, params, rec, B=4, P=64, gen=16):
     with synced_times(model.module, "decode_step") as steps:
         again = serve.generate_dense(cfg, params, prompts, gen, device=dev)
     gen_ms = steps[P:]                 # the steps after each drawn token
-    # the least a decode step could take: every weight it uses read once
-    # (zamba2's shared block once an application; the tied unembedding
-    # reads the table), the cache read and written once
-    apps = group_sizes(cfg)[1] if cfg.family == "hybrid" else 0
-    weights = 4 * (param_count(params["blocks"]) + params["embed"].numel()
-                   + apps * param_count(params.get("shared", {})))
     cache = model.init_cache(B, P + gen + 1, device=dev)
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(cache))
     del cache
-    step_bytes = weights + 2 * cache_bytes
-    per_step = ssm_counts(cfg)
+    step_bytes = weight_bytes + 2 * cache_bytes
     row = {"generate_dense": f"{cfg.name} full width, random weights (seed "
            f"0): {B} greedy prompts of {P} tokens, {gen} generated",
            "params": rec["params"], "init_s": rec["init_s"], "seconds": dt,
@@ -1245,35 +1285,36 @@ def dense_run(dev, cfg, model, params, rec, B=4, P=64, gen=16):
     return launches, row["decode_step_ms"]
 
 
-def forward_vs_plain(dev, cfg, model, params, rec, B=2, S=512):
-    """9b: ``forward_logits`` at B x S through the kernels against
-    ``dispatch.use_plain()``; returns the kernel side's median ms of 3."""
+def forward_vs_plain(dev, cfg, model, params, rec, batch, what, counts):
+    """9b (and 10b, 10c): ``forward_logits`` of ``batch`` (``what`` names
+    its shape) through the kernels against ``dispatch.use_plain()``; the
+    kernel side must launch ``counts``, the plain side nothing.  Returns
+    the kernel side's median ms of 3."""
     from repro_torch.kernels import dispatch
-    rng = np.random.default_rng(1)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
     with torch.no_grad():
         c0 = kernel_counts()
-        fast = model.forward_logits(params, toks)
+        fast = model.forward_logits(params, batch)
         c1 = kernel_counts()
         with dispatch.use_plain():
-            plain = model.forward_logits(params, toks)
+            plain = model.forward_logits(params, batch)
         c2 = kernel_counts()
+        rel = float((fast - plain).abs().max() / plain.abs().max())
+        del fast, plain
         walls = []
         for _ in range(3):
             t0 = time.perf_counter()
-            model.forward_logits(params, toks)
+            model.forward_logits(params, batch)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
     kernel_launches = {k: c1[k] - c0[k] for k in c0}
     plain_launches = {k: c2[k] - c1[k] for k in c0}
-    rel = float((fast - plain).abs().max() / plain.abs().max())
-    row = {"logits_check": f"{cfg.name}: forward_logits {B} x {S}, kernels "
+    row = {"logits_check": f"{cfg.name}: forward_logits {what}, kernels "
            "vs dispatch.use_plain()", "max_rel_diff": rel, "limit": 1e-3,
            "forward_ms": walls, "kernel_launches": kernel_launches,
-           "plain_launches": plain_launches}
+           "launches_counted": counts, "plain_launches": plain_launches}
     emit(row)
     rec["logits_check"] = row
-    check(kernel_launches == ssm_counts(cfg, S),
+    check(kernel_launches == counts,
           f"{cfg.name}: forward launches as counted")
     check(not any(plain_launches.values()), "plain side: no kernel launch")
     check(math.isfinite(rel) and rel <= 1e-3, f"{cfg.name}: forward logits "
@@ -1314,6 +1355,16 @@ def ssm_profile(dev, cfg, model, params, rec, step_ms, fwd_ms):
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4,))).to(dev)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).to(dev)
     cache = model.init_cache(4, 81, device=dev)
+    family_profile(cfg, model, params, rec, cache, tok, {"tokens": toks},
+                   "2 x 512", step_ms, fwd_ms)
+
+
+def family_profile(cfg, model, params, rec, cache, tok, batch, what, step_ms,
+                   fwd_ms):
+    """9d and 10d: one decode step (``tok`` at position 1 of ``cache``,
+    after a warm-up step at 0) and one ``forward_logits`` of ``batch``
+    (``what``) under ``torch.profiler``; each idle share against the
+    unprofiled time (``step_ms``, ``fwd_ms``)."""
     rows = {}
     with torch.no_grad():
         model.decode_step(params, cache, tok, 0)          # warm
@@ -1321,8 +1372,8 @@ def ssm_profile(dev, cfg, model, params, rec, step_ms, fwd_ms):
             f"{cfg.name}: decode step, 4 slots, dense cache",
             lambda: model.decode_step(params, cache, tok, 1), top=10)
         rows["forward"] = profile_window(
-            f"{cfg.name}: forward_logits 2 x 512",
-            lambda: model.forward_logits(params, toks), top=10)
+            f"{cfg.name}: forward_logits {what}",
+            lambda: model.forward_logits(params, batch), top=10)
     for key, wall in (("decode", step_ms), ("forward", fwd_ms)):
         busy = rows[key]["device_busy_ms"]
         row = {"window": f"{cfg.name}: {key}, shares of the unprofiled "
@@ -1334,6 +1385,254 @@ def ssm_profile(dev, cfg, model, params, rec, step_ms, fwd_ms):
         emit(row)
         RECORD["profile"].append(row)
         rec[f"{key}_profile"] = rows[key] | {"shares": row}
+
+
+# ------------------------------------------------------------ phase 10
+
+def family_counts(cfg, what):
+    """Launches counted from the code (kernels 1, 2, 3) of ``what``:
+    ``"step"`` (one dense-cache decode step), ``"forward"``
+    (``forward_logits``) or ``"prefill_cross"``.  Kernel 1 runs 7 products
+    an encoder or VLM layer (q, k, v, o, the MLP's three), 11 a seamless
+    decoder layer in a forward (self q, k, v, o; cross q, o and the
+    memory's k and v) and 9 at decode (the memory's K/V come from the cross
+    cache), the frontend projection (seamless) or the projector's two
+    products (internvl2), and the unembed.  Kernel 2 runs once a
+    self-attention of a forward and once a cross-attention, also at decode
+    (one query row); the dense cache's self-attention is plain bf16."""
+    L = cfg.n_layers
+    if cfg.family == "vlm":
+        k1, k2 = {"step": (7 * L + 1, 0), "forward": (2 + 7 * L + 1, L)}[what]
+    else:
+        Le = cfg.n_enc_layers
+        k1, k2 = {"step": (9 * L + 1, L),
+                  "forward": (1 + 7 * Le + 11 * L + 1, Le + 2 * L),
+                  "prefill_cross": (1 + 7 * Le + 2 * L, Le)}[what]
+    return {"tcec_matmul": k1, "tcec_attention": k2,
+            "tcec_paged_attention": 0}
+
+
+def encdec_vlm_path(dev):
+    """Phase 10: seamless-m4t-large-v2 and internvl2-2b at full width and
+    depth, random weights from seed 0; each model's weights are freed
+    before the next.  Returns the launches of 10a and 10c's served runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import param_count
+    RECORD.setdefault("profile", [])
+    RECORD["encdec_vlm"] = {}
+    total = dict.fromkeys(PORT_KERNELS, 0)
+    for arch, phase in (("seamless-m4t-large-v2", encdec_phase),
+                        ("internvl2-2b", vlm_phase)):
+        cfg = get_config(arch)
+        model = get_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(seed=0, device=dev)
+        torch.cuda.synchronize()
+        rec = RECORD["encdec_vlm"][arch] = {
+            "params": param_count(params),
+            "init_s": time.perf_counter() - t0}
+        launches = phase(dev, cfg, model, params, rec)
+        for k in total:
+            total[k] += launches[k]
+        del params
+        torch.cuda.empty_cache()
+    return total
+
+
+def encdec_phase(dev, cfg, model, params, rec, B=4, P=64, gen=16, T=512):
+    """10a: seamless served: ``init_cache(B, P + gen + 1, mem_len=T)``,
+    ``prefill_cross`` on B x T frames, then ``generate_dense``'s loop (the
+    P-token prompt fed one ``decode_step`` at a time, ``gen`` greedy
+    tokens); launches zeroed before and read after, as counted; the run
+    again with every decode step timed to its synchronize, the same
+    tokens.  10b: ``forward_logits`` at 2 x 512 frames + 2 x 512 tokens
+    against ``use_plain()``, and one ``decode_step`` after
+    ``prefill_cross``, kernels against plain on copies of one cache state.
+    10d: the profiles.  Returns 10a's launches."""
+    from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
+                                     tcec_paged_attention as tp)
+    from repro_torch.models.modules import param_count, tree_leaves
+    mod = model.module
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, T, cfg.frontend_dim)).astype(np.float32)).to(dev)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P))).to(dev)
+
+    def served():
+        cache = model.init_cache(B, P + gen + 1, mem_len=T, device=dev)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            mod.prefill_cross(params, frames, cfg, cache)
+            torch.cuda.synchronize()
+            cross_ms = (time.perf_counter() - t0) * 1e3
+            for i in range(P):
+                logits, cache = model.decode_step(params, cache,
+                                                  prompts[:, i], i)
+            out = []
+            for i in range(gen):
+                tok = torch.argmax(logits[:, :cfg.vocab_size], dim=-1)
+                out.append(tok)
+                logits, cache = model.decode_step(params, cache, tok, P + i)
+        return torch.stack(out, 1).cpu().numpy(), cross_ms
+
+    for m in (tm, ta, tp):
+        m.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, cross_ms = served()
+    dt = time.perf_counter() - t0
+    launches = kernel_counts()
+    with synced_times(mod, "decode_step") as steps:
+        again, cross_ms2 = served()
+    gen_ms = steps[P:]
+    pc, st = family_counts(cfg, "prefill_cross"), family_counts(cfg, "step")
+    counted = {k: pc[k] + (P + gen) * st[k] for k in pc}
+    # the least a decode step could take: the decoder's weights that a step
+    # reads (not the memory's K/V projections), the unembedding and B rows
+    # of the table once; the self cache read and one position of it
+    # written, the cross cache read
+    xattn = params["dec_blocks"]["xattn"]
+    weights = 4 * (param_count(params["dec_blocks"]) - xattn["wk"].numel()
+                   - xattn["wv"].numel() + params["unembed"].numel()
+                   + B * cfg.d_model)
+    cache = model.init_cache(B, P + gen + 1, mem_len=T, device=dev)
+    self_b, cross_b = (sum(t.numel() * t.element_size()
+                           for t in tree_leaves(cache[k]))
+                       for k in ("self", "cross"))
+    step_bytes = weights + self_b + self_b // (P + gen + 1) + cross_b
+    row = {"served": f"{cfg.name} full width, random weights (seed 0): "
+           f"prefill_cross on {B} x {T} frames, {B} greedy prompts of {P} "
+           f"tokens fed one decode_step at a time, {gen} generated",
+           "params": rec["params"], "init_s": rec["init_s"], "seconds": dt,
+           "tokens_per_s": B * gen / dt,
+           "decode_step_ms": float(np.median(gen_ms)),
+           "p10_ms": float(np.percentile(gen_ms, 10)),
+           "p90_ms": float(np.percentile(gen_ms, 90)),
+           "min_ms": min(gen_ms), "max_ms": max(gen_ms),
+           "prompt_step_ms": float(np.median(steps[:P])),
+           "prefill_cross_ms": [cross_ms, cross_ms2],
+           "step_bytes": step_bytes,
+           "step_bound_ms": step_bytes / H100_BYTES_PER_S * 1e3,
+           "launches": launches, "launches_counted": counted}
+    emit(row)
+    rec["served"] = row
+    check(len(steps) == P + gen, "one decode step a prompt and drawn token")
+    check(out.shape == (B, gen) and out.min() >= 0
+          and out.max() < cfg.vocab_size,
+          f"every request yields {gen} tokens of the vocabulary")
+    check(np.array_equal(out, again), "two greedy runs, the same tokens")
+    check(launches == counted, f"{cfg.name}: launches of prefill_cross and "
+          f"{P + gen} decode steps as counted")
+
+    # 10b: the forward, then one decode step on copies of one cache state
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 512))).to(dev),
+        "frames": torch.from_numpy(rng.standard_normal(
+            (2, 512, cfg.frontend_dim)).astype(np.float32)).to(dev)}
+    fwd_ms = forward_vs_plain(dev, cfg, model, params, rec, batch,
+                              "2 x 512 frames + 2 x 512 tokens",
+                              family_counts(cfg, "forward"))
+    with torch.no_grad():
+        mod.prefill_cross(params, frames, cfg, cache)
+    rows = decode_vs_plain(cfg, model, params, cache, prompts[:, 0], st)
+    rec["decode_check"] = rows
+    family_profile(cfg, model, params, rec, cache, prompts[:, 1], batch,
+                   "2 x 512 frames + 2 x 512 tokens",
+                   rec["served"]["decode_step_ms"], fwd_ms)     # 10d
+    return launches
+
+
+@contextlib.contextmanager
+def f32_self_attention():
+    """Inside the scope the dense cache's self-attention products, which
+    run the ``bf16`` policy (JAX's dense decode), run ``fp32``; the models'
+    other products are untouched."""
+    from repro_torch.models import layers
+    fn = layers.pdot
+
+    def pdot(spec, a, b, policy):
+        return fn(spec, a, b, "fp32" if policy == "bf16" else policy)
+
+    layers.pdot = pdot
+    try:
+        yield
+    finally:
+        layers.pdot = fn
+
+
+def decode_vs_plain(cfg, model, params, cache, tok, counted):
+    """10b: one seamless ``decode_step`` at position 0 of ``cache`` (after
+    ``prefill_cross``), through the kernels and under
+    ``dispatch.use_plain()``, each on its own copy of the cache.  (i) As
+    JAX computes it: the step writes its K/V into the bf16 self cache and
+    attends over it in bf16 products, so a value the two f32-accurate sides
+    round to different bf16 neighbours moves the logits by up to a bf16
+    step: held to 2^-8.  (ii) The same step with the self cache in f32 and
+    its attention products in f32 on both sides (the cross cache keeps its
+    bf16 values), so that only the kernels and their plain versions
+    differ: held to 1e-3.  The kernel side launches ``counted`` each time,
+    the plain side nothing."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.modules import tree_map
+    rows = []
+    for label, limit, dtype, scope in (
+            ("bf16 self cache and attention (JAX's)", 2.0 ** -8, None,
+             contextlib.nullcontext),
+            ("f32 self cache and attention on both sides", 1e-3,
+             torch.float32, f32_self_attention)):
+        copies = [tree_map(lambda t: t.to(dtype or t.dtype, copy=True),
+                           cache) for _ in range(2)]
+        with torch.no_grad(), scope():
+            c0 = kernel_counts()
+            fast, _ = model.decode_step(params, copies[0], tok, 0)
+            c1 = kernel_counts()
+            with dispatch.use_plain():
+                plain, _ = model.decode_step(params, copies[1], tok, 0)
+            c2 = kernel_counts()
+        rel = float((fast - plain).abs().max() / plain.abs().max())
+        row = {"logits_check": f"{cfg.name}: one decode_step after "
+               f"prefill_cross, kernels vs dispatch.use_plain() on copies "
+               f"of one cache state; {label}",
+               "max_rel_diff": rel, "limit": limit,
+               "kernel_launches": {k: c1[k] - c0[k] for k in c0},
+               "plain_launches": {k: c2[k] - c1[k] for k in c0}}
+        emit(row)
+        rows.append(row)
+        del copies, fast, plain
+        check(row["kernel_launches"] == counted,
+              "decode step launches as counted")
+        check(not any(row["plain_launches"].values()),
+              "plain side: no kernel launch")
+        check(math.isfinite(rel) and rel <= limit,
+              f"{cfg.name}: decode logits vs plain path, {label}")
+    return rows
+
+
+def vlm_phase(dev, cfg, model, params, rec):
+    """10c: internvl2 through ``generate_dense`` (phase 9a's run: 4 greedy
+    prompts of 64 text tokens, 16 generated) and ``forward_logits`` on 2 x
+    (256 patches + 256 tokens) against ``use_plain()``; 10d: the profiles.
+    Returns the served run's launches."""
+    from repro_torch.models.modules import param_count
+    weights = 4 * (param_count(params["dense_blocks"])
+                   + params["unembed"].numel() + 4 * cfg.d_model)
+    launches, step_ms = dense_run(dev, cfg, model, params, rec,
+                                  family_counts(cfg, "step"), weights)
+    rng = np.random.default_rng(1)
+    P = cfg.n_frontend_tokens
+    batch = {"patches": torch.from_numpy(rng.standard_normal(
+        (2, P, cfg.frontend_dim)).astype(np.float32)).to(dev),
+        "tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 256))).to(dev)}
+    what = f"2 x ({P} patches + 256 tokens)"
+    fwd_ms = forward_vs_plain(dev, cfg, model, params, rec, batch, what,
+                              family_counts(cfg, "forward"))
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4,))).to(dev)
+    family_profile(cfg, model, params, rec, model.init_cache(
+        4, 81, device=dev), tok, batch, what, step_ms, fwd_ms)   # 10d
+    return launches
 
 
 def main():
@@ -1408,6 +1707,13 @@ def main():
     # zamba2's B, C and dt projections at decode: N 64 gives path S 4 blocks
     matmul_case("zamba2 B/C/dt projection at decode (4 slots), N 64", 4, 64,
                 2048, dev, copies=128, reps=128, plain_reps=5)
+    # the enc-dec and VLM families (phase 10): seamless's untied
+    # unembedding at decode (N 256256, B read as stored, 1.05 GB) and
+    # internvl2's MLP gate at decode
+    matmul_case("seamless unembed at decode (4 slots), N 256256", 4, 256256,
+                1024, dev, reps=20, plain_reps=3)
+    matmul_case("internvl2 mlp gate at decode (4 slots)", 4, 8192, 2048, dev,
+                copies=4, reps=40, plain_reps=10)
     matmul_epilogue_check(dev)
     # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
     # and a window (ragged: 150 is a multiple of neither key tile)
@@ -1422,6 +1728,12 @@ def main():
                    dev)
     attention_case("zamba2 2x512, 32/32 heads, hd 64", 2, 512, 32, 32, 64,
                    dev)
+    # seamless (phase 10): the encoder's non-causal self-attention, and the
+    # cross-attention of a decode step: one query row against the memory
+    attention_case("seamless encoder 2x512, 16/16 heads, hd 64, non-causal",
+                   2, 512, 16, 16, 64, dev, causal=False)
+    attention_case("seamless cross-attention at decode, 4 x 1 against T 512",
+                   4, 1, 16, 16, 64, dev, causal=False, T=512, reps=40)
     k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
                     40, dev)
     paged_case("decode 4 slots, hd 64", [520, 520, 208, 208], 16, 8, 64, 16,
@@ -1439,6 +1751,7 @@ def main():
     train_launches = training(dev)                 # phase 7
     moe_launches = moe_path(dev)                   # phase 8
     ssm_launches = ssm_path(dev)                   # phase 9
+    encdec_launches = encdec_vlm_path(dev)         # phase 10
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -1451,7 +1764,8 @@ def main():
             "name": name, "route": "cuda", "source": src.format(name),
             "replaces": rep.format(replaces),
             "launches": launches[name] + train_launches.get(name, 0)
-            + moe_launches[name] + ssm_launches[name],
+            + moe_launches[name] + ssm_launches[name]
+            + encdec_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

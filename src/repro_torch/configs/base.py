@@ -133,5 +133,6 @@ def list_archs() -> list[str]:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from . import (granite_moe_1b, mamba2_130m, qwen3_0_6b,  # noqa: F401
+    from . import (granite_moe_1b, internvl2_2b,  # noqa: F401
+                   mamba2_130m, qwen3_0_6b, seamless_m4t_large_v2,
                    zamba2_1_2b)

@@ -9,10 +9,14 @@ Two code paths, as in the JAX package:
     for the families with a paged decode path (dense, MoE);
   * :func:`generate_dense` is the dense-cache loop: the engine's
     verification oracle, and the only path of the families without a
-    paged decode path (SSM, hybrid), to which ``generate`` and the CLI
-    fall back.  Its prompt prefill is one forward where the family has
-    ``prefill``; otherwise the prompt is fed through ``decode_step`` one
-    token at a time, as JAX does.
+    paged decode path (SSM, hybrid, enc-dec, VLM), to which ``generate``
+    and the CLI fall back.  Its prompt prefill is one forward where the
+    family has ``prefill``; otherwise the prompt is fed through
+    ``decode_step`` one token at a time, as JAX does.  For the enc-dec and
+    VLM families it drives the decoder / LM path only, as JAX's does: the
+    enc-dec decoder attends over a cross cache of zeros (nothing calls
+    ``encdec_lm.prefill_cross``, whose serving path is ``prefill_cross``
+    then ``decode_step``), and the VLM loop is text only.
 
 Parameters are random, from ``--seed``; prompts are random tokens.
 """
@@ -120,6 +124,8 @@ def main(argv=None):
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.policy:
         cfg = cfg.replace(policy=args.policy)
+    if cfg.family in ("vlm", "audio"):
+        print("note: serving CLI drives the LM/decoder path of this arch")
     model = get_model(cfg)
     params = model.init(args.seed, device=device)
     rng = np.random.default_rng(args.seed)

@@ -1,7 +1,8 @@
 """Train and prefill steps (the port's ``launch/step.py``).
 
 A train step takes ``state = {"params", "opt"}`` and a batch of
-``tokens`` / ``labels`` and returns the new state and its metrics: the
+``tokens`` / ``labels`` (and the enc-dec and VLM families' ``frames`` /
+``patches``) and returns the new state and its metrics: the
 loss and its gradient by autograd (every policy product and its gradient
 products run kernel 1, every attention forward kernel 2), then one AdamW
 step.  The sharded step and the lowering helpers of the JAX module are not
@@ -61,11 +62,13 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, num_microbatches: int = 1):
 
 
 def make_prefill_step(cfg):
-    """``prefill_step(params, batch) -> logits`` of ``batch["tokens"]``."""
+    """``prefill_step(params, batch) -> logits`` of the batch (its
+    ``tokens``, with ``frames`` or ``patches`` in the enc-dec and VLM
+    families)."""
     model = get_model(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        return model.forward_logits(params, batch["tokens"])
+        return model.forward_logits(params, batch)
 
     return prefill_step

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense, MoE, SSM and hybrid families."""
+"""Model zoo of the port: the dense, MoE, SSM, hybrid, enc-dec (audio)
+and VLM families."""
 from .api import get_model
 
 __all__ = ["get_model"]

@@ -1,21 +1,30 @@
 """Family-dispatched model handle with the JAX package's entry names.
 
 The dense and MoE families are ``models.lm``, the SSM family
-``models.ssm_lm`` and the hybrid family ``models.hybrid_lm``, as in the
-JAX package; the enc-dec (``audio``) and VLM families raise.  Every handle
-has ``init``, ``loss_fn``, ``forward_logits``, ``init_cache`` and
-``decode_step`` (the dense-cache loop of ``launch.serve.generate_dense``);
-the paged serving entries (``prefill``, ``init_paged_cache``,
-``decode_step_paged``) are None for the families without them, and the
-engine and ``generate`` check for that.
+``models.ssm_lm``, the hybrid family ``models.hybrid_lm``, the enc-dec
+family (``audio``) ``models.encdec_lm`` and the VLM family
+``models.vlm_lm``, as in the JAX package.  Every handle has ``init``,
+``loss_fn``, ``forward_logits``, ``init_cache`` and ``decode_step`` (the
+dense-cache loop of ``launch.serve.generate_dense``); the paged serving
+entries (``prefill``, ``init_paged_cache``, ``decode_step_paged``) are None
+for the families without them (SSM, hybrid, enc-dec, VLM), and the engine
+and ``generate`` check for that.
+
+``forward_logits(params, batch)`` takes JAX's batch dict: ``{"tokens"}``,
+plus ``"frames"`` (enc-dec) or ``"patches"`` (VLM).  The text-only
+families also take a bare tokens tensor, so a caller may treat every
+family alike by passing the dict.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
 
-from . import hybrid_lm, lm, ssm_lm
+from . import encdec_lm, hybrid_lm, lm, ssm_lm, vlm_lm
 
-_FAMILIES = {"dense": lm, "moe": lm, "ssm": ssm_lm, "hybrid": hybrid_lm}
+_FAMILIES = {"dense": lm, "moe": lm, "ssm": ssm_lm, "hybrid": hybrid_lm,
+             "audio": encdec_lm, "vlm": vlm_lm}
+# the families whose forward_logits takes the batch dict itself
+_BATCH_INPUT = ("audio", "vlm")
 
 
 def get_model(cfg) -> SimpleNamespace:
@@ -25,11 +34,17 @@ def get_model(cfg) -> SimpleNamespace:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to PyTorch yet")
     paged = hasattr(mod, "decode_step_paged")
+    if cfg.family in _BATCH_INPUT:
+        def forward_logits(params, batch):
+            return mod.forward_logits(params, batch, cfg)
+    else:
+        def forward_logits(params, batch):
+            tokens = batch["tokens"] if isinstance(batch, dict) else batch
+            return mod.forward_logits(params, tokens, cfg)
     return SimpleNamespace(
         init=lambda seed=0, device=None: mod.init(cfg, seed, device),
         loss_fn=lambda params, batch: mod.loss_fn(params, batch, cfg),
-        forward_logits=lambda params, tokens: mod.forward_logits(
-            params, tokens, cfg),
+        forward_logits=forward_logits,
         init_cache=lambda batch, max_len, **kw: mod.init_cache(
             cfg, batch, max_len, **kw),
         decode_step=lambda params, cache, tokens, idx: mod.decode_step(

@@ -13,8 +13,12 @@ recomputes each block in the backward (``jax.checkpoint`` of
 (:func:`init_paged_cache`, :func:`decode_step_paged`, kernel 3) and the
 dense cache of ``launch.serve.generate_dense`` (:func:`init_cache`,
 :func:`decode_step`, attended in plain bf16 as JAX does); both are updated
-in place.  The MLA attention and the multi-token-prediction head of the
-JAX module are not ported yet, and configs that use them raise.
+in place.  The VLM family (``models.vlm_lm``) reuses the parameters, the
+block stack (:func:`apply_blocks`), the unembedding and the dense-cache
+decode of this module.  The MLA attention and the multi-token-prediction
+head of the JAX module are not ported yet, and configs that use them
+raise; so does the enc-dec family (``models.encdec_lm``), which has
+entries of its own.
 """
 from __future__ import annotations
 
@@ -33,7 +37,8 @@ from .modules import (dense_init, embed_init, generator, layer, layer_views,
 
 def _check_ported(cfg):
     missing = [what for what, used in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe")),
+        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe",
+                                                      "vlm")),
         ("MLA attention (use_mla)", cfg.use_mla),
         ("multi-token prediction (mtp)", cfg.mtp)) if used]
     if missing:
@@ -177,14 +182,15 @@ def _block_out(p, x, cfg, positions, window, moe):
     return block_prefill(p, x, cfg, positions, window, moe=moe)[:2]
 
 
-def backbone(params, tokens, cfg, positions, kv_out=None):
-    """Embed, run every block, final norm -> ``(x (B, S, d_model), aux)``;
-    ``aux`` sums the MoE layers' load-balancing terms (None without MoE
-    layers).  Each block's K/V is appended to ``kv_out[stack name]`` when a
-    dict is given.  The layers come from one ``unbind`` of each stack; when
-    autograd needs the parameters' gradient and ``cfg.remat`` is set, each
-    block is recomputed in the backward (K/V are then not kept)."""
-    x = embed(params, tokens, cfg)
+def apply_blocks(params, x, cfg, positions, kv_out=None):
+    """Run every block of every stack over ``x`` (B, S, d_model), each at
+    its layer's window (JAX's ``stack_apply`` over each stack in turn) ->
+    ``(x, aux)``, before the final norm; ``aux`` sums the MoE layers'
+    load-balancing terms (None without MoE layers).  Each block's K/V is
+    appended to ``kv_out[stack name]`` when a dict is given.  The layers
+    come from one ``unbind`` of each stack; when autograd needs the
+    parameters' gradient and ``cfg.remat`` is set, each block is recomputed
+    in the backward (K/V are then not kept)."""
     remat = cfg.remat and kv_out is None and _grad_needed(params)
     aux = None
     for name, moe, _, p, w in _stack_layers(
@@ -198,6 +204,14 @@ def backbone(params, tokens, cfg, positions, kv_out=None):
                 kv_out.setdefault(name, []).append(kv)
         if a is not None:
             aux = a if aux is None else aux + a
+    return x, aux
+
+
+def backbone(params, tokens, cfg, positions, kv_out=None):
+    """Embed, :func:`apply_blocks`, final norm -> ``(x (B, S, d_model),
+    aux)``."""
+    x, aux = apply_blocks(params, embed(params, tokens, cfg), cfg, positions,
+                          kv_out)
     return L.rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
@@ -318,8 +332,8 @@ def decode_step(params, cfg, cache, tokens, cache_index):
     return unembed_logits(params, x, cfg)[:, 0], cache
 
 
-__all__ = ["init", "embed", "unembed_logits", "backbone", "prefill",
-           "forward_logits", "cross_entropy", "loss_fn", "init_cache",
-           "init_paged_cache", "decode_step", "decode_step_paged",
+__all__ = ["init", "embed", "unembed_logits", "apply_blocks", "backbone",
+           "prefill", "forward_logits", "cross_entropy", "loss_fn",
+           "init_cache", "init_paged_cache", "decode_step", "decode_step_paged",
            "layer_windows", "stacks", "block_init", "block_prefill",
            "block_decode", "block_decode_paged"]

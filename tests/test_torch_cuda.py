@@ -121,7 +121,11 @@ def test_matmul_expert_batch_matches_plain(dev, M, K, N):
     ("tcec_bf16x6", 150, 150, True, 0, None, (16, 4, 64)),
     ("tcec_bf16x10", 100, 100, True, 0, None, (16, 4, 64)),
     ("tcec_bf16x6", 150, 150, True, 0, None, (4, 4, 96)),
-    ("tcec_bf16x3", 70, 150, False, 0, None, (4, 4, 96))])
+    ("tcec_bf16x3", 70, 150, False, 0, None, (4, 4, 96)),
+    # the enc-dec family's cross-attention: one query row against the
+    # memory at decode, and a decoder longer than a short memory
+    ("tcec_bf16x6", 1, 512, False, 0, None, (16, 16, 64)),
+    ("tcec_bf16x6", 200, 64, False, 0, None, (16, 16, 64))])
 def test_attention_matches_plain(dev, policy, S, T, causal, window, softcap,
                                  heads):
     H, Hkv, hd = heads
@@ -621,7 +625,8 @@ def test_ssd_chunked_matches_recurrence_on_the_card(dev):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-1.2b",
-                                  "qwen3-0.6b"])
+                                  "qwen3-0.6b", "seamless-m4t-large-v2",
+                                  "internvl2-2b"])
 def test_generate_dense_on_the_card(dev, arch):
     """Greedy ``generate_dense`` through the kernels equals the same loop
     under ``dispatch.use_plain()`` (the smoke models' argmax margins are
@@ -637,3 +642,67 @@ def test_generate_dense_on_the_card(dev, arch):
         plain = serve.generate_dense(cfg, params, prompts, 6, device=dev)
     assert out.shape == (3, 6)
     np.testing.assert_array_equal(out, plain)
+
+
+# Launches of the smoke models (2 layers; seamless 2 encoder layers): a
+# forward of 2 x 24 tokens (seamless against 2 x 40 frames, internvl2 after
+# 8 patches): kernel 1 runs the frontend projection or the projector's two
+# products, 7 products an encoder or decoder-only layer, 11 a seamless
+# decoder layer (self q, k, v, o; cross q, o and the memory's k, v; the
+# MLP's three) and the unembed; kernel 2 once a self-attention and once a
+# cross-attention.  A seamless decode step: 9 products a decoder layer (the
+# memory's K/V come from the cross cache) + the unembed, kernel 2 once a
+# layer (the cross-attention, one query row); internvl2's is lm's, 7L + 1.
+@pytest.mark.parametrize("arch,forward,step", [
+    ("seamless-m4t-large-v2", [1 + 7 * 2 + 11 * 2 + 1, 2 + 2 * 2, 0],
+     [9 * 2 + 1, 2, 0]),
+    ("internvl2-2b", [2 + 7 * 2 + 1, 2, 0], [7 * 2 + 1, 0, 0])])
+def test_encdec_and_vlm_through_kernels_match_plain(dev, arch, forward,
+                                                    step):
+    """The smoke models' ``forward_logits`` and, from one cache state
+    (seamless: after ``prefill_cross``, copied), three decode steps through
+    the kernels against ``dispatch.use_plain()``: logits within 1e-5 of
+    their largest entry, the launch counts above on the kernel side, none
+    on the plain side."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models.modules import tree_map
+    cfg, model, params = _ssm_smoke(dev, arch)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     generator=g, device=dev)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(2, 40, cfg.frontend_dim, generator=g,
+                                      device=dev)
+    else:
+        batch["patches"] = torch.randn(2, cfg.n_frontend_tokens,
+                                       cfg.frontend_dim, generator=g,
+                                       device=dev)
+    with torch.no_grad():
+        n0 = _launches()
+        fast = model.forward_logits(params, batch)
+        n1 = _launches()
+        with dispatch.use_plain():
+            plain = model.forward_logits(params, batch)
+        assert _launches() == n1
+        assert [b - a for a, b in zip(n0, n1)] == forward
+        assert float((fast - plain).abs().max()) <= 1e-5 * float(
+            plain.abs().max())
+        kw = {"mem_len": 40} if cfg.family == "audio" else {}
+        cache = model.init_cache(2, 4, device=dev, **kw)
+        if cfg.family == "audio":
+            n0 = _launches()
+            model.module.prefill_cross(params, batch["frames"], cfg, cache)
+            assert [b - a for a, b in zip(n0, _launches())] == [
+                1 + 7 * 2 + 2 * 2, 2, 0]
+        caches = [cache, tree_map(torch.clone, cache)]
+        toks = batch["tokens"]
+        for i in range(3):
+            n0 = _launches()
+            fast, _ = model.decode_step(params, caches[0], toks[:, i], i)
+            n1 = _launches()
+            with dispatch.use_plain():
+                plain, _ = model.decode_step(params, caches[1], toks[:, i], i)
+            assert [b - a for a, b in zip(n0, n1)] == step
+            assert _launches() == n1
+            assert float((fast - plain).abs().max()) <= 1e-5 * float(
+                plain.abs().max())

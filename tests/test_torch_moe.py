@@ -57,7 +57,7 @@ from repro_torch.bridge import params_from_jax, tensor_from_numpy  # noqa
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, host_batch  # noqa: E402
-from repro_torch.models import get_model, layers, lm  # noqa: E402
+from repro_torch.models import encdec_lm, get_model, layers, lm  # noqa
 from repro_torch.models.modules import layer, tree_map  # noqa: E402
 from repro_torch.serving import Engine, SamplingParams  # noqa: E402
 
@@ -336,8 +336,7 @@ def test_unported_configs_raise_naming_what_is_missing(arch, kw, missing):
                lambda: lm.init_paged_cache(cfg, 4, 4, device="cpu")):
         with pytest.raises(NotImplementedError, match=missing):
             fn()
-    if cfg.family in ("dense", "moe"):
-        get_model(cfg)                 # the handle itself is the lm's
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_model(cfg)
+    # the handle is the family's: lm's for MLA and MTP (whose entries
+    # raise), encdec_lm's for the enc-dec family, which lm refuses
+    assert get_model(cfg).module is (encdec_lm if cfg.family == "audio"
+                                     else lm)

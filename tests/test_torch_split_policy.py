@@ -113,8 +113,9 @@ def test_model_config_fields_equal_jax():
     (full and smoke), derived properties included."""
     assert [(f.name, f.default) for f in dataclasses.fields(ModelConfig)] \
         == [(f.name, f.default) for f in dataclasses.fields(JaxModelConfig)]
-    assert list_archs() == ["granite-moe-1b-a400m", "mamba2-130m",
-                            "qwen3-0.6b", "zamba2-1.2b"]
+    assert list_archs() == ["granite-moe-1b-a400m", "internvl2-2b",
+                            "mamba2-130m", "qwen3-0.6b",
+                            "seamless-m4t-large-v2", "zamba2-1.2b"]
     for arch in list_archs():
         for port, ref in ((get_config, jax_get_config),
                           (get_smoke_config, jax_get_smoke)):
@@ -126,6 +127,8 @@ def test_model_config_fields_equal_jax():
     assert get_config("qwen3-0.6b").padded_vocab == 151936
     assert get_config("granite-moe-1b-a400m").padded_vocab == 49280
     assert get_config("granite-moe-1b-a400m").moe_groups == 128
+    assert get_config("seamless-m4t-large-v2").padded_vocab == 256256
+    assert get_config("internvl2-2b").padded_vocab == 92672
 
 
 @pytest.mark.parametrize("spec", ["ab,bc", "ab,bc->ac->a", "ab->b",

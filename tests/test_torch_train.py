@@ -295,8 +295,19 @@ def test_host_batch_bitwise_equal_to_jax(seed, step, host, hosts, B, S):
     assert dev["tokens"].dtype == torch.int32
     if hosts == 1:
         assert np.array_equal(dev["labels"].numpy(), ref["labels"])
-    with pytest.raises(NotImplementedError):
-        host_batch(cfg.replace(family="vlm"), DataConfig(**kw), step)
+    # the frontend stubs' inputs: the VLM's patches, its shortened text and
+    # -1 labels on the patch positions; the enc-dec model's frames
+    for arch in ("internvl2-2b", "seamless-m4t-large-v2"):
+        ours = host_batch(get_smoke_config(arch), DataConfig(**kw), step,
+                          host, hosts)
+        ref = jax_data.host_batch(jax_smoke_config(arch),
+                                  jax_data.DataConfig(**kw), step, host,
+                                  hosts)
+        assert sorted(ours) == sorted(ref)
+        for k in ours:
+            assert ours[k].dtype == ref[k].dtype
+            assert ours[k].shape == ref[k].shape
+            assert ours[k].tobytes() == ref[k].tobytes()
 
 
 # ------------------------------------------------------------- module 8
