@@ -36,9 +36,11 @@ Phases, each of which raises on a failed check (nothing is caught):
      Kernel 2 runs at all four
      of the engine's prefill shapes, at the training shape 8 x 128, at 2 x
      512 with head_dim 64 (granite, and zamba2's 32/32 heads), once at
-     x10 with a softcap and a window, and non-causal at seamless's encoder
+     x10 with a softcap and a window, non-causal at seamless's encoder
      (2 x 512, 16/16 heads of 64) and its cross-attention at decode (4 x 1
-     queries against 512 keys); its ``ms`` is the public entry's,
+     queries against 512 keys), and at 1 x 16384 (phase 11b's training
+     length; its f64 and f32 references are computed 1024 query rows at a
+     time); its ``ms`` is the public entry's,
      ``device_only_ms`` the same with the host taken out,
      ``kernel_only_ms`` the kernel's launch alone on operands already
      contiguous f32.  Kernel 3
@@ -138,7 +140,34 @@ Phases, each of which raises on a failed check (nothing is caught):
      kernels against plain on copies of one cache state (<= 1e-3); (c)
      internvl2 through 9a's ``generate_dense`` run (169 of kernel 1 a
      step) and ``forward_logits`` on 2 x (256 patches + 256 tokens) against
-     ``use_plain()`` (171 / 24); (d) 9d's profiles for both.
+     ``use_plain()`` (171 / 24); (d) 9d's profiles for both;
+  11. the paper's numerics and the long-sequence path.  (a) Fig. 11: the
+     JAX bench's exponent bands (Types 1-4: -15..14, -35..-15 and
+     -100..-35 for A and B) from ``core/matgen.py::exp_rand`` at 4096^3
+     (the bench's seeds), through ``policy_mm`` under x3, x6 and x10
+     (kernel 1, path W), fp32 and bf16 (one f32 product, TF32 off), and
+     fp16_halfhalf and fp16_markidis (the term expansion); then each of
+     these on its own safe band (the conformance battery's
+     ``operand_band``), and x9 (the TwoSum loop, plain PyTorch) with x6
+     beside it at 1024^3 on each Type and on its band.  Each row: the Eq.
+     (7) residual against the f64 product, its ratio to f32 SGEMM's
+     (``torch.matmul``), ``theory.policy_error_bound`` at the band's low
+     end and the policy's ``safe_exponent_range``.  Gates, the JAX
+     package's own: every policy within its bound on its safe band; x6 at
+     most 2x SGEMM on Types 1 and 3; x9 below half of x6 on every Type;
+     x9's ``head + tail`` within 1e-13 of f64 at 1024^3 (uniform inputs);
+     fp16_halfhalf worse than x6 on Type 3; kernel 1 launched 19 times.
+     (b) blocked attention: one qwen3-0.6b layer's attention (16/8 heads
+     of 128) at 1 x 8192, the gradients of ``_FusedSDPA``'s recompute
+     backward (``blocked_attention``, 10 live chunk pairs: 60 kernel-1
+     launches) against an ``mha`` backward on the same q, k, v (1e-3 of
+     each gradient's largest entry), with each side's peak memory; then a
+     full-width qwen3-0.6b train step at 1 x 16384 (seed-0 weights and
+     data, remat, one AdamW step at lr 1e-3): every layer's backward takes
+     ``blocked_attention`` (28 calls), kernel 1 (28 + 6 x 36 live pairs) L
+     + 3 = 6835 and kernel 2 2L = 56 launches, loss, gradient norm and
+     updated parameters finite; the row gives the step time and the peak
+     memory.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -322,19 +351,25 @@ def f32_gate(row, ref64, out, plain_f32):
 
 # ------------------------------------------------------------- kernel 2
 
-def attention_direct(q, k, v, dtype, causal=True):
+def attention_direct(q, k, v, dtype, causal=True, rows=1024):
     """GQA attention computed directly in ``dtype`` (no split); causal
-    masks keys after the query's position (queries and keys from 0)."""
+    masks keys after the query's position (queries and keys from 0).
+    ``rows`` queries at a time, so that long sequences fit."""
     B, S, H, hd = q.shape
     T, rep = k.shape[1], H // k.shape[2]
-    qs = q.to(dtype).transpose(1, 2)
     ks = k.to(dtype).repeat_interleave(rep, 2).transpose(1, 2)
     vs = v.to(dtype).repeat_interleave(rep, 2).transpose(1, 2)
-    sc = qs @ ks.transpose(-1, -2) / math.sqrt(hd)
-    if causal:
-        keep = torch.ones(S, T, dtype=torch.bool, device=q.device).tril()
-        sc = sc.masked_fill(~keep, -math.inf)
-    return (torch.softmax(sc, -1) @ vs).transpose(1, 2)
+    outs = []
+    for r0 in range(0, S, rows):
+        qs = q[:, r0:r0 + rows].to(dtype).transpose(1, 2)
+        sc = qs @ ks.transpose(-1, -2) / math.sqrt(hd)
+        if causal:
+            rows_at = torch.arange(r0, r0 + qs.shape[2], device=q.device)
+            keep = rows_at[:, None] >= torch.arange(T, device=q.device)[None]
+            sc = sc.masked_fill(~keep, -math.inf)
+        outs.append((torch.softmax(sc, -1) @ vs).transpose(1, 2))
+        del sc
+    return torch.cat(outs, 1)
 
 
 def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
@@ -986,16 +1021,16 @@ def restart_replay(dev):
 # ------------------------------------------------------------ phase 8
 
 @contextlib.contextmanager
-def recorded(module, name, when=lambda *a: True):
+def recorded(module, name, when=lambda *a: True, keep=lambda out: out):
     """Inside the scope, the results of ``module.name`` (looked up at each
-    call) are appended to the list it yields, for the calls whose
-    arguments satisfy ``when``."""
+    call), or what ``keep`` takes of them, are appended to the list it
+    yields, for the calls whose arguments satisfy ``when``."""
     results, fn = [], getattr(module, name)
 
     def wrapped(*a, **kw):
         out = fn(*a, **kw)
         if when(*a, **kw):
-            results.append(out)
+            results.append(keep(out))
         return out
 
     setattr(module, name, wrapped)
@@ -1635,6 +1670,307 @@ def vlm_phase(dev, cfg, model, params, rec):
     return launches
 
 
+# ------------------------------------------------------------ phase 11
+
+# Fig. 11's operand bands and Types (benchmarks/fig11_exponent_range.py)
+FIG11_BANDS = {"hi": (-15, 14), "lo": (-35, -15), "out": (-100, -35)}
+FIG11_TYPES = {"Type1": ("hi", "hi"), "Type2": ("hi", "out"),
+               "Type3": ("lo", "lo"), "Type4": ("out", "out")}
+# kernel 1 (x3, x6, x10), the plain products and the fp16 term expansion;
+# the fp8 policies' band excludes the Types
+FIG11_POLICIES = ("tcec_bf16x3", "tcec_bf16x6", "tcec_bf16x10", "fp32",
+                  "bf16", "fp16_halfhalf", "fp16_markidis")
+X9 = "tcec_bf16x9"
+
+
+def operand_band(pol):
+    """A policy's band in the conformance battery
+    (``tests/test_policy_conformance.py::operand_band``): its safe exponent
+    range where that is not empty, else its format's representable range,
+    clamped to [-40, 14]."""
+    from repro_torch.core import theory
+    if pol.is_plain():
+        if pol.name == "fp32":
+            return (-30, 14)
+        lo, hi = theory.representable_range(
+            theory.FORMATS_BY_DTYPE[pol.dtype])
+    else:
+        fmt = theory.FORMATS_BY_DTYPE[pol.dtype]
+        lo, hi = theory.safe_exponent_range(fmt, pol.scale_bits)
+        if lo > hi:
+            lo, hi = theory.representable_range(fmt)
+    return max(lo, -40), min(hi, 14)
+
+
+def safe_range(pol):
+    """``theory.safe_exponent_range`` of a split policy (the representable
+    range of plain bf16; none for f32)."""
+    from repro_torch.core import theory
+    if pol.name == "fp32":
+        return None
+    fmt = theory.FORMATS_BY_DTYPE[pol.dtype]
+    if pol.is_plain():
+        return list(theory.representable_range(fmt))
+    return list(theory.safe_exponent_range(fmt, pol.scale_bits))
+
+
+def exp_rand_mats(specs):
+    """``matgen.exp_rand((n, n), lo, hi, seed)`` for each ``(n, lo, hi,
+    seed)``, made on the host in threads (numpy's generators and ufuncs
+    release the interpreter lock)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core.matgen import exp_rand
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        return list(ex.map(lambda sp: exp_rand((sp[0], sp[0]), sp[1], sp[2],
+                                               seed=sp[3]), specs))
+
+
+def fig11_battery(dev, n=4096, n9=1024):
+    """Phase 11a: the paper's Fig. 11 on the card, every number against
+    ``core/theory.py``.  Returns kernel 1's launches."""
+    from repro_torch.core import get_policy, policy_mm, theory
+    from repro_torch.core.matgen import urand
+    from repro_torch.core.policy import tcec_dot_unevaluated
+    from repro_torch.kernels import tcec_attention as ta, tcec_matmul as tm
+    t_start = time.perf_counter()
+    types = list(FIG11_TYPES.items())
+    bands = sorted({operand_band(get_policy(p)) for p in FIG11_POLICIES})
+    x9_band = operand_band(get_policy(X9))
+    specs = []
+    for ti, (_, (ka, kb)) in enumerate(types):      # the bench's seeds
+        specs += [(n, *FIG11_BANDS[ka], 2 * ti),
+                  (n, *FIG11_BANDS[kb], 2 * ti + 1)]
+    for bi, band in enumerate(bands):
+        specs += [(n, *band, 400 + 2 * bi), (n, *band, 401 + 2 * bi)]
+    for ti, (_, (ka, kb)) in enumerate(types):      # the x9 test's seeds
+        specs += [(n9, *FIG11_BANDS[ka], 100 + 2 * ti),
+                  (n9, *FIG11_BANDS[kb], 101 + 2 * ti)]
+    specs += [(n9, *x9_band, 500), (n9, *x9_band, 501)]
+    mats = iter(exp_rand_mats(specs))
+    gen_s = time.perf_counter() - t_start
+    tm.launches = ta.launches = 0
+    rows, res = [], {}
+
+    def pair():
+        return (torch.from_numpy(next(mats)).to(dev),
+                torch.from_numpy(next(mats)).to(dev))
+
+    def measure(kind, names, a, b, e_lo, band):
+        ref = a.double() @ b.double()
+        r32 = res[(kind, "sgemm", a.shape[0])] = residual(ref, a @ b)
+        for name in names:
+            pol = get_policy(name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = policy_mm(a, b, name)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            r = residual(ref, c)
+            bound_ = theory.policy_error_bound(pol, a.shape[1], e_lo=e_lo)
+            row = {"fig11": kind, "policy": name, "n": a.shape[0],
+                   "operand_bands": band, "residual": r,
+                   "sgemm_residual": r32, "ratio_to_sgemm": r / r32,
+                   "bound": bound_, "within_bound": r <= bound_,
+                   "safe_exponent_range": safe_range(pol),
+                   "route": ("kernel 1" if name.startswith("tcec_bf16x")
+                             and name != X9 else "TwoSum loop" if name == X9
+                             else "term expansion" if name.startswith("fp16")
+                             else "one f32 product"),
+                   "ms": ms}
+            emit(row)
+            rows.append(row)
+            res[(kind, name, a.shape[0])] = r
+            del c
+        del ref
+
+    for tname, (ka, kb) in types:
+        a, b = pair()
+        band = [FIG11_BANDS[ka], FIG11_BANDS[kb]]
+        measure(tname, FIG11_POLICIES, a, b, min(band[0][0], band[1][0]),
+                band)
+    for band in bands:
+        a, b = pair()
+        names = [p for p in FIG11_POLICIES
+                 if operand_band(get_policy(p)) == band]
+        measure("SafeBand", names, a, b, band[0], [band, band])
+    for tname, (ka, kb) in types:
+        a, b = pair()
+        band = [FIG11_BANDS[ka], FIG11_BANDS[kb]]
+        measure(tname, ("tcec_bf16x6", X9), a, b,
+                min(band[0][0], band[1][0]), band)
+    a, b = pair()
+    measure("SafeBand", (X9,), a, b, x9_band[0], [x9_band, x9_band])
+    a = torch.from_numpy(urand((n9, n9), seed=31)).to(dev)
+    b = torch.from_numpy(urand((n9, n9), seed=32)).to(dev)
+    head, tail = tcec_dot_unevaluated(a, b, X9)
+    ref = a.double() @ b.double()
+    pair_rel = residual(ref, head.double() + tail.double())
+    torch.cuda.synchronize()
+    launches = tm.launches
+    del a, b, head, tail, ref
+    torch.cuda.empty_cache()
+    summary = {
+        "fig11_summary": f"Fig. 11 Types 1-4 at {n}^3 (x9 and its x6 "
+        f"beside it at {n9}^3), every policy on its safe band",
+        "x9_unevaluated_pair_residual": pair_rel,
+        "x9_unevaluated_pair_limit": 1e-13,
+        "kernel1_launches": launches, "kernel2_launches": ta.launches,
+        "host_generation_s": gen_s,
+        "phase_s": time.perf_counter() - t_start}
+    emit(summary)
+    RECORD["fig11"] = {"rows": rows, **summary}
+    for row in rows:
+        if row["fig11"] == "SafeBand":
+            check(row["within_bound"], f"{row['policy']} within "
+                  "theory.policy_error_bound on its safe band")
+    for t in ("Type1", "Type3"):
+        check(res[(t, "tcec_bf16x6", n)] <= 2 * res[(t, "sgemm", n)],
+              f"x6 residual <= 2x f32 SGEMM's on {t}")
+    for t in FIG11_TYPES:
+        check(res[(t, X9, n9)] < 0.5 * res[(t, "tcec_bf16x6", n9)],
+              f"x9 residual < 0.5 x6's on {t}")
+    check(pair_rel < 1e-13, "x9 head + tail within 1e-13 of f64")
+    check(res[("Type3", "fp16_halfhalf", n)]
+          > res[("Type3", "tcec_bf16x6", n)],
+          "fp16_halfhalf worse than x6 on Type 3")
+    # kernel 1 takes x3, x6 and x10 on each Type and on their band, and x6
+    # beside x9 on each Type; no kernel 2
+    check(launches == 3 * len(types) + 3 + len(types) and not ta.launches,
+          "phase 11a: kernel 1 once for each x3, x6 and x10 product")
+    return {"tcec_matmul": launches, "tcec_attention": 0,
+            "tcec_paged_attention": 0}
+
+
+def long_sequence(dev, L_check=8192, S_train=16384):
+    """Phase 11b: blocked attention, the composition's long-sequence path,
+    on the card.  Returns the launches of the 1 x ``S_train`` step."""
+    from types import SimpleNamespace
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.kernels import tcec_attention as ta, tcec_matmul as tm
+    from repro_torch.launch.step import make_train_step
+    from repro_torch.models import get_model, layers
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.optim import adamw
+    cfg = get_config("qwen3-0.6b")
+    H, Hkv, hd, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    pol = cfg.mix_policy
+
+    def live_pairs(S, chunk=2048):
+        n = S // chunk
+        return n * (n + 1) // 2
+
+    # (i) one layer's attention at L_check: the blocked recompute backward
+    # against an mha backward on the same q, k, v
+    g = torch.Generator(device=dev).manual_seed(L_check)
+    q = torch.randn(1, L_check, H, hd, generator=g, device=dev)
+    k, v = (torch.randn(1, L_check, Hkv, hd, generator=g, device=dev)
+            for _ in range(2))
+    cot = torch.randn(1, L_check, H, hd, generator=g, device=dev)
+    pos = torch.arange(L_check, dtype=torch.int32, device=dev)[None]
+    acfg = SimpleNamespace(mix_policy=pol, attn_softcap=None)
+    out = {}
+    for side in ("blocked", "mha"):
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tm.launches = ta.launches = 0
+        t0 = time.perf_counter()
+        with recorded(layers, "blocked_attention",
+                      keep=lambda o: tuple(o.shape)) as calls:
+            if side == "blocked":
+                layers._FusedSDPA.apply(*qkv, pos, pos, pol, None, True,
+                                        0).backward(cot)
+            else:
+                layers.mha(*qkv, acfg, pos, pos, True, 0).backward(cot)
+            torch.cuda.synchronize()
+        out[side] = {"grads": [t.grad for t in qkv],
+                     "s": time.perf_counter() - t0,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "blocked_calls": len(calls),
+                     "launches": {"tcec_matmul": tm.launches,
+                                  "tcec_attention": ta.launches}}
+        del qkv
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(
+        out["blocked"]["grads"], out["mha"]["grads"])]
+    row = {"long_attention": f"qwen3-0.6b attention, 1 x {L_check}, "
+           f"{H}/{Hkv} heads of {hd}: _FusedSDPA's blocked recompute "
+           "backward against an mha backward on the same q, k, v",
+           "rel_diff_dq_dk_dv": rel, "limit": 1e-3,
+           **{f"{s}_{k}": out[s][k] for s in out
+              for k in ("s", "peak_gb", "blocked_calls", "launches")}}
+    emit(row)
+    RECORD["long_sequence"] = {"layer": row}
+    check(out["blocked"]["blocked_calls"] == 1
+          and out["mha"]["blocked_calls"] == 0,
+          "the recompute backward takes blocked_attention once")
+    check(out["blocked"]["launches"] == {
+        "tcec_matmul": 6 * live_pairs(L_check), "tcec_attention": 1},
+        "blocked: kernel 2 forward, 6 kernel-1 products a live chunk pair")
+    check(out["mha"]["launches"] == {"tcec_matmul": 6, "tcec_attention": 0},
+          "mha: 2 products and their 4 gradient products on kernel 1")
+    check(all(r <= 1e-3 for r in rel), "blocked vs mha gradients, 1e-3")
+    del out, q, k, v, cot
+    torch.cuda.empty_cache()
+
+    # (ii) a full-width train step at 1 x S_train: loss_fn, its backward
+    # (remat: each block recomputed, its attention backward blocked) and
+    # one AdamW step
+    model = get_model(cfg)
+    opt = adamw.OptConfig(lr=1e-3, warmup_steps=0, total_steps=1)
+    params = model.init(0, device=dev)
+    state = {"params": params, "opt": adamw.init_state(params, opt)}
+    batch = device_batch(cfg, DataConfig(seed=0, global_batch=1,
+                                         seq_len=S_train), 0, dev)
+    step_fn = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tm.launches = ta.launches = 0
+    t0 = time.perf_counter()
+    with recorded(layers, "blocked_attention",
+                  keep=lambda o: tuple(o.shape)) as calls:
+        new_state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = {"tcec_matmul": tm.launches, "tcec_attention": ta.launches,
+                "tcec_paged_attention": 0}
+    peak = torch.cuda.max_memory_allocated()
+    loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves(new_state["params"]))
+    moved = any(not torch.equal(a, b) for a, b in zip(
+        tree_leaves(new_state["params"]), tree_leaves(params)))
+    per_step = {"tcec_matmul": (28 + 6 * live_pairs(S_train)) * L + 3,
+                "tcec_attention": 2 * L, "tcec_paged_attention": 0}
+    row = {"long_train_step": f"qwen3-0.6b full width, random weights "
+           f"(seed 0), 1 x {S_train}, remat, lr 1e-3: loss_fn + backward "
+           "+ one AdamW step", "loss": loss, "grad_norm": gnorm,
+           "step_s": step_s, "tokens_per_s": S_train / step_s,
+           "peak_memory_gb": peak / 1e9, "blocked_calls": len(calls),
+           "launches": launches, "launches_expected": per_step}
+    emit(row)
+    RECORD["long_sequence"]["train_step"] = row
+    check(len(calls) == L and all(c == (1, S_train, H, hd) for c in calls),
+          "every layer's backward took blocked_attention")
+    check(math.isfinite(loss) and math.isfinite(gnorm) and finite,
+          "loss, gradient norm and updated parameters finite")
+    check(moved, "the AdamW step moved the parameters")
+    check(launches == per_step, "kernel 1: (28 + 6 live pairs) L + 3 and "
+          "kernel 2: 2L launches in the step")
+    del state, new_state, params, batch, metrics
+    torch.cuda.empty_cache()
+    return launches
+
+
+def paper_numerics(dev):
+    """Phase 11: (a) the Fig. 11 battery, (b) the long-sequence path."""
+    a = fig11_battery(dev)
+    b = long_sequence(dev)
+    return {k: a[k] + b[k] for k in a}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1726,6 +2062,9 @@ def main():
                    dev, policy="tcec_bf16x10", window=100, softcap=30.0)
     attention_case("prefill 2x512, 16/8 heads, hd 64", 2, 512, 16, 8, 64,
                    dev)
+    # qwen3-0.6b's training length in phase 11b
+    attention_case("prefill 1x16384, 16/8 heads", 1, 16384, 16, 8, 128, dev,
+                   reps=5)
     attention_case("zamba2 2x512, 32/32 heads, hd 64", 2, 512, 32, 32, 64,
                    dev)
     # seamless (phase 10): the encoder's non-causal self-attention, and the
@@ -1752,6 +2091,7 @@ def main():
     moe_launches = moe_path(dev)                   # phase 8
     ssm_launches = ssm_path(dev)                   # phase 9
     encdec_launches = encdec_vlm_path(dev)         # phase 10
+    numerics_launches = paper_numerics(dev)        # phase 11
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -1765,7 +2105,7 @@ def main():
             "replaces": rep.format(replaces),
             "launches": launches[name] + train_launches.get(name, 0)
             + moe_launches[name] + ssm_launches[name]
-            + encdec_launches[name],
+            + encdec_launches[name] + numerics_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

@@ -10,6 +10,8 @@ Every split contraction funnels through :func:`_dot_impl`, which hands
 bf16 split policies to ``kernels.dispatch`` (kernel 1 on a CUDA tensor, its
 plain version on the CPU) and keeps the term expansion :func:`_tcec_dot`
 for the policies the kernel does not take (fp16 / fp8 upcast policies).
+The compensated x9 policy runs :func:`_compensated_dot`, a TwoSum K loop
+in plain PyTorch on any device (the JAX package's XLA scan; no kernel).
 
 Gradients keep the policy: :class:`_PolicyDot` (the counterpart of the JAX
 package's ``_make_dg`` ``custom_vjp``) runs the backward's two products
@@ -17,7 +19,7 @@ package's ``_make_dg`` ``custom_vjp``) runs the backward's two products
 policy, so on the card they run kernel 1 too.  The front-ends take it only
 when autograd needs it (grad mode on and an operand that requires grad);
 otherwise they call :func:`_dot_impl` directly, so serving pays nothing
-for it.  The compensated (TwoSum) x9 path is not ported yet and raises.
+for it.
 """
 from __future__ import annotations
 
@@ -169,14 +171,75 @@ def _tcec_dot(a, b, policy: PrecisionPolicy, dims):
     return out
 
 
+# --- compensated (error-free) accumulation: the f64-emulation end -----------
+#
+# Products of two bf16 split terms are exact in f32 (at most 16 significand
+# bits), so the only inexact step left is summation.  Knuth's TwoSum makes
+# each addition error-free: the group accumulators and the scaled epilogue
+# fold become unevaluated (head, tail) pairs whose sum carries ~K 2^-48 of
+# relative error.  The K reduction is a sequential loop, one k at a time in
+# the JAX package's scan order (vectorizing across k would change the sums),
+# so the compensated policy is the accuracy end of the family, not the
+# throughput one: ``kernels.dispatch`` declines it and it runs as plain
+# PyTorch on any device.
+
+
+def _two_sum(s, x):
+    """Error-free transform: s + x = t + e exactly, t = fl(s + x)."""
+    t = s + x
+    z = t - s
+    e = (s - (t - z)) + (x - z)
+    return t, e
+
+
 def _compensated_dot(a, b, policy: PrecisionPolicy, dims):
-    raise NotImplementedError(
-        f"compensated policy {policy.name!r} (TwoSum accumulation) is not "
-        "ported to PyTorch yet")
+    """Split-product GEMM with TwoSum-compensated accumulation.
+
+    Returns ``(head, tail)``, the f32 unevaluated sum of the result
+    (``head`` is the f32 GEMM up to O(2^-48) terms; ``head + tail``
+    evaluated in higher precision is the f64-grade value).  The operands
+    are collapsed onto ``(B, M, K) x (B, K, N)`` as for the kernel; each scale
+    group runs the K loop over its pairs in ``keep`` order, then the groups
+    fold smallest-first, compensated (power-of-two scales are exact).
+    """
+    from repro_torch.kernels.dispatch import _canonicalize
+    at, bt, shape = _canonicalize(a, b, dims)
+    if at.ndim == 2:
+        at, bt = at[None], bt[None]
+    (B, M, K), N = at.shape, bt.shape[-1]
+    sa = [t.float() for t in split(at, policy.tdtype, policy.n_splits,
+                                   policy.scale_bits)]
+    sb = [t.float() for t in split(bt, policy.tdtype, policy.n_splits,
+                                   policy.scale_bits)]
+    by_group: dict[int, list] = {}
+    for (i, j) in policy.keep:
+        by_group.setdefault(i + j, []).append((i, j))
+    heads, tails = {}, {}
+    for g, pairs in sorted(by_group.items()):
+        # column k of each A term and row k of each B term, k-major
+        ak = [sa[i].permute(2, 0, 1)[:, :, :, None] for (i, _) in pairs]
+        bk = [sb[j].permute(1, 0, 2)[:, :, None, :] for (_, j) in pairs]
+        s = torch.zeros((B, M, N), dtype=torch.float32, device=a.device)
+        c = torch.zeros_like(s)
+        for k in range(K):
+            for xa, xb in zip(ak, bk):
+                s, e = _two_sum(s, xa[k] * xb[k])       # exact product
+                c = c + e
+        heads[g], tails[g] = s, c
+    out_s = torch.zeros((B, M, N), dtype=torch.float32, device=a.device)
+    out_c = torch.zeros_like(out_s)
+    for g in sorted(by_group, reverse=True):
+        inv = 2.0 ** (-g * policy.scale_bits)
+        out_s, e = _two_sum(out_s, heads[g] * inv)
+        out_c = out_c + e + tails[g] * inv
+    head, tail = _two_sum(out_s, out_c)
+    return head.reshape(shape), tail.reshape(shape)
 
 
 def tcec_dot_unevaluated(a, b, policy=None):
-    """The compensated ``(head, tail)`` pair — not ported yet."""
+    """(M, K) @ (K, N) under a compensated policy, returned as the f32
+    unevaluated pair ``(head, tail)``: evaluate ``head + tail`` in f64 to
+    see the emulated-f64 accuracy."""
     pol = get_policy(policy)
     if not pol.compensated:
         raise ValueError(f"policy {pol.name!r} is not compensated; only "
@@ -193,9 +256,9 @@ def _plain_dot(a, b, policy: PrecisionPolicy, dims):
 
 
 def _dot_impl(a, b, policy: PrecisionPolicy, dims):
-    """One policy GEMM: plain policies are one f32 product; bf16 split
-    policies go to the fused kernel through ``kernels.dispatch``; the rest
-    take the term expansion."""
+    """One policy GEMM: plain policies are one f32 product; compensated
+    policies the TwoSum loop; bf16 split policies go to the fused kernel
+    through ``kernels.dispatch``; the rest take the term expansion."""
     if policy.is_plain():
         return _plain_dot(a, b, policy, dims)
     if policy.compensated:

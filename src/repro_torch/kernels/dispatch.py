@@ -5,8 +5,11 @@ The decision follows the tensor's device and the policy:
 
   1. the policy is one the kernels take (:func:`tcec_matmul.takes_policy`:
      bf16 split policies on the triangular schedule, x3 / x6 / x10); plain,
-     upcast (fp16 / fp8), compensated and other bf16 schedules stay on the
-     term expansion or the pdot composition;
+     upcast (fp16 / fp8) and other bf16 schedules stay on the term
+     expansion or the pdot composition, and compensated policies (x9)
+     decline the kernel as JAX's do: their TwoSum K loop
+     (``core.policy._compensated_dot``) runs in plain PyTorch on any
+     device;
   2. the call goes to the kernel's public wrapper, which launches the CUDA
      kernel for a CUDA tensor and runs the plain PyTorch version for a CPU
      tensor.  There is no fallback: a kernel that fails to build or launch

@@ -4,7 +4,8 @@ GEMM is a config knob for the whole model; attention routes to kernel 2
 (prefill) and kernel 3 (paged decode) through ``kernels.dispatch``.  Kernel
 2 has no backward of its own: under autograd :func:`sdpa` wraps it in
 :class:`_FusedSDPA`, whose backward recomputes the pdot composition
-:func:`mha` and differentiates that (JAX's ``_fused_sdpa``).
+(:func:`blocked_attention` from 8192 positions, :func:`mha` below) and
+differentiates that (JAX's ``_fused_sdpa``).
 
 Layouts follow the JAX package: activations (B, S, H, hd), projection
 weights (D, H, hd) and (H, hd, D).  Two details that are easy to get
@@ -113,11 +114,75 @@ def mha(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
     return out.reshape(B, S, H, hdv)
 
 
+def blocked_attention(q, k, v, cfg, q_pos, k_pos, causal=True, window=0,
+                      q_chunk=2048, k_chunk=2048):
+    """Flash-style attention through pdot: O(S chunk) memory, an online
+    softmax over KV chunks (JAX's ``blocked_attention``, chunk for chunk).
+
+    A KV chunk whose every position lies strictly in the causal future of
+    the whole q chunk (``min(k_pos) > max(q_pos)``) carries only masked
+    scores, so it is skipped.  The rule reads the positions, so it is right
+    for any nondecreasing positions; the chunks' minima and maxima come to
+    the host together, one transfer a call, not one a chunk."""
+    B, S, H, hd = q.shape
+    T, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
+    rep = H // Hkv
+    nq, nk = S // q_chunk, T // k_chunk
+    if S % q_chunk or T % k_chunk:
+        raise ValueError(f"blocked attention needs S {S} and T {T} to be "
+                         f"multiples of the chunks {q_chunk}, {k_chunk}")
+    qg = q.reshape(B, nq, q_chunk, Hkv, rep, hd)
+    kg = k.reshape(B, nk, k_chunk, Hkv, hd)
+    vg = v.reshape(B, nk, k_chunk, Hkv, hdv)
+    qp = q_pos[0].reshape(nq, q_chunk)
+    kp = k_pos[0].reshape(nk, k_chunk)
+    live = [[True] * nk for _ in range(nq)]
+    if causal:
+        live = (kp.amin(1)[None, :] <= qp.amax(1)[:, None]).tolist()
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for qi in range(nq):
+        qblk = qg[:, qi]                             # (B, qc, Hkv, rep, hd)
+        m = torch.full((B, Hkv, rep, q_chunk), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, rep, q_chunk), device=q.device)
+        acc = torch.zeros((B, Hkv, rep, q_chunk, hdv), device=q.device)
+        for ki in range(nk):
+            if not live[qi][ki]:
+                continue
+            s = pdot("bqhrd,bkhd->bhrqk", qblk, kg[:, ki],
+                     cfg.mix_policy) * scale
+            s = softcap(s, cfg.attn_softcap)
+            s = s + _mask_bias(qp[qi], kp[ki], causal, window)
+            m_new = torch.maximum(m, s.max(dim=-1).values)
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = pdot("bhrqk,bkhd->bhrqd", p, vg[:, ki], cfg.mix_policy)
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B,Hkv,rep,qc,hdv)
+        outs.append(out.permute(0, 3, 1, 2, 4))           # (B,qc,Hkv,rep,hdv)
+    return torch.stack(outs, 1).reshape(B, S, H, hdv)
+
+
+ATTN_BLOCK_THRESHOLD = 8192
+
+
+def _sdpa_composition(q, k, v, cfg, q_pos, k_pos, causal, window):
+    """The pdot composition: :func:`blocked_attention` for long sequences
+    whose S and T divide into its chunks, :func:`mha` else."""
+    if (q.shape[1] >= ATTN_BLOCK_THRESHOLD
+            and q.shape[1] % 2048 == 0 and k.shape[1] % 2048 == 0):
+        return blocked_attention(q, k, v, cfg, q_pos, k_pos, causal, window)
+    return mha(q, k, v, cfg, q_pos, k_pos, causal, window)
+
+
 class _FusedSDPA(torch.autograd.Function):
     """Kernel 2 forward; the backward recomputes attention through the pdot
-    composition :func:`mha` on the saved q, k, v and differentiates it.  The
-    composition's pdots carry ``core.policy._PolicyDot``, so the gradient
-    GEMMs run kernel 1 under the same policy."""
+    composition :func:`_sdpa_composition` on the saved q, k, v and
+    differentiates it.  The composition's pdots carry
+    ``core.policy._PolicyDot``, so the gradient GEMMs run kernel 1 under the
+    same policy."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, policy, softcap, causal, window):
@@ -134,7 +199,8 @@ class _FusedSDPA(torch.autograd.Function):
         q, k, v, q_pos, k_pos = ctx.saved_tensors
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            out = mha(*qkv, ctx.cfg, q_pos, k_pos, ctx.causal, ctx.window)
+            out = _sdpa_composition(*qkv, ctx.cfg, q_pos, k_pos, ctx.causal,
+                                    ctx.window)
             dq, dk, dv = torch.autograd.grad(out, qkv, g.float())
         return dq, dk, dv, None, None, None, None, None, None
 
@@ -153,7 +219,7 @@ def sdpa(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
                              softcap=cfg.attn_softcap)
     if out is not None:
         return out
-    return mha(q, k, v, cfg, q_pos, k_pos, causal, window)
+    return _sdpa_composition(q, k, v, cfg, q_pos, k_pos, causal, window)
 
 
 def attention_prefill(p, x, cfg, positions, window=0, causal=True):

@@ -706,3 +706,82 @@ def test_encdec_and_vlm_through_kernels_match_plain(dev, arch, forward,
             assert _launches() == n1
             assert float((fast - plain).abs().max()) <= 1e-5 * float(
                 plain.abs().max())
+
+
+# ------------------------------------------ the paper's numerics (x9, Fig. 11)
+
+def test_x9_on_the_card_matches_x9_on_the_cpu(dev):
+    """The compensated x9 policy runs its TwoSum loop in plain PyTorch on
+    the card (no kernel, no launch): the same IEEE f32 operations in the
+    same order as on the CPU, so the unevaluated pair is bitwise the CPU's;
+    ``policy_mm`` gives its head."""
+    from repro_torch.core import policy_mm
+    from repro_torch.core.matgen import urand
+    from repro_torch.core.policy import tcec_dot_unevaluated
+    a = torch.from_numpy(urand((48, 200), seed=3))
+    b = torch.from_numpy(urand((200, 40), seed=4))
+    before = tcec_matmul.launches
+    head, tail = tcec_dot_unevaluated(a.to(dev), b.to(dev), "tcec_bf16x9")
+    cpu_head, cpu_tail = tcec_dot_unevaluated(a, b, "tcec_bf16x9")
+    assert torch.equal(head.cpu(), cpu_head)
+    assert torch.equal(tail.cpu(), cpu_tail)
+    assert torch.equal(policy_mm(a.to(dev), b.to(dev), "tcec_bf16x9"), head)
+    assert tcec_matmul.launches == before
+
+
+def test_blocked_attention_gradients_match_mha_at_8192(dev):
+    """``_FusedSDPA``'s recompute backward at S = T = 8192 (small heads)
+    goes through ``blocked_attention`` once and gives the gradients of an
+    ``mha`` backward on the same q, k, v (1e-3 of each gradient's largest
+    entry, chip_smoke.py phase 7b's tolerance)."""
+    from types import SimpleNamespace
+    from repro_torch.models import layers
+    g = torch.Generator(device=dev).manual_seed(8192)
+    S, H, Hkv, hd = 8192, 4, 2, 32
+    q, k, v = (torch.randn(1, S, h, hd, generator=g, device=dev)
+               for h in (H, Hkv, Hkv))
+    cot = torch.randn(1, S, H, hd, generator=g, device=dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    calls = []
+    fn = layers.blocked_attention
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return fn(*a, **kw)
+
+    layers.blocked_attention = counted
+    try:
+        qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+        layers._FusedSDPA.apply(*qkv, pos, pos, "tcec_bf16x6", None, True,
+                                0).backward(cot)
+    finally:
+        layers.blocked_attention = fn
+    assert len(calls) == 1
+    cfg = SimpleNamespace(mix_policy="tcec_bf16x6", attn_softcap=None)
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    layers.mha(*ref, cfg, pos, pos, True, 0).backward(cot)
+    for t, r in zip(qkv, ref):
+        assert float((t.grad - r.grad).abs().max()) <= 1e-3 * float(
+            r.grad.abs().max())
+
+
+def test_kernel_1_within_theory_bound_on_fig11_type3(dev):
+    """One Fig. 11 Type 3 product (exponents -35..-15) through kernel 1
+    under x6: its Eq. (7) residual against f64 is within
+    ``theory.policy_error_bound`` and at most twice f32 SGEMM's."""
+    from repro_torch.core import theory
+    from repro_torch.core.matgen import exp_rand
+    a = torch.from_numpy(exp_rand((512, 1024), -35, -15, seed=4)).to(dev)
+    b = torch.from_numpy(exp_rand((1024, 384), -35, -15, seed=5)).to(dev)
+    before = tcec_matmul.launches
+    out = ops.tcec_matmul(a, b, "tcec_bf16x6")
+    assert tcec_matmul.launches == before + 1
+    ref = a.double() @ b.double()
+
+    def resid(c):
+        return float(torch.linalg.norm(ref - c.double())
+                     / torch.linalg.norm(ref))
+
+    assert resid(out) <= theory.policy_error_bound("tcec_bf16x6", 1024,
+                                                   e_lo=-35)
+    assert resid(out) <= 2 * resid(a @ b)

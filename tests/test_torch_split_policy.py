@@ -179,11 +179,14 @@ def test_policy_mm_and_bmm_match_jax():
 
 
 def test_compensated_policy_is_not_ported_yet():
-    a = torch.ones(4, 4)
-    with pytest.raises(NotImplementedError):
-        tpol.pdot("ij,jk->ik", a, a, "tcec_bf16x9")
-    with pytest.raises(NotImplementedError):
-        tpol.tcec_dot_unevaluated(a, a, "tcec_bf16x9")
+    """The compensated x9 policy is ported (``tests/test_torch_numerics.py``
+    holds it against JAX): ``pdot`` under it gives the head of its
+    unevaluated pair, and only a compensated policy gives a pair."""
+    a = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (4, 4)).astype(np.float32))
+    head, tail = tpol.tcec_dot_unevaluated(a, a, "tcec_bf16x9")
+    assert torch.equal(tpol.pdot("ij,jk->ik", a, a, "tcec_bf16x9"), head)
+    assert tail.shape == head.shape
     with pytest.raises(ValueError):
         tpol.tcec_dot_unevaluated(a, a, "tcec_bf16x6")
 
