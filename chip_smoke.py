@@ -32,7 +32,12 @@ Phases, each of which raises on a failed check (nothing is caught):
      N 64, and the chunk state, a batch of 2 whose A is a transposed view;
      zamba2-1.2b's ``w_cat`` at decode, K 4096, and its B, C and dt
      projections at decode, N 64); two take phase 10's (seamless's untied
-     unembedding at decode, N 256256, and internvl2's MLP gate at decode).
+     unembedding at decode, N 256256, and internvl2's MLP gate at decode);
+     six take phase 11b's step at 1 x 16384 (blocked attention's chunk
+     products, a batch of 8: the scores and dP at M 4096, K 128, N 2048,
+     P.V and dQ at M 4096, K 2048, N 128, dV and dK with A^T at K 4096;
+     the MLP gate at M 16384; the unembedding's weight gradient at K
+     16384, A^T).
      Kernel 2 runs at all four
      of the engine's prefill shapes, at the training shape 8 x 128, at 2 x
      512 with head_dim 64 (granite, and zamba2's 32/32 heads), once at
@@ -160,8 +165,9 @@ Phases, each of which raises on a failed check (nothing is caught):
      (b) blocked attention: one qwen3-0.6b layer's attention (16/8 heads
      of 128) at 1 x 8192, the gradients of ``_FusedSDPA``'s recompute
      backward (``blocked_attention``, 10 live chunk pairs: 60 kernel-1
-     launches) against an ``mha`` backward on the same q, k, v (1e-3 of
-     each gradient's largest entry), with each side's peak memory; then a
+     launches) against an ``mha`` backward on the same q, k, v under
+     ``dispatch.use_plain()`` (no launch; 1e-3 of each gradient's largest
+     entry), with each side's peak memory; then a
      full-width qwen3-0.6b train step at 1 x 16384 (seed-0 weights and
      data, remat, one AdamW step at lr 1e-3): every layer's backward takes
      ``blocked_attention`` (28 calls), kernel 1 (28 + 6 x 36 live pairs) L
@@ -351,10 +357,11 @@ def f32_gate(row, ref64, out, plain_f32):
 
 # ------------------------------------------------------------- kernel 2
 
-def attention_direct(q, k, v, dtype, causal=True, rows=1024):
+def attention_direct(q, k, v, dtype, causal=True):
     """GQA attention computed directly in ``dtype`` (no split); causal
     masks keys after the query's position (queries and keys from 0).
-    ``rows`` queries at a time, so that long sequences fit."""
+    1024 queries at a time, so that long sequences fit."""
+    rows = 1024
     B, S, H, hd = q.shape
     T, rep = k.shape[1], H // k.shape[2]
     ks = k.to(dtype).repeat_interleave(rep, 2).transpose(1, 2)
@@ -1847,7 +1854,8 @@ def long_sequence(dev, L_check=8192, S_train=16384):
     from types import SimpleNamespace
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, device_batch
-    from repro_torch.kernels import tcec_attention as ta, tcec_matmul as tm
+    from repro_torch.kernels import (dispatch, tcec_attention as ta,
+                                     tcec_matmul as tm)
     from repro_torch.launch.step import make_train_step
     from repro_torch.models import get_model, layers
     from repro_torch.models.modules import tree_leaves
@@ -1861,7 +1869,8 @@ def long_sequence(dev, L_check=8192, S_train=16384):
         return n * (n + 1) // 2
 
     # (i) one layer's attention at L_check: the blocked recompute backward
-    # against an mha backward on the same q, k, v
+    # (its products on kernel 1) against an mha backward on the same q, k,
+    # v with every product plain
     g = torch.Generator(device=dev).manual_seed(L_check)
     q = torch.randn(1, L_check, H, hd, generator=g, device=dev)
     k, v = (torch.randn(1, L_check, Hkv, hd, generator=g, device=dev)
@@ -1883,7 +1892,8 @@ def long_sequence(dev, L_check=8192, S_train=16384):
                 layers._FusedSDPA.apply(*qkv, pos, pos, pol, None, True,
                                         0).backward(cot)
             else:
-                layers.mha(*qkv, acfg, pos, pos, True, 0).backward(cot)
+                with dispatch.use_plain():
+                    layers.mha(*qkv, acfg, pos, pos, True, 0).backward(cot)
             torch.cuda.synchronize()
         out[side] = {"grads": [t.grad for t in qkv],
                      "s": time.perf_counter() - t0,
@@ -1896,7 +1906,8 @@ def long_sequence(dev, L_check=8192, S_train=16384):
         out["blocked"]["grads"], out["mha"]["grads"])]
     row = {"long_attention": f"qwen3-0.6b attention, 1 x {L_check}, "
            f"{H}/{Hkv} heads of {hd}: _FusedSDPA's blocked recompute "
-           "backward against an mha backward on the same q, k, v",
+           "backward (kernels) against an mha backward on the same q, k, v "
+           "under dispatch.use_plain()",
            "rel_diff_dq_dk_dv": rel, "limit": 1e-3,
            **{f"{s}_{k}": out[s][k] for s in out
               for k in ("s", "peak_gb", "blocked_calls", "launches")}}
@@ -1908,8 +1919,8 @@ def long_sequence(dev, L_check=8192, S_train=16384):
     check(out["blocked"]["launches"] == {
         "tcec_matmul": 6 * live_pairs(L_check), "tcec_attention": 1},
         "blocked: kernel 2 forward, 6 kernel-1 products a live chunk pair")
-    check(out["mha"]["launches"] == {"tcec_matmul": 6, "tcec_attention": 0},
-          "mha: 2 products and their 4 gradient products on kernel 1")
+    check(out["mha"]["launches"] == {"tcec_matmul": 0, "tcec_attention": 0},
+          "mha under use_plain(): no kernel launched")
     check(all(r <= 1e-3 for r in rel), "blocked vs mha gradients, 1e-3")
     del out, q, k, v, cot
     torch.cuda.empty_cache()
@@ -2050,6 +2061,24 @@ def main():
                 1024, dev, reps=20, plain_reps=3)
     matmul_case("internvl2 mlp gate at decode (4 slots)", 4, 8192, 2048, dev,
                 copies=4, reps=40, plain_reps=10)
+    # phase 11b's qwen3-0.6b step at 1 x 16384: blocked attention's chunk
+    # products, a batch of B x Hkv = 8 (2 query heads of a KV head x 2048
+    # queries, 2048 keys, head_dim 128): the scores and dP = dO . V^T, P . V
+    # and dQ = dS . K, and the A^T gradient products dV = P^T . dO and
+    # dK = dS^T . Q; the MLP gate at M 16384 and the unembedding's weight
+    # gradient at K 16384 (x^T . g)
+    matmul_case("blocked scores / dP at 1x16384, batch 8", 4096, 2048, 128,
+                dev, batch=8, reps=10, plain_reps=2)
+    matmul_case("blocked P.V / dQ at 1x16384, batch 8", 4096, 128, 2048,
+                dev, batch=8, reps=10, plain_reps=2)
+    matmul_case("blocked dV at 1x16384, batch 8, A^T", 2048, 128, 4096, dev,
+                batch=8, trans_a=True, reps=10, plain_reps=2)
+    matmul_case("blocked dK at 1x16384, batch 8, A^T", 128, 2048, 4096, dev,
+                batch=8, trans_a=True, reps=10, plain_reps=2)
+    matmul_case("mlp gate at 1x16384", 16384, 3072, 1024, dev, reps=5,
+                plain_reps=1)
+    matmul_case("unembed dW at 1x16384, K 16384, A^T", 1024, 151936, 16384,
+                dev, trans_a=True, reps=3, plain_reps=1)
     matmul_epilogue_check(dev)
     # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
     # and a window (ragged: 150 is a multiple of neither key tile)

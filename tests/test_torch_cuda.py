@@ -731,10 +731,12 @@ def test_x9_on_the_card_matches_x9_on_the_cpu(dev):
 
 def test_blocked_attention_gradients_match_mha_at_8192(dev):
     """``_FusedSDPA``'s recompute backward at S = T = 8192 (small heads)
-    goes through ``blocked_attention`` once and gives the gradients of an
-    ``mha`` backward on the same q, k, v (1e-3 of each gradient's largest
-    entry, chip_smoke.py phase 7b's tolerance)."""
+    goes through ``blocked_attention`` once (its products on kernel 1) and
+    gives the gradients of an ``mha`` backward on the same q, k, v under
+    ``dispatch.use_plain()`` (1e-3 of each gradient's largest entry,
+    chip_smoke.py phase 7b's tolerance)."""
     from types import SimpleNamespace
+    from repro_torch.kernels import dispatch
     from repro_torch.models import layers
     g = torch.Generator(device=dev).manual_seed(8192)
     S, H, Hkv, hd = 8192, 4, 2, 32
@@ -759,7 +761,10 @@ def test_blocked_attention_gradients_match_mha_at_8192(dev):
     assert len(calls) == 1
     cfg = SimpleNamespace(mix_policy="tcec_bf16x6", attn_softcap=None)
     ref = [t.clone().requires_grad_() for t in (q, k, v)]
-    layers.mha(*ref, cfg, pos, pos, True, 0).backward(cot)
+    before = tcec_matmul.launches
+    with dispatch.use_plain():
+        layers.mha(*ref, cfg, pos, pos, True, 0).backward(cot)
+    assert tcec_matmul.launches == before
     for t, r in zip(qkv, ref):
         assert float((t.grad - r.grad).abs().max()) <= 1e-3 * float(
             r.grad.abs().max())
