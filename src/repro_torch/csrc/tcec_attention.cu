@@ -13,8 +13,13 @@
 // x6 that is 13 us of tensor-core work against 7.5 us of bytes.
 //
 // The design:
-//  * One block per (batch x kv head, 64 query rows = rep heads x 64 / rep
-//    positions), so GQA reads each K/V tile once for all rep query heads.
+//  * One block per (batch x kv head, 128 output columns, 64 query rows =
+//    rep heads x floor(64 / rep) positions; rows past rep of them are
+//    padding when rep does not divide 64), so GQA reads each K/V tile once
+//    for all rep query heads.  The kernel is instantiated for head dims
+//    padded to 128 and to 256 (the larger of hd and hdv); at 256 a block
+//    computes all of QK^T and P.V for one 128-wide half of the output
+//    columns, so the scores are computed once for each half.
 //    The operands are in the model's layout, q (B, S, Hkv rep, hd), k and v
 //    (B, T, Hkv, hd[v]), out (B, S, Hkv rep, hdv), so nothing is transposed
 //    around the kernel: a block reads its rows with the head stride.
@@ -32,8 +37,8 @@
 //    device memory.  K and V terms are both stored with the keys as rows:
 //    K-major for QK^T, MN-major (the transpose bit) for P.V.
 //  * Consumer warpgroup w computes the scores of keys w BKV / 2.. of the
-//    tile for all 64 rows (m64n32k16; m64n16k16 at x10) and owns output
-//    columns 64 w.. of P.V (m64n64k16).  Every wgmma is one k16 step of one
+//    tile for all 64 rows (m64n(BKV / 2)k16) and owns output columns 64 w..
+//    of the block's 128 in P.V (m64n64k16).  Every wgmma is one k16 step of one
 //    term product, issued with scale-d = 0, and its fragment is added with
 //    round-to-nearest f32 adds into the accumulator of its scale group (the
 //    paper's rule: no tensor-core chain runs across k16 steps or term
@@ -50,24 +55,35 @@
 //    layout, two f32 to one bf16x2), the other half from shared memory,
 //    where the other warpgroup wrote the same words.  Splitting the scores
 //    by key half instead of computing all of them in both warpgroups saves
-//    a third of the tensor-core work.
+//    a third of the tensor-core work.  With 16 keys a tile (x10 at head
+//    dim 256) a key half is 8 keys, less than a k16 step: both warpgroups
+//    then take all of P from shared memory.
 //  * With a single K/V tile the probabilities are normalized before P.V,
 //    the JAX kernel's single-block order of operations.
 //
 // The budget (H100: 227 KB of shared memory a block, 64K registers an SM),
-// 64 query rows, head dims padded to 128; one block per SM:
+// 64 query rows, 128 output columns a block; one block per SM:
 //   shared memory  Q, K, V and P terms, two f32 half tiles, small state
+//     head dims padded to 128:
 //     x3  (2 terms, 64 keys):  32 + 32 + 32 + 16 + 33 + 2 KB = 147 KB
 //     x6  (3 terms, 64 keys):  48 + 48 + 48 + 24 + 33 + 2 KB = 203 KB
 //     x10 (4 terms, 32 keys):  64 + 32 + 32 + 16 + 17 + 1 KB = 162 KB
-//     (64 keys at x10 would need 259 KB).
+//     (64 keys at x10 would need 259 KB);
+//     padded to 256 (Q and K 256 wide, V 128, staging rows of 260):
+//     x3  (2 terms, 32 keys):  64 + 32 + 16 +  8 + 33 + 1 KB = 154 KB
+//     x6  (3 terms, 32 keys):  96 + 48 + 24 + 12 + 33 + 1 KB = 214 KB
+//     x10 (4 terms, 16 keys): 128 + 32 + 16 +  8 + 16 + 1 KB = 201 KB
+//     (x6 at 64 keys would need 327 KB, x10 at 32 keys 275 KB).
 //   registers  consumers 232 a thread: the P.V accumulators, 32 per scale
 //     group (96 at x6, 128 at x10), two 32-register wgmma fragments, and
-//     during QK^T the folded scores and one group partial, BKV / 4 each;
-//     the producer 40: one item (8 values and their terms) at a time.
+//     during QK^T the folded scores and one group partial, BKV / 4 each
+//     (fewer at 256: its tiles hold half the keys); the Q split goes 4
+//     items (32 values) at a time; the producer 40: one item (8 values and
+//     their terms) at a time.
 //     (40 x 128 + 232 x 256 is the block's 168 a thread at launch.)
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "tcec_common.cuh"
 #include "tcec_sm90.cuh"
@@ -77,7 +93,8 @@ namespace {
 using namespace sm90;
 
 constexpr int ROWS = 64;               // query rows per block (rep * positions)
-constexpr int HDMAX = 128;             // head dims are padded to this
+constexpr int OUTW = 128;              // output columns per block
+constexpr int HDMAX = 256;             // the largest padded head dim
 constexpr int PRODUCER = 128;          // threads of the producer warpgroup
 constexpr int CONSUMERS = 256;         // threads of the two consumer warpgroups
 constexpr int THREADS = PRODUCER + CONSUMERS;
@@ -91,22 +108,25 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 static_assert(PRODUCER * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <=
                   THREADS * (65536 / THREADS / 8 * 8),
               "the registers the block is launched with");
-constexpr int LDF = HDMAX + 4;         // f32 staging row (conflict-free reads)
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int NS>
+// The layout for NS terms and head dims padded to HDP (128 or 256).
+template <int NS, int HDP>
 struct Tile {
-  static constexpr int BKV = NS == 4 ? 32 : 64;    // keys per K/V tile
+  static_assert(HDP == 128 || HDP == 256, "head dims padded to 128 or 256");
+  // keys per K/V tile: 64 (32 at x10) at 128, half that at 256
+  static constexpr int BKV = (HDP == 128 ? 64 : 32) / (NS == 4 ? 2 : 1);
   static constexpr int HALF = BKV / 2;             // keys of one warpgroup's scores
-  static constexpr int Q_TERM = ROWS * HDMAX * 2;  // bytes of one bf16 term
-  static constexpr int K_TERM = BKV * HDMAX * 2;
-  static constexpr int V_TERM = HDMAX * BKV * 2;
+  static constexpr int LDF = HDP + 4;              // f32 staging row (conflict-free reads)
+  static constexpr int Q_TERM = ROWS * HDP * 2;    // bytes of one bf16 term
+  static constexpr int K_TERM = BKV * HDP * 2;
+  static constexpr int V_TERM = OUTW * BKV * 2;
   static constexpr int P_TERM = ROWS * BKV * 2;
-  static constexpr int Q_SBO = HDMAX / 8 * 128;    // 8-row group strides
-  static constexpr int K_SBO = HDMAX / 8 * 128;
+  static constexpr int Q_SBO = HDP / 8 * 128;      // 8-row group strides
+  static constexpr int K_SBO = HDP / 8 * 128;
   // V is MN-major (keys as rows, like K): 8-column groups 128 bytes apart,
-  // 8-key groups HDMAX / 8 core matrices apart
-  static constexpr int V_SBO = 128, V_LBO = HDMAX / 8 * 128;
+  // 8-key groups OUTW / 8 core matrices apart
+  static constexpr int V_SBO = 128, V_LBO = OUTW / 8 * 128;
   static constexpr int P_SBO = BKV / 8 * 128;
   static constexpr size_t q = 0;
   static constexpr size_t k = q + NS * Q_TERM;
@@ -118,19 +138,22 @@ struct Tile {
   static constexpr size_t red = info + 4 * 2 * 4;      // row max, row sum, per wg
   static constexpr size_t walk = red + 4 * 4 * ROWS;   // the producer's next tile
   static constexpr size_t bytes = walk + 16;
+  static_assert(bytes <= 232448, "227 KB of shared memory a block");
 };
 
-// Issue the cp.async copies of nk f32 rows of the given width, ld floats
-// apart in device memory, into a staging tile (rows past the end are not
-// copied; the split reads zeros for them).  Thread t of N copies 16-byte
-// chunk t % 32 of rows t / 32 + N / 32 i.
-template <int N>
+// Issue the cp.async copies of nk f32 rows of the given width (at most RW),
+// ld floats apart in device memory, into a staging tile of rows LDF floats
+// apart (rows past the end are not copied; the split reads zeros for
+// them).  Thread t of N copies 16-byte chunk t % (RW / 4) of rows
+// t / (RW / 4) + N / (RW / 4) i.
+template <int N, int RW, int LDF>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src,
                                           int row0, int nk, int width,
                                           long long ld, int tid) {
-  const int ch = tid & 31;
+  constexpr int CH = RW / 4;
+  const int ch = tid % CH;
   if (4 * ch < width)
-    for (int r = tid >> 5; r < nk; r += N / 32)
+    for (int r = tid / CH; r < nk; r += N / CH)
       cp_async16(dst + r * LDF + 4 * ch, src + (row0 + r) * ld + 4 * ch);
 }
 
@@ -213,24 +236,28 @@ __device__ __forceinline__ float quad_sum(float v) {
 // halves of BKV / 2 rows (K first, then V) through two f32 buffers, with
 // cp.async one half ahead of the split; splits each half into its bf16
 // terms once the consumers are done with the previous tile's terms.
-template <int NS>
+template <int NS, int HDP>
 __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
                                         const float* v, const int* q_pos,
                                         const int* k_pos, int Hkv, int rep,
                                         int S, int T, int hd, int hdv,
                                         int causal, int window, float scale) {
-  using L = Tile<NS>;
+  using L = Tile<NS, HDP>;
   const int tid = threadIdx.x;
   const int bq = ROWS / rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;   // as the consumers
-  // this block's kv head in k (B, T, Hkv, hd) and v (B, T, Hkv, hdv)
-  const long long kv0 = (blockIdx.x / Hkv * (long long)T * Hkv + blockIdx.x % Hkv);
+  // this block's kv head in k (B, T, Hkv, hd) and v (B, T, Hkv, hdv), and
+  // its 128 output columns: V's columns col0.. (col0 + vw)
+  const int ncol = HDP == OUTW ? 1 : (hdv + OUTW - 1) / OUTW;
+  const int bh = blockIdx.x / ncol, vcol0 = blockIdx.x % ncol * OUTW;
+  const int vw = min(OUTW, hdv - vcol0);
+  const long long kv0 = (bh / Hkv * (long long)T * Hkv + bh % Hkv);
   k += kv0 * hd;
-  v += kv0 * hdv;
+  v += kv0 * hdv + vcol0;
   const int nq = min(bq, S - q0);
-  constexpr int BKV = L::BKV, HB = BKV / 2;
-  constexpr int ITEMS = HB * HDMAX / 8 / PRODUCER;   // per thread and half
-  static_assert(ITEMS >= 1, "every producer thread has an item");
+  constexpr int BKV = L::BKV, HB = BKV / 2, LDF = L::LDF;
+  constexpr int KCG = HDP / 8, VCG = OUTW / 8;        // 8-column groups
+  static_assert(HB * VCG / PRODUCER >= 1, "every producer thread has an item");
   float* stage = reinterpret_cast<float*>(smem + L::stage);
   int* kpos_s = reinterpret_cast<int*>(smem + L::kpos);
   int* info = reinterpret_cast<int*>(smem + L::info);
@@ -240,26 +267,34 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
   Span span{0, 0, causal, window};
   // one cp.async group: half h of tile t of K (with the keys' positions,
   // for the n-th tile) or of V, into staging buffer h
-  auto copy_half = [&](const float* src, int width, int t, int h, int n) {
+  auto copy_half = [&](bool is_k, int t, int h, int n) {
     if (t < nkb) {
       const int col0 = t * BKV, nk = min(BKV, T - col0);
-      copy_rows<PRODUCER>(stage + h * HB * LDF, src, col0 + h * HB,
-                          min(HB, nk - h * HB), width,
-                          (long long)Hkv * width, tid);
+      float* dst = stage + h * HB * LDF;
+      const int nr = min(HB, nk - h * HB);
+      if (is_k)
+        copy_rows<PRODUCER, HDP, LDF>(dst, k, col0 + h * HB, nr, hd,
+                                      (long long)Hkv * hd, tid);
+      else
+        copy_rows<PRODUCER, OUTW, LDF>(dst, v, col0 + h * HB, nr, vw,
+                                       (long long)Hkv * hdv, tid);
       if (n >= 0 && tid < nk)
         cp_async4(kpos_s + (n & 1) * BKV + tid, k_pos + col0 + tid);
     }
     cp_async_commit();
   };
-  // K or V terms of half h (rows = keys, K-major for K, MN-major for V):
-  // item (key c, 8 columns c8), c % 8 fastest, so each 8 threads store one
-  // 128-byte core matrix
-  auto split_rows = [&](size_t region, int term_bytes, int h, int nk, int width) {
+  // K or V terms of half h (rows = keys, CG 8-column groups; K-major for
+  // K, MN-major for V): item (key c, 8 columns c8), c % 8 fastest, so each
+  // 8 threads store one 128-byte core matrix
+  auto split_rows = [&](auto cg, size_t region, int term_bytes, int h, int nk,
+                        int width) {
+    constexpr int CG = decltype(cg)::value;
+    constexpr int ITEMS = HB * CG / PRODUCER;   // per thread and half
     const float* sb = stage + h * HB * LDF;
 #pragma unroll 1
     for (int it = 0; it < ITEMS; ++it) {
       const int idx = tid + PRODUCER * it;
-      const int cl = ((idx >> 7) << 3) | (idx & 7), c8 = (idx >> 3) & 15;
+      const int cl = idx / (8 * CG) * 8 + (idx & 7), c8 = (idx >> 3) % CG;
       const int c = h * HB + cl;
       float x[8];
 #pragma unroll
@@ -274,11 +309,15 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
 #pragma unroll
       for (int i = 0; i < NS; ++i)
         *reinterpret_cast<uint4*>(smem + region + i * term_bytes +
-                                  core_offset(c, c8, HDMAX / 8)) = t[i];
+                                  core_offset(c, c8, CG)) = t[i];
     }
   };
-  auto split_k = [&](int h, int nk) { split_rows(L::k, L::K_TERM, h, nk, hd); };
-  auto split_v = [&](int h, int nk) { split_rows(L::v, L::V_TERM, h, nk, hdv); };
+  auto split_k = [&](int h, int nk) {
+    split_rows(std::integral_constant<int, KCG>(), L::k, L::K_TERM, h, nk, hd);
+  };
+  auto split_v = [&](int h, int nk) {
+    split_rows(std::integral_constant<int, VCG>(), L::v, L::V_TERM, h, nk, vw);
+  };
 
   // Each step below waits for the half copied during the step before,
   // lets the copy of the next half go into the other buffer (free once
@@ -297,8 +336,8 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
     tile_keys<BKV>(0, nkb, T, k_pos, lane, lo0, hi0);
     tile_keys<BKV>(1, nkb, T, k_pos, lane, lo1, hi1);
   }
-  copy_half(k, hd, 0, 0, 0);
-  copy_half(k, hd, 0, 1, -1);
+  copy_half(true, 0, 0, 0);
+  copy_half(true, 0, 1, -1);
   cp_async_wait<1>();
   bar_sync(B_PROD, PRODUCER);
   split_k(0, min(BKV, T));
@@ -327,8 +366,8 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
     return;
   }
   if (cur != 0) {   // the guess was wrong: split the right tile
-    copy_half(k, hd, cur, 0, 0);
-    copy_half(k, hd, cur, 1, -1);
+    copy_half(true, cur, 0, 0);
+    copy_half(true, cur, 1, -1);
     cp_async_wait<1>();
     bar_sync(B_PROD, PRODUCER);
     split_k(0, min(BKV, T - cur * BKV));
@@ -336,7 +375,7 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
     bar_sync(B_PROD, PRODUCER);
   }
   int nk = min(BKV, T - cur * BKV);
-  copy_half(v, hdv, cur, 0, -1);
+  copy_half(false, cur, 0, -1);
   split_k(1, nk);
   if (tid == 0) {
     info[0] = cur;
@@ -351,7 +390,7 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
     if (warp == 0) tile_keys<BKV>(nxt + 1, nkb, T, k_pos, lane, lo, hi);
     cp_async_wait<0>();
     bar_sync(B_PROD, PRODUCER);   // V, first half
-    copy_half(v, hdv, cur, 1, -1);
+    copy_half(false, cur, 1, -1);
     if (n > 0) bar_sync(B_VEMPTY, THREADS);   // the consumers' P.V is done
     split_v(0, nk);
     if (warp == 0) {
@@ -364,7 +403,7 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
     }
     cp_async_wait<0>();
     bar_sync(B_PROD, PRODUCER);   // V, second half; the walk
-    copy_half(k, hd, nxt, 0, n + 1);
+    copy_half(true, nxt, 0, n + 1);
     const int nn = walk[0];
     const bool nnf = walk[1];
     split_v(1, nk);
@@ -383,12 +422,12 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
     nk = min(BKV, T - nxt * BKV);
     cp_async_wait<0>();
     bar_sync(B_PROD, PRODUCER);   // K, first half, and the positions
-    copy_half(k, hd, nxt, 1, -1);
+    copy_half(true, nxt, 1, -1);
     bar_sync(B_KEMPTY, THREADS);   // the consumers' scores of tile n are done
     split_k(0, nk);
     cp_async_wait<0>();
     bar_sync(B_PROD, PRODUCER);   // K, second half
-    copy_half(v, hdv, nxt, 0, -1);
+    copy_half(false, nxt, 0, -1);
     split_k(1, nk);
     if (tid == 0) {
       inf[0] = nxt;
@@ -406,7 +445,7 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* k,
 // Register layout of an m64nN accumulator in warpgroup thread t (warp
 // w = t / 32 % 4, lane l): element 4 i + 2 h + c sits at row 16 w + l / 4
 // + 8 h, column 8 i + 2 (l % 4) + c.
-template <int NS>
+template <int NS, int HDP>
 __global__ void __launch_bounds__(THREADS, 1)
 tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const int* __restrict__ q_pos,
@@ -414,28 +453,32 @@ tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       int Hkv, int rep, int S, int T, int hd, int hdv,
                       int causal, int window, float softcap, float sm_denom,
                       float scale, float inv) {
-  using L = Tile<NS>;
+  using L = Tile<NS, HDP>;
   constexpr int BKV = L::BKV, HALF = L::HALF;
   constexpr int NH = HALF / 2;      // score registers per thread
-  constexpr int KQ = HDMAX / 16;    // k16 steps of QK^T
+  constexpr int KQ = HDP / 16;      // k16 steps of QK^T
   constexpr int KV = BKV / 16;      // k16 steps of P.V
   constexpr int KH = KV / 2;        // ... of which from this warpgroup's P
+  constexpr int CG = HDP / 8;       // 8-column groups of Q
   extern __shared__ __align__(128) unsigned char smem[];
   // Nothing is computed before the roles split: a value live across
   // setmaxnreg would be spilled.
   if (threadIdx.x < PRODUCER) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    produce<NS>(smem, k, v, q_pos, k_pos, Hkv, rep, S, T, hd, hdv, causal,
-                window, scale);
+    produce<NS, HDP>(smem, k, v, q_pos, k_pos, Hkv, rep, S, T, hd, hdv,
+                     causal, window, scale);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
   const int bq = ROWS / rep;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * bq;   // heaviest first
+  // this block's (batch, kv head) and its output columns col0..
+  const int ncol = HDP == OUTW ? 1 : (hdv + OUTW - 1) / OUTW;
+  const int bh = blockIdx.x / ncol, col0 = blockIdx.x % ncol * OUTW;
   // this block's query rows in q (B, S, H, hd) and out (B, S, H, hdv), H =
-  // Hkv rep: row r is head hkv rep + r / bq at position q0 + r % bq
+  // Hkv rep: row r < rep bq is head hkv rep + r / bq at position q0 + r % bq
   const long long qrow0 =
-      (blockIdx.x / Hkv * (long long)S + q0) * Hkv * rep + blockIdx.x % Hkv * rep;
+      (bh / Hkv * (long long)S + q0) * Hkv * rep + bh % Hkv * rep;
   const long long qld = (long long)Hkv * rep;   // rows from one position to the next
   const int nq = min(bq, S - q0);
   const bool single = T <= BKV;
@@ -453,33 +496,38 @@ tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qp1 = q_pos[q0 + min(row1 % bq, nq - 1)];
 
   // Q terms: item (row r, 8 columns c8), r % 8 fastest.  Row r is head
-  // r / bq of the group at position q0 + r % bq; rows past the end are
-  // zeros.  Every load is issued before the first split.
-  constexpr int QITEMS = ROWS * HDMAX / 8 / CONSUMERS;
-  float qx[QITEMS][8];
+  // r / bq of the group at position q0 + r % bq; rows past the end and the
+  // padding rows are zeros.  Four items at a time: every load of a batch
+  // is issued before its first split.
+  constexpr int QITEMS = ROWS * HDP / 8 / CONSUMERS, QB = 4;
 #pragma unroll
-  for (int it = 0; it < QITEMS; ++it) {
-    const int idx = tid + CONSUMERS * it;
-    const int r = ((idx >> 7) << 3) | (idx & 7), c8 = (idx >> 3) & 15;
-    const int rr = r / bq, qi = r % bq;
-    const float* src = q + (qrow0 + qi * qld + rr) * hd + 8 * c8;
+  for (int b0 = 0; b0 < QITEMS; b0 += QB) {
+    float qx[QB][8];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (qi < nq && 8 * c8 + 4 * h < hd) t = *reinterpret_cast<const float4*>(src + 4 * h);
-      qx[it][4 * h] = t.x; qx[it][4 * h + 1] = t.y; qx[it][4 * h + 2] = t.z; qx[it][4 * h + 3] = t.w;
+    for (int it = 0; it < QB; ++it) {
+      const int idx = tid + CONSUMERS * (b0 + it);
+      const int r = idx / (8 * CG) * 8 + (idx & 7), c8 = (idx >> 3) % CG;
+      const int rr = r / bq, qi = r % bq;
+      const float* src = q + (qrow0 + qi * qld + rr) * hd + 8 * c8;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float4 t = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (qi < nq && rr < rep && 8 * c8 + 4 * h < hd)
+          t = *reinterpret_cast<const float4*>(src + 4 * h);
+        qx[it][4 * h] = t.x; qx[it][4 * h + 1] = t.y; qx[it][4 * h + 2] = t.z; qx[it][4 * h + 3] = t.w;
+      }
     }
-  }
 #pragma unroll
-  for (int it = 0; it < QITEMS; ++it) {
-    const int idx = tid + CONSUMERS * it;
-    const int r = ((idx >> 7) << 3) | (idx & 7), c8 = (idx >> 3) & 15;
-    uint4 t[NS];
-    split8<NS>(qx[it], scale, t);
+    for (int it = 0; it < QB; ++it) {
+      const int idx = tid + CONSUMERS * (b0 + it);
+      const int r = idx / (8 * CG) * 8 + (idx & 7), c8 = (idx >> 3) % CG;
+      uint4 t[NS];
+      split8<NS>(qx[it], scale, t);
 #pragma unroll
-    for (int i = 0; i < NS; ++i)
-      *reinterpret_cast<uint4*>(smem + L::q + i * L::Q_TERM +
-                                core_offset(r, c8, HDMAX / 8)) = t[i];
+      for (int i = 0; i < NS; ++i)
+        *reinterpret_cast<uint4*>(smem + L::q + i * L::Q_TERM +
+                                  core_offset(r, c8, CG)) = t[i];
+    }
   }
   fence_async_smem();
   bar_sync(B_CONS, CONSUMERS);   // the Q terms
@@ -621,30 +669,30 @@ tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // P terms: register r of k16 step kk of this warpgroup's keys packs
     // score elements 8 kk + 2 r and 8 kk + 2 r + 1 (the A-fragment layout);
     // the same words go to shared memory for the other warpgroup's P.V
-    uint32_t pa[NS][KH][4];
+    // (with 8 keys a half, KH = 0, only there)
+    uint32_t pa[NS][KH > 0 ? KH : 1][4];
 #pragma unroll
-    for (int kk = 0; kk < KH; ++kk)
+    for (int e = 0; e < HALF / 4; ++e) {
+      const int kk = e >> 2, r = e & 3;
+      uint32_t w[NS];
+      split2<NS>(s[2 * e], s[2 * e + 1], scale, w);
+      const int row = (r & 1) ? row1 : row0;
+      const int key = wg * HALF + 16 * kk + 8 * (r >> 1) + 2 * t4;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        uint32_t w[NS];
-        split2<NS>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], scale, w);
-        const int row = (r & 1) ? row1 : row0;
-        const int key = wg * HALF + 16 * kk + 8 * (r >> 1) + 2 * t4;
-#pragma unroll
-        for (int i = 0; i < NS; ++i) {
-          pa[i][kk][r] = w[i];
-          *reinterpret_cast<uint32_t*>(smem + L::p + i * L::P_TERM +
-                                       core_offset(row, key >> 3, BKV / 8) +
-                                       2 * (key & 7)) = w[i];
-        }
+      for (int i = 0; i < NS; ++i) {
+        if constexpr (KH > 0) pa[i][kk][r] = w[i];
+        *reinterpret_cast<uint32_t*>(smem + L::p + i * L::P_TERM +
+                                     core_offset(row, key >> 3, BKV / 8) +
+                                     2 * (key & 7)) = w[i];
       }
+    }
     fence_async_smem();
     bar_sync(B_CONS, CONSUMERS);   // both halves' P terms
     bar_sync(B_VFULL, THREADS);    // this tile's V terms are in
 
     // P.V: rescale each group's accumulator by alpha, add its products,
-    // this warpgroup's k16 steps with A from registers, the other's from
-    // shared memory
+    // this warpgroup's k16 steps with A from registers, the other's (all,
+    // at KH = 0) from shared memory
     const uint32_t pb = opaque(desc_lo(sbase + L::p));
     const uint32_t vb = opaque(desc_lo(sbase + L::v + wg * 8 * 128, L::V_LBO));
     const int own = wg * KH, oth = (1 - wg) * KH;   // first k16 step of each
@@ -660,7 +708,7 @@ tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (i > g) break;
         const uint32_t va = vb + (((g - i) * L::V_TERM) >> 4);
         add_term_product<KV>(acc[g], f0, f1, [&](float(&f)[32], int kk) {
-          if (kk < KH) {
+          if (KH > 0 && kk < KH) {
             wgmma_rs64(f, pa[i][kk],
                        desc(va + (((own + kk) * 2 * L::V_LBO) >> 4), L::V_SBO));
           } else {
@@ -689,13 +737,13 @@ tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int r = h ? row1 : row0;
     const int rr = r / bq, qi = r % bq;
-    if (qi >= nq) continue;
+    if (qi >= nq || rr >= rep) continue;
     const float l = h ? l1 : l0;
-    float* dst = out + (qrow0 + qi * qld + rr) * hdv;
+    float* dst = out + (qrow0 + qi * qld + rr) * hdv + col0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int col = 64 * wg + 8 * i + 2 * t4;
-      if (col >= hdv) continue;
+      if (col0 + col >= hdv) continue;
       float o[2];
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
@@ -710,23 +758,30 @@ tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int NS>
+template <int NS, int HDP>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const int* q_pos, const int* k_pos, float* out, int B,
                    int Hkv, int rep, int S, int T, int hd, int hdv, int causal,
                    int window, float softcap, float sm_denom, float scale,
                    float inv, cudaStream_t stream) {
-  const size_t bytes = Tile<NS>::bytes;
+  const size_t bytes = Tile<NS, HDP>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      tcec_attention_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
+      tcec_attention_kernel<NS, HDP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const int bq = ROWS / rep;
-  dim3 grid(B * Hkv, (S + bq - 1) / bq);
-  tcec_attention_kernel<NS><<<grid, THREADS, bytes, stream>>>(
+  const int ncol = HDP == OUTW ? 1 : (hdv + OUTW - 1) / OUTW;
+  dim3 grid(B * Hkv * ncol, (S + bq - 1) / bq);
+  tcec_attention_kernel<NS, HDP><<<grid, THREADS, bytes, stream>>>(
       q, k, v, q_pos, k_pos, out, Hkv, rep, S, T, hd, hdv, causal, window,
       softcap, sm_denom, scale, inv);
   return cudaGetLastError();
+}
+
+// The head dim the kernel pads to: 128 or 256 for the larger of hd and
+// hdv, 0 above 256.
+int padded_head_dim(int head_dim) {
+  return head_dim <= 128 ? 128 : head_dim <= HDMAX ? 256 : 0;
 }
 
 }  // namespace
@@ -740,7 +795,7 @@ extern "C" int tcec_attention_launch(const void* q, const void* k,
                                      int n_splits, int scale_bits,
                                      void* stream) {
   if (hd > HDMAX || hdv > HDMAX || hd % 4 || hdv % 4 || rep < 1 ||
-      ROWS % rep != 0)
+      rep > ROWS)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) & 15)
@@ -754,25 +809,32 @@ extern "C" int tcec_attention_launch(const void* q, const void* k,
   const int* kp = static_cast<const int*>(k_pos);
   float* O = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = padded_head_dim(hd > hdv ? hd : hdv) == 256;
+#define TCEC_LAUNCH(NS)                                                     \
+  (wide ? launch<NS, 256>(Q, K, V, qp, kp, O, B, Hkv, rep, S, T, hd, hdv,   \
+                          causal, window, softcap, sm_denom, scale, inv, s) \
+        : launch<NS, 128>(Q, K, V, qp, kp, O, B, Hkv, rep, S, T, hd, hdv,   \
+                          causal, window, softcap, sm_denom, scale, inv, s))
   switch (n_splits) {
-    case 2:
-      return launch<2>(Q, K, V, qp, kp, O, B, Hkv, rep, S, T, hd, hdv, causal, window, softcap, sm_denom, scale, inv, s);
-    case 3:
-      return launch<3>(Q, K, V, qp, kp, O, B, Hkv, rep, S, T, hd, hdv, causal, window, softcap, sm_denom, scale, inv, s);
-    case 4:
-      return launch<4>(Q, K, V, qp, kp, O, B, Hkv, rep, S, T, hd, hdv, causal, window, softcap, sm_denom, scale, inv, s);
-    default:
-      return cudaErrorInvalidValue;
+    case 2: return TCEC_LAUNCH(2);
+    case 3: return TCEC_LAUNCH(3);
+    case 4: return TCEC_LAUNCH(4);
+    default: return cudaErrorInvalidValue;
   }
+#undef TCEC_LAUNCH
 }
 
-// Keys per K/V tile for n_splits terms (0 if not taken): the plain version
-// tiles the keys the same way, and its wrapper checks that the two agree.
-extern "C" int tcec_attention_key_tile(int n_splits) {
+// Keys per K/V tile for n_splits terms at head dim head_dim (the larger of
+// hd and hdv; 0 if not taken): the plain version tiles the keys the same
+// way, and its wrapper checks that the two agree.
+extern "C" int tcec_attention_key_tile(int n_splits, int head_dim) {
+  const int hdp = padded_head_dim(head_dim);
+  if (hdp == 0) return 0;
+  const bool wide = hdp == 256;
   switch (n_splits) {
-    case 2: return Tile<2>::BKV;
-    case 3: return Tile<3>::BKV;
-    case 4: return Tile<4>::BKV;
+    case 2: return wide ? Tile<2, 256>::BKV : Tile<2, 128>::BKV;
+    case 3: return wide ? Tile<3, 256>::BKV : Tile<3, 128>::BKV;
+    case 4: return wide ? Tile<4, 256>::BKV : Tile<4, 128>::BKV;
     default: return 0;
   }
 }

@@ -49,7 +49,13 @@
 // 41.1 KB of shared memory a block (K 17 KB, whose space then holds P.V's
 // sums, V 17 KB, query and probability terms, scores), 128 threads,
 // registers capped at 96 by the launch bounds: 5 blocks an SM, 160 KB of
-// K and V in flight an SM.
+// K and V in flight an SM.  Head dims up to 128 and up to 256 have an
+// instantiation each, the query values a thread loads (MAX_REP x 128 or
+// 256 over the threads: 8 or 16 registers) sized for it.  At hd 256 the
+// rule gives C 2 at pages of 16 (32 tokens, 32 KB of K and V); at rep 8
+// and x6 a block then takes 68 KB: K 17 KB, whose space then holds P.V's
+// 32 KB of sums, V 17, query terms 13, scores and P terms 7; 3 blocks an
+// SM.
 #include <cstdint>
 
 #include "tcec_sm90.cuh"
@@ -60,9 +66,11 @@ constexpr int THREADS = 128;  // 4 warps
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_REP = 8;
 constexpr int MAX_PS = 64;
-constexpr int HDMAX = 128;
+constexpr int HDMAX = 256;
 constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use
-constexpr int QREG = MAX_REP * HDMAX / THREADS;  // query values a thread loads
+
+// Query values a thread loads at head dims up to hdp.
+constexpr int qreg(int hdp) { return MAX_REP * hdp / THREADS; }
 
 __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -148,7 +156,7 @@ __device__ inline void gather(unsigned char* dst, int stride,
   }
 }
 
-template <int NS>
+template <int NS, int QREG>
 __global__ void __launch_bounds__(THREADS, 5)
 paged_chunk_kernel(const float* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k_pages,
@@ -485,6 +493,29 @@ paged_combine_kernel(const int* __restrict__ lengths,
   }
 }
 
+// The first pass, its instantiation for query values of head dims up to
+// 128 (QREG 8) or 256 (QREG 16).
+template <int NS, int QREG>
+cudaError_t launch_chunks(const Layout& L, int nch, const float* q,
+                          const __nv_bfloat16* kp, const __nv_bfloat16* vp,
+                          const int* bt, const int* lens, float* out,
+                          float* work, int B, int Hkv, int rep, int hd,
+                          int hdv, int ps, int maxp, int C, int window,
+                          float softcap, float sm_denom, float scale,
+                          float inv, bool vec, cudaStream_t stream) {
+  if (L.total > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        paged_chunk_kernel<NS, QREG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return err;
+  }
+  paged_chunk_kernel<NS, QREG>
+      <<<dim3(nch, Hkv, B), THREADS, L.total, stream>>>(
+          q, kp, vp, bt, lens, out, work, Hkv, rep, hd, hdv, ps, maxp, C,
+          window, softcap, sm_denom, scale, inv, vec);
+  return cudaGetLastError();
+}
+
 template <int NS>
 cudaError_t launch(const float* q, const __nv_bfloat16* kp,
                    const __nv_bfloat16* vp, const int* bt, const int* lens,
@@ -494,18 +525,18 @@ cudaError_t launch(const float* q, const __nv_bfloat16* kp,
                    bool vec, cudaStream_t stream) {
   const Layout L(C, ps, rep, hd, hdv, NS);
   if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
-  if (L.total > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_chunk_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L.total);
-    if (err != cudaSuccess) return err;
-  }
   const int nch = maxp > 0 ? (maxp + C - 1) / C : 1;
   if (nch > 1 && work == nullptr) return cudaErrorInvalidValue;
-  paged_chunk_kernel<NS><<<dim3(nch, Hkv, B), THREADS, L.total, stream>>>(
-      q, kp, vp, bt, lens, out, work, Hkv, rep, hd, hdv, ps, maxp, C, window,
-      softcap, sm_denom, scale, inv, vec);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      hd <= 128
+          ? launch_chunks<NS, qreg(128)>(L, nch, q, kp, vp, bt, lens, out,
+                                         work, B, Hkv, rep, hd, hdv, ps, maxp,
+                                         C, window, softcap, sm_denom, scale,
+                                         inv, vec, stream)
+          : launch_chunks<NS, qreg(HDMAX)>(L, nch, q, kp, vp, bt, lens, out,
+                                           work, B, Hkv, rep, hd, hdv, ps,
+                                           maxp, C, window, softcap, sm_denom,
+                                           scale, inv, vec, stream);
   if (err != cudaSuccess || nch == 1) return err;
   const int cbytes = 2 * nch * rep * 4;   // w_j and l_j of every row
   if (cbytes > SMEM_MAX) return cudaErrorInvalidValue;

@@ -68,7 +68,7 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 // The wgmma forms, each D = A B with scale-d = 0 (D's earlier content is
 // not read) into the first N / 2 elements of d: A (64 x 16) and B (16 x N)
 // from shared memory, or A from registers in wgmma's A-fragment layout.
-// A is K-major.  B is K-major for the n32 and n16 forms (QK^T: K terms)
+// A is K-major.  B is K-major for the n32, n16 and n8 forms (QK^T: K terms)
 // and MN-major, the transpose bit set, for the n64 forms (P.V: V terms);
 // wgmma_rs64<0> takes a K-major B.
 __device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
@@ -148,49 +148,73 @@ __device__ __forceinline__ void wgmma_ss16(float (&d)[32], uint64_t da,
       : "memory");
 }
 
+__device__ __forceinline__ void wgmma_ss8(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "%4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(0)
+      : "memory");
+}
+
 // D = A B from shared memory into the first NR of d: m64n(2 NR)k16.
 template <int NR>
 __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
+  static_assert(NR == 16 || NR == 8 || NR == 4, "n32, n16 or n8");
   if constexpr (NR == 16)
     wgmma_ss32(d, da, db);
-  else
+  else if constexpr (NR == 8)
     wgmma_ss16(d, da, db);
+  else
+    wgmma_ss8(d, da, db);
 }
 
 // N wgmmas, issue(f, n), each with scale-d = 0 into fragment f0 or f1,
-// and add(f, n) once wgmma n has landed (N even).  The two fragments
+// and add(f, n) once wgmma n has landed (N even, or 1).  The two fragments
 // alternate, so that the next wgmma runs while one is added; they persist
 // across calls, so that ptxas keeps them in fixed registers.  No branch may
 // enclose a wgmma here: ptxas would serialize the pipeline.
 template <int N, class Issue, class Add>
 __device__ __forceinline__ void wgmma_pipeline(float (&f0)[32], float (&f1)[32],
                                                Issue issue, Add add) {
-  static_assert(N % 2 == 0, "the fragments alternate in pairs");
-  wgmma_fence();
-  issue(f0, 0);
-  wgmma_commit();
-#pragma unroll
-  for (int n = 0; n < N; n += 2) {
+  static_assert(N % 2 == 0 || N == 1, "the fragments alternate in pairs");
+  if constexpr (N == 1) {   // one wgmma: nothing to overlap its add with
     wgmma_fence();
-    issue(f1, n + 1);
+    issue(f0, 0);
     wgmma_commit();
-    wgmma_wait<1>();
+    wgmma_wait<0>();
     fence_regs(f0);
-    add(f0, n);
-    if (n + 2 < N) {
+    add(f0, 0);
+  } else {
+    wgmma_fence();
+    issue(f0, 0);
+    wgmma_commit();
+#pragma unroll
+    for (int n = 0; n < N; n += 2) {
       wgmma_fence();
-      issue(f0, n + 2);
+      issue(f1, n + 1);
       wgmma_commit();
       wgmma_wait<1>();
-    } else {
-      wgmma_wait<0>();
+      fence_regs(f0);
+      add(f0, n);
+      if (n + 2 < N) {
+        wgmma_fence();
+        issue(f0, n + 2);
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(f1);
+      add(f1, n + 1);
     }
-    fence_regs(f1);
-    add(f1, n + 1);
   }
 }
 
-// dst += one term product over K k16 steps (K even): step kk is the wgmma
+// dst += one term product over K k16 steps (K even, or 1): step kk is the wgmma
 // issue(f, kk), added in f32 into the first NR elements of dst.
 template <int K, int NR, class Issue>
 __device__ __forceinline__ void add_term_product(float (&dst)[NR],

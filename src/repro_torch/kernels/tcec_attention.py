@@ -2,18 +2,23 @@
 
 Counterpart of ``repro/kernels/tcec_attention.py::_attn_kernel``.  The CUDA
 kernel (``csrc/tcec_attention.cu``) takes the operands in the model's
-layout, runs one block per (batch, kv head, 64 query rows), walks the K/V
-tiles itself (64 keys, 32 at x10), and computes QK^T and P·V with Hopper
+layout, runs one block per (batch, kv head, 128 output columns, 64 query
+rows), walks the K/V tiles itself, and computes QK^T and P·V with Hopper
 ``wgmma`` from bf16 term products with per-scale-group f32 accumulators in
 registers, the additive ``NEG_INF`` mask, and the online softmax; the
-``(S, T)`` scores never reach device memory.
+``(S, T)`` scores never reach device memory.  Head dims are padded to 128
+(qwen3, granite, zamba2, seamless, internvl2, qwen2.5-14b: tiles of 64
+keys, 32 at x10) or to 256 (gemma-2b, gemma2-9b: 32 keys, 16 at x10, and
+a block for each 128-wide half of the output columns); above 256 the
+wrapper raises.  Any GQA ratio up to 64 query heads a kv head is taken
+(64 query rows a block hold ``rep x floor(64 / rep)`` of them).
 
 :func:`tcec_attention` is the public entry on model-layout operands: it
 launches the kernel on a CUDA tensor or runs the plain version on a CPU
 tensor.  :func:`tcec_attention_plain` is the same function in plain
-PyTorch, tile for tile: the same key tiles (``BKV``, which the wrapper
-checks against the kernel's), the same online softmax and the same
-normalize-first branch when there is a single K/V tile.
+PyTorch, tile for tile: the same key tiles (:func:`key_tile`, which the
+wrapper checks against the kernel's), the same online softmax and the
+same normalize-first branch when there is a single K/V tile.
 
 ``launches`` counts kernel launches.
 """
@@ -31,9 +36,8 @@ from .tcec_matmul import check_policy, fold, split_tile
 # The additive mask bias of models.layers (finite, so fully-masked rows give
 # garbage instead of NaN, like the composition path).
 NEG_INF = -2.0e38
-ROWS = 64        # query rows per CUDA block (rep * positions)
-BKV = {2: 64, 3: 64, 4: 32}   # keys per K/V tile, by number of terms
-HDMAX = 128      # largest head_dim the CUDA kernel takes
+ROWS = 64        # query rows per CUDA block (rep * positions, padded)
+HDMAX = 256      # largest head_dim the CUDA kernel takes
 
 launches = 0
 _fn = None       # the C entry point, once its key tiles are checked
@@ -42,6 +46,22 @@ _fn = None       # the C entry point, once its key tiles are checked
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The head dim the kernel pads to, for the larger of hd and hdv: 128
+    or 256.  Above ``HDMAX`` the kernel and its plain version refuse."""
+    if head_dim > HDMAX:
+        raise ValueError(f"TCEC attention takes head dims <= {HDMAX}; got "
+                         f"{head_dim}")
+    return 128 if head_dim <= 128 else 256
+
+
+def key_tile(n_splits: int, head_dim: int) -> int:
+    """Keys per K/V tile for ``n_splits`` terms at ``head_dim`` (the larger
+    of hd and hdv): 64, 32 at x10, when padded to 128; half that at 256."""
+    base = 64 if padded_head_dim(head_dim) == 128 else 32
+    return base // 2 if n_splits == 4 else base
 
 
 def _positions(p, n: int, device) -> torch.Tensor:
@@ -95,7 +115,7 @@ def _plain_core(qt, kt, vt, qp, kp, pol, causal, window, softcap, sm_denom):
     B, Hkv, rep, S, hd = qt.shape
     T, hdv = kt.shape[2], vt.shape[3]
     sq = _terms(qt, pol)
-    bkv = BKV[pol.n_splits]
+    bkv = key_tile(pol.n_splits, max(hd, hdv))
     nkb = -(-T // bkv)
     single = nkb == 1
     m = torch.full((B, Hkv, rep, S, 1), NEG_INF, device=qt.device)
@@ -138,11 +158,13 @@ def _entry():
     global _fn
     if _fn is None:
         tile = _build.library("tcec_attention").tcec_attention_key_tile
-        tile.argtypes, tile.restype = [ctypes.c_int], ctypes.c_int
-        got = {ns: tile(ns) for ns in BKV}
-        if got != BKV:
+        tile.argtypes, tile.restype = [ctypes.c_int] * 2, ctypes.c_int
+        pairs = [(ns, hd) for ns in (2, 3, 4) for hd in (128, 256)]
+        got = {p: tile(*p) for p in pairs}
+        want = {p: key_tile(*p) for p in pairs}
+        if got != want or tile(3, HDMAX + 4) != 0:
             raise RuntimeError(f"the CUDA kernel's key tiles {got} are not "
-                               f"the plain version's {BKV}")
+                               f"the plain version's {want}")
         _fn = _build.entry("tcec_attention", _ARGTYPES)
     return _fn
 
@@ -154,9 +176,9 @@ def _launch(q, k, v, qp, kp, pol, causal, window, softcap, sm_denom):
     B, S, H, hd = q.shape
     T, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     rep = H // Hkv
-    if ROWS % rep or hd > HDMAX or hdv > HDMAX or hd % 4 or hdv % 4:
-        raise ValueError(f"CUDA attention takes rep dividing {ROWS} and head "
-                         f"dims <= {HDMAX} that are multiples of 4; got "
+    if rep > ROWS or hd > HDMAX or hdv > HDMAX or hd % 4 or hdv % 4:
+        raise ValueError(f"CUDA attention takes rep <= {ROWS} and head dims "
+                         f"<= {HDMAX} that are multiples of 4; got "
                          f"rep={rep}, hd={hd}, hdv={hdv}")
     for t in (q, k, v, qp, kp):
         if t.device != q.device or not t.is_contiguous():

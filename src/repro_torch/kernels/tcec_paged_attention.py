@@ -11,7 +11,8 @@ pass writes the output itself.  The f32 query and probabilities are split
 into bf16 terms, so the decode attend keeps the precision a plain bf16
 product would drop.  Masking is a select: stale, possibly non-finite data
 in recycled pages never reaches a sum.  Rows with ``length <= 0`` return
-zeros.
+zeros.  Head dims up to 256 (the gemmas) and GQA ratios up to 8 (MQA at
+8 query heads) are taken; above them the wrapper raises.
 
 :func:`tcec_paged_attention` is the public entry (launch on CUDA, plain
 version on CPU); :func:`tcec_paged_attention_plain` is the same function in
@@ -32,7 +33,7 @@ from .tcec_matmul import check_policy, fold
 
 MAX_REP = 8
 MAX_PAGE = 64
-HDMAX = 128
+HDMAX = 256
 KV_BUDGET = 32 * 1024   # bytes of K and V a chunk gathers into shared memory
 CHUNK_TOKENS = 128      # most tokens a chunk's scores and terms are kept for
 SMS = 132               # H100 SXM streaming multiprocessors
@@ -52,7 +53,9 @@ def chunk_pages(B: int, Hkv: int, maxp: int, ps: int, hd: int = HDMAX,
     ``KV_BUDGET`` bytes of bf16 K and V and ``CHUNK_TOKENS`` tokens, fewer
     while the table's chunks would give the card fewer than two blocks an
     SM.  At qwen3-0.6b's decode (4 slots, 8 kv heads, 40 pages of 16, hd
-    128) that is 4 pages: 64 tokens, 32 KB a block, 320 blocks."""
+    128) that is 4 pages: 64 tokens, 32 KB a block, 320 blocks; at hd 256
+    it is at most 2 pages (gemma2-9b: 8 kv heads), and 1 for gemma-2b's
+    single kv head at 4 slots (160 blocks)."""
     c = min(maxp, KV_BUDGET // (2 * ps * (hd + hdv)), CHUNK_TOKENS // ps)
     c = max(1, c)
     while c > 1 and B * Hkv * -(-maxp // c) < 2 * SMS:

@@ -22,13 +22,15 @@ def generator(seed: int, device) -> torch.Generator | None:
 
 
 def dense_init(gen, shape, fan_in: int | None = None, device=None):
+    """Normal values over sqrt(fan_in), scaled in place: the largest leaf
+    (an embedding) never exists twice."""
     fan_in = fan_in if fan_in is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    return torch.randn(shape, generator=gen, device=device) * std
+    return torch.randn(shape, generator=gen, device=device).mul_(std)
 
 
 def embed_init(gen, shape, device=None):
-    return torch.randn(shape, generator=gen, device=device) * 0.02
+    return torch.randn(shape, generator=gen, device=device).mul_(0.02)
 
 
 def zeros(shape, device=None):
@@ -50,9 +52,21 @@ def tree_leaves(tree):
 
 
 def stack_init(init_fn, n: int):
-    """Initialize ``n`` layer trees and stack their leaves on a leading dim."""
-    trees = [init_fn() for _ in range(n)]
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+    """Initialize ``n`` layer trees and stack their leaves on a leading dim.
+
+    Each leaf's ``(n, ...)`` stack is allocated once, from layer 0's tree,
+    and every layer is copied in as it is drawn, so the peak is the stacks
+    and one layer, where stacking a list of ``n`` trees would hold twice the
+    stacks.  The generator draws in the same order: the values are those of
+    ``torch.stack`` over the ``n`` trees, bit for bit."""
+    tree = init_fn()
+    stacked = tree_map(lambda x: x.new_empty((n, *x.shape)), tree)
+    for i in range(n):
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, tree)
+        tree = None                  # freed before the next layer is drawn
+        if i + 1 < n:
+            tree = init_fn()
+    return stacked
 
 
 def layer(stacked, i: int):

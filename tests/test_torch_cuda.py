@@ -790,3 +790,131 @@ def test_kernel_1_within_theory_bound_on_fig11_type3(dev):
     assert resid(out) <= theory.policy_error_bound("tcec_bf16x6", 1024,
                                                    e_lo=-35)
     assert resid(out) <= 2 * resid(a @ b)
+
+
+# ------------------------------------------------ head_dim 256 (the gemmas)
+
+# Kernel 2's instantiation for head dims padded to 256 (32 keys a tile, 16
+# at x10, a block for each 128-wide half of the output columns) against its
+# plain version: every policy, a window and a softcap, ragged S (100, 150
+# are multiples of neither tile), one tile (S 20: the normalize-first
+# branch), non-causal queries at the tail of longer keys, MQA at 8 query
+# heads (gemma-2b), GQA 16/8 (gemma2-9b), and head dims between the two
+# instantiations (hd 192 with hdv 128, hd 96 with hdv 200).  GQA ratios that
+# do not divide the block's 64 rows leave padding rows (rep 5: qwen2.5-14b's
+# 40/8 heads of 128; rep 3 at 256).
+@pytest.mark.parametrize("policy,S,T,causal,window,softcap,heads", [
+    ("tcec_bf16x3", 150, 150, True, 0, None, (8, 1, 256, 256)),
+    ("tcec_bf16x6", 150, 150, True, 0, None, (8, 1, 256, 256)),
+    ("tcec_bf16x10", 150, 150, True, 0, None, (8, 1, 256, 256)),
+    ("tcec_bf16x6", 20, 20, True, 0, None, (8, 1, 256, 256)),
+    ("tcec_bf16x10", 16, 16, True, 0, None, (8, 1, 256, 256)),
+    ("tcec_bf16x6", 200, 200, True, 64, 50.0, (16, 8, 256, 256)),
+    ("tcec_bf16x3", 100, 100, True, 40, 50.0, (16, 8, 256, 256)),
+    ("tcec_bf16x10", 100, 100, True, 40, 50.0, (16, 8, 256, 256)),
+    ("tcec_bf16x6", 70, 150, False, 0, None, (16, 8, 256, 256)),
+    ("tcec_bf16x10", 1, 150, False, 0, None, (8, 1, 256, 256)),
+    ("tcec_bf16x6", 150, 150, True, 0, None, (12, 4, 256, 256)),
+    ("tcec_bf16x6", 150, 150, True, 0, None, (40, 8, 128, 128)),
+    ("tcec_bf16x10", 100, 100, True, 30, None, (40, 8, 128, 128)),
+    ("tcec_bf16x6", 150, 150, True, 0, None, (16, 8, 192, 128)),
+    ("tcec_bf16x6", 100, 100, True, 0, None, (16, 8, 96, 200))])
+def test_attention_head_dim_256_matches_plain(dev, policy, S, T, causal,
+                                              window, softcap, heads):
+    H, Hkv, hd, hdv = heads
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    q = torch.randn(2, S, H, hd, generator=g, device=dev)
+    k = torch.randn(2, T, Hkv, hd, generator=g, device=dev)
+    v = torch.randn(2, T, Hkv, hdv, generator=g, device=dev)
+    q_pos = torch.arange(T - S, T, device=dev)
+    kw = dict(policy=policy, causal=causal, window=window, softcap=softcap)
+    before = tcec_attention.launches
+    out = tcec_attention.tcec_attention(q, k, v, q_pos, **kw)
+    assert tcec_attention.launches == before + 1
+    again = tcec_attention.tcec_attention(q, k, v, q_pos, **kw)
+    ref = tcec_attention.tcec_attention_plain(q, k, v, q_pos, **kw)
+    assert out.shape == (2, S, H, hdv)
+    assert torch.equal(out, again)
+    assert float((out - ref).abs().max()) <= 1e-5 * float(v.abs().max())
+
+
+def test_attention_refuses_head_dims_over_256(dev):
+    q = torch.randn(1, 8, 2, 260, device=dev)
+    k = torch.randn(1, 8, 1, 260, device=dev)
+    before = tcec_attention.launches
+    with pytest.raises(ValueError):
+        tcec_attention.tcec_attention(q, k, k)
+    with pytest.raises(ValueError):           # hdv over 256 alone
+        tcec_attention.tcec_attention(q[..., :256], k[..., :256], k)
+    with pytest.raises(ValueError):           # and no plain path either
+        tcec_attention.tcec_attention_plain(q, k, k)
+    assert tcec_attention.launches == before
+
+
+# Kernel 3 at hd 256 against its plain version at the same C: gemma-2b's
+# MQA (rep 8, one kv head) and gemma2-9b's 16/8 heads, every policy, a
+# window that cuts across chunks and the softcap 50, C 1 and 2 (the rule's
+# choices at pages of 16), maxp 1 (normalise first), and hd 256 with hdv
+# 128.
+@pytest.mark.parametrize("policy,ps,C,maxp,rep,hd,hdv,window,softcap", [
+    ("tcec_bf16x6", 16, 2, 10, 8, 256, 256, 0, None),
+    ("tcec_bf16x3", 16, 1, 10, 8, 256, 256, 0, None),
+    ("tcec_bf16x10", 16, 2, 10, 8, 256, 256, 20, 50.0),
+    ("tcec_bf16x6", 16, 2, 10, 2, 256, 256, 50, 50.0),
+    ("tcec_bf16x10", 16, 1, 7, 2, 256, 256, 0, None),
+    ("tcec_bf16x6", 16, 1, 1, 8, 256, 256, 0, None),
+    ("tcec_bf16x6", 8, 3, 9, 4, 256, 128, 30, None)])
+def test_paged_attention_head_dim_256_matches_plain(dev, policy, ps, C, maxp,
+                                                    rep, hd, hdv, window,
+                                                    softcap):
+    n = C * ps
+    lengths = sorted({0, 1, ps, n - 1, n, n + 1, maxp * ps})
+    lengths = [min(x, maxp * ps) for x in lengths]
+    q, kp, vp, bt, ln = _paged_inputs(dev, lengths, 2, rep, hd, hdv, ps, maxp,
+                                      seed=hd + C + maxp + window)
+    kw = dict(policy=policy, window=window, softcap=softcap,
+              pages_per_chunk=C)
+    before = tcec_paged_attention.launches
+    out = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    assert tcec_paged_attention.launches == before + 1
+    again = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    ref = tcec_paged_attention.tcec_paged_attention_plain(q, kp, vp, bt, ln,
+                                                          **kw)
+    assert torch.equal(out, again)
+    assert bool((out[ln <= 0] == 0).all())
+    assert float((out - ref).abs().max()) <= 1e-5 * float(
+        vp.float().abs().max())
+
+
+def test_paged_attention_refuses_head_dims_over_256(dev):
+    q, kp, vp, bt, ln = _paged_inputs(dev, [5], 1, 2, 264, 264, 16, 2, seed=0)
+    before = tcec_paged_attention.launches
+    with pytest.raises(ValueError):
+        tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln)
+    assert tcec_paged_attention.launches == before
+
+
+def test_init_peak_is_weights_and_one_layer(dev):
+    """``stack_init`` fills each leaf's stack layer by layer: the peak of a
+    4-layer qwen2.5-14b at full width stays within its weights + one layer
+    + its largest leaf (stacking a list of trees would hold the stacks
+    twice)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import tree_leaves
+    cfg = get_config("qwen2.5-14b").replace(n_layers=4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = get_model(cfg).init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    leaves = tree_leaves(params)
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    blocks = params["dense_blocks"]
+    layer = sum(t[0].numel() * t.element_size() for t in tree_leaves(blocks))
+    largest = max(t.numel() * t.element_size() for t in leaves)
+    assert weights <= peak <= weights + layer + largest
+    del params
+    torch.cuda.empty_cache()
