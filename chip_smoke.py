@@ -37,7 +37,9 @@ Phases, each of which raises on a failed check (nothing is caught):
      products, a batch of 8: the scores and dP at M 4096, K 128, N 2048,
      P.V and dQ at M 4096, K 2048, N 128, dV and dK with A^T at K 4096;
      the MLP gate at M 16384; the unembedding's weight gradient at K
-     16384, A^T).
+     16384, A^T); three take phase 12's (gemma-2b's tied unembedding at
+     decode, N 256000, K 2048, B^T; qwen2.5-14b's MLP gate at decode and
+     at the 2 x 512 prefill, N 13824, K 5120).
      Kernel 2 runs at all four
      of the engine's prefill shapes, at the training shape 8 x 128, at 2 x
      512 with head_dim 64 (granite, and zamba2's 32/32 heads), once at
@@ -45,13 +47,20 @@ Phases, each of which raises on a failed check (nothing is caught):
      (2 x 512, 16/16 heads of 64) and its cross-attention at decode (4 x 1
      queries against 512 keys), and at 1 x 16384 (phase 11b's training
      length; its f64 and f32 references are computed 1024 query rows at a
-     time); its ``ms`` is the public entry's,
+     time), and at phase 12's shapes: head_dim 256 at 2 x 512 for
+     gemma-2b (8/1 heads) and gemma2-9b (16/8, softcap 50), gemma2-9b's
+     local layer at 1 x 8192 (window 4096, which binds, softcap 50), x3 and
+     x10 at head_dim 256, and qwen2.5-14b's 40/8 heads of 128 (5 query
+     heads a kv head: padding rows in each block); the f32 gate takes the
+     window and the softcap; its ``ms`` is the public entry's,
      ``device_only_ms`` the same with the host taken out,
      ``kernel_only_ms`` the kernel's launch alone on operands already
      contiguous f32.  Kernel 3
      runs at the engine's decode shape (head_dim 128, and 64 for granite),
-     a ragged one with a window, and 32 slots of 1024 tokens (bound by
-     bytes); copies of its page pools are rotated so that each timed call
+     a ragged one with a window, 32 slots of 1024 tokens (bound by
+     bytes), gemma-2b's decode (8/1 heads of 256) and gemma2-9b's at 4
+     slots of 5000/5000/4200/300 tokens (window 4096, which binds, softcap
+     50; the f32 gate takes both); copies of its page pools are rotated so that each timed call
      reads K/V cold, and each row names the chunk size ``chunk_pages``, the
      blocks and live blocks of the first pass and the share of the bound
      reached on the device (``bound_share``);
@@ -173,7 +182,19 @@ Phases, each of which raises on a failed check (nothing is caught):
      ``blocked_attention`` (28 calls), kernel 1 (28 + 6 x 36 live pairs) L
      + 3 = 6835 and kernel 2 2L = 56 launches, loss, gradient norm and
      updated parameters finite; the row gives the step time and the peak
-     memory.
+     memory;
+  12. the larger dense models: gemma-2b, gemma2-9b and qwen2.5-14b at full
+     width and depth (2.5 B, 9.2 B and 14.8 B parameters: 10, 37 and 59 GB
+     in f32), random weights from seed 0, each freed before the next: phase
+     4's engine run with its checks (7L + 1 / L / L launches a forward,
+     prefill and decode step) and phase 4b's replay, phase 5's 64-token
+     prefill against ``dispatch.use_plain()`` (1e-3), phase 6's timed and
+     profiled windows (16 steps, 2 profiled, a profiled 2 x 512 prefill);
+     the parameter count, ``init_s`` and the memory: the init's peak at
+     most the weights + the largest layer + the largest leaf, the
+     kernels' 64-token prefill allocating less than the largest leaf (no
+     weight copied), and each phase's peak below the card's memory.  The
+     same memory fields are recorded in phases 4 and 8.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -357,10 +378,11 @@ def f32_gate(row, ref64, out, plain_f32):
 
 # ------------------------------------------------------------- kernel 2
 
-def attention_direct(q, k, v, dtype, causal=True):
+def attention_direct(q, k, v, dtype, causal=True, window=0, softcap=None):
     """GQA attention computed directly in ``dtype`` (no split); causal
-    masks keys after the query's position (queries and keys from 0).
-    1024 queries at a time, so that long sequences fit."""
+    masks keys after the query's position (queries and keys from 0), a
+    window keys ``window`` or more positions before it, and a softcap caps
+    the scores.  1024 queries at a time, so that long sequences fit."""
     rows = 1024
     B, S, H, hd = q.shape
     T, rep = k.shape[1], H // k.shape[2]
@@ -370,9 +392,14 @@ def attention_direct(q, k, v, dtype, causal=True):
     for r0 in range(0, S, rows):
         qs = q[:, r0:r0 + rows].to(dtype).transpose(1, 2)
         sc = qs @ ks.transpose(-1, -2) / math.sqrt(hd)
-        if causal:
-            rows_at = torch.arange(r0, r0 + qs.shape[2], device=q.device)
-            keep = rows_at[:, None] >= torch.arange(T, device=q.device)[None]
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+        d = (torch.arange(r0, r0 + qs.shape[2], device=q.device)[:, None]
+             - torch.arange(T, device=q.device)[None])
+        keep = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
+        if window:
+            keep = keep & (d < window)
+        if not bool(keep.all()):
             sc = sc.masked_fill(~keep, -math.inf)
         outs.append((torch.softmax(sc, -1) @ vs).transpose(1, 2))
         del sc
@@ -428,7 +455,8 @@ def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
     b_ms, by = bound(nbytes, ops, H100_BF16_OPS)
     row = {"kernel": "tcec_attention", "shape": name, "B": B, "S": S,
            "T": T, "H": H, "Hkv": Hkv, "hd": hd, "policy": policy,
-           "causal": causal, "window": window, "softcap": softcap,
+           "causal": causal, "window": window,
+           "window_binds": bool(window) and S > window, "softcap": softcap,
            "max_abs_err": err, "tolerance": "1e-5*max|v|", "tol": tol,
            "ms": ms, "device_only_ms": dev_ms, "kernel_only_ms": kernel_ms,
            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
@@ -436,9 +464,11 @@ def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
            "library": (f"scaled_dot_product_attention f32 "
                        f"{'causal' if causal else 'non-causal'}"
                        if lib_ms is not None else None)}
-    if policy == "tcec_bf16x6" and not window and not softcap:
-        f32_gate(row, attention_direct(q, k, v, torch.float64, causal), out,
-                 attention_direct(q, k, v, torch.float32, causal))
+    if policy == "tcec_bf16x6":
+        ref64, ref32 = (attention_direct(q, k, v, dt, causal, window, softcap)
+                        for dt in (torch.float64, torch.float32))
+        f32_gate(row, ref64, out, ref32)
+        del ref64, ref32
     emit(row)
     RECORD["kernel_checks"].append(row)
     return row
@@ -446,30 +476,35 @@ def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
 
 # ------------------------------------------------------------- kernel 3
 
-def paged_direct(q, kp, vp, bt, ln, dtype):
+def paged_direct(q, kp, vp, bt, ln, dtype, window=0, softcap=None):
     """Paged decode attention computed directly in ``dtype``, slot by slot
-    (no window, no split)."""
+    (no split): the last ``window`` tokens (all without one), the scores
+    capped by ``softcap``."""
     B, H, hd = q.shape
     ps, Hkv = kp.shape[1], kp.shape[2]
     outs = []
     for b in range(B):
         n = int(ln[b])
+        lo = max(0, n - window) if window else 0
         pages = bt[b, :-(-n // ps)].long()
-        kk = kp[pages].reshape(-1, Hkv, hd)[:n].to(dtype)
-        vv = vp[pages].reshape(-1, Hkv, hd)[:n].to(dtype)
+        kk = kp[pages].reshape(-1, Hkv, hd)[lo:n].to(dtype)
+        vv = vp[pages].reshape(-1, Hkv, hd)[lo:n].to(dtype)
         kk = kk.repeat_interleave(H // Hkv, 1)
         vv = vv.repeat_interleave(H // Hkv, 1)
         sc = torch.einsum("hd,thd->ht", q[b].to(dtype), kk) / math.sqrt(hd)
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
         outs.append(torch.einsum("ht,thd->hd", torch.softmax(sc, -1), vv))
     return torch.stack(outs)
 
 
 def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
-               copies=16, plain_reps=2):
+               copies=16, plain_reps=2, softcap=None):
     """Kernel 3 at one decode step: against its plain version at the same
-    chunk size C (1e-5 max|v|) and, without a window, against f64 (the f32
-    gate).  ``copies`` copies of the pools are rotated so that a timed call
-    reads its K/V cold, as the engine finds them after a layer's weights."""
+    chunk size C (1e-5 max|v|) and against f64 (the f32 gate; every slot
+    here holds a token).  ``copies`` copies of the pools are rotated so
+    that a timed call reads its K/V cold, as the engine finds them after a
+    layer's weights."""
     from repro_torch.kernels import tcec_paged_attention as tp
     B = len(lengths)
     NP = 1 + B * maxp
@@ -483,9 +518,10 @@ def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
     bt = perm.reshape(B, maxp).to(torch.int32).contiguous()
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
     C = tp.chunk_pages(B, Hkv, maxp, ps, hd, hd)
-    out = tp.tcec_paged_attention(q, kp, vp, bt, ln, window=window)
-    ref = tp.tcec_paged_attention_plain(q, kp, vp, bt, ln, window=window,
-                                        pages_per_chunk=C)
+    kw = dict(window=window, softcap=softcap)
+    out = tp.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    ref = tp.tcec_paged_attention_plain(q, kp, vp, bt, ln, pages_per_chunk=C,
+                                        **kw)
     err = float((out - ref).abs().max())
     tol = 1e-5 * float(vp.float().abs().max())
     check(err <= tol, f"{name}: kernel 3 vs plain beyond 1e-5 max|v|")
@@ -494,12 +530,12 @@ def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
 
     def call(i):
         k, v = pools[i % copies]
-        return tp.tcec_paged_attention(q, k, v, bt, ln, window=window)
+        return tp.tcec_paged_attention(q, k, v, bt, ln, **kw)
 
     ms = time_ms(rotating(call), reps)
     dev_ms = device_only_ms(call, reps)
     plain_ms = time_ms(rotating(lambda i: tp.tcec_paged_attention_plain(
-        q, kp, vp, bt, ln, window=window)), plain_reps)
+        q, kp, vp, bt, ln, **kw)), plain_reps)
     valid = sum(min(n, window) if window else max(n, 0) for n in lengths)
     kv_bytes = 2 * valid * Hkv * 2 * hd
     nbytes = 4 * B * H * hd * 2 + kv_bytes + 4 * B * (maxp + 1)
@@ -508,7 +544,8 @@ def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
     live = tp.live_chunks(ln.cpu(), maxp, ps, C, window)
     row = {"kernel": "tcec_paged_attention", "shape": name,
            "lengths": lengths if B <= 8 else f"{B} x {lengths[0]}",
-           "window": window, "H": H, "Hkv": Hkv, "hd": hd, "page_size": ps,
+           "window": window, "softcap": softcap,
+           "window_binds": bool(window) and max(lengths) > window, "H": H, "Hkv": Hkv, "hd": hd, "page_size": ps,
            "maxp": maxp, "chunk_pages": C, "blocks": live.numel() * Hkv,
            "live_blocks": int(live.sum()) * Hkv,
            "second_pass": live.shape[1] > 1, "copies": copies,
@@ -516,9 +553,9 @@ def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
            "tolerance": "1e-5*max|v|", "tol": tol, "ms": ms,
            "device_only_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": by, "bound_share": b_ms / dev_ms, "library_ms": None}
-    if not window:
-        f32_gate(row, paged_direct(q, kp, vp, bt, ln, torch.float64), out,
-                 paged_direct(q, kp, vp, bt, ln, torch.float32))
+    if min(lengths) > 0:
+        f32_gate(row, paged_direct(q, kp, vp, bt, ln, torch.float64, **kw),
+                 out, paged_direct(q, kp, vp, bt, ln, torch.float32, **kw))
     emit(row)
     RECORD["kernel_checks"].append(row)
     return row
@@ -564,12 +601,18 @@ def serve_run(dev, arch, key):
     from repro_torch.serving import Engine, SamplingParams
     cfg = get_config(arch)
     model = get_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    mem = init_memory(params, base)
     engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
                     page_size=16, max_pages_per_slot=40, device=dev)
+    mem["pools_gb"] = tree_bytes(engine.pools) / 1e9
     rng = np.random.default_rng(0)
     # two prompts of each length, in a row, so each admission of four
     # prefills two batches of two (all finish on one step, so the second
@@ -579,14 +622,19 @@ def serve_run(dev, arch, key):
     probe = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
     prefill_s = timed_method(engine, "_admit_and_prefill")
     mods = (tm, ta, tp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for m in mods:
         m.launches = 0
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = engine.run(prompts, SamplingParams(max_tokens=16))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = kernel_counts()
+    # the run's peak beside the weights and the pools
+    mem["run_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    mem["run_extra_gb"] = (mem["run_peak_gb"] - mem["weights_gb"]
+                           - mem["pools_gb"])
     stats = engine.stats()
     tokens = sum(len(v) for v in out.values())
     row = {"engine": f"{arch} full width, random weights (seed 0)",
@@ -603,9 +651,13 @@ def serve_run(dev, arch, key):
            "graph_replays": stats["graph_replays"],
            "sampler_replays": stats["sampler_replays"],
            "preemptions": stats["preemptions"], "launches": launches,
-           "finish_reasons": sorted({v.finish_reason for v in out.values()})}
+           "finish_reasons": sorted({v.finish_reason for v in out.values()}),
+           "memory": mem}
     emit(row)
     RECORD[key] = {"engine": row}
+    check(mem["init_peak_gb"] <= mem["weights_gb"] + mem["largest_layer_gb"]
+          + mem["largest_leaf_gb"], "init peak <= weights + the largest "
+          "layer + the largest leaf")
     check(all(v.finish_reason == "length" and len(v) == 16
               for v in out.values()), "every request finished with 16 tokens")
     check(all(n > 0 for n in launches.values()), "every kernel launched")
@@ -628,26 +680,78 @@ def serve_run(dev, arch, key):
     check(launches["tcec_paged_attention"] == L * decodes,
           "kernel 3: one launch a layer, every decode step")
 
+    torch.cuda.reset_peak_memory_stats()
     RECORD[key]["replay_vs_eager"] = replay_equals_eager(
         dev, cfg, params)                          # phase 4b
+    mem["replay_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
     return launches, (cfg, model, params), probe
+
+
+def tree_bytes(tree):
+    from repro_torch.models.modules import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def largest_leaf_bytes(params):
+    """The largest leaf, a layer's slice of each stacked leaf (the
+    ``*blocks`` trees) counted on its own: an embedding, or one layer's
+    largest weight."""
+    from repro_torch.models.modules import tree_leaves
+    return max(t[0].nbytes if k.endswith("blocks") else t.nbytes
+               for k, v in params.items() for t in tree_leaves(v))
+
+
+def init_memory(params, base):
+    """The parameters' bytes, their largest layer and leaf, and the peak
+    of the init that made them (allocated since ``base``), in GB."""
+    from repro_torch.models.modules import tree_leaves
+    layers = [tree_bytes(v) / len(tree_leaves(v)[0]) for k, v in
+              params.items() if k.endswith("blocks")]
+    return {"weights_gb": tree_bytes(params) / 1e9,
+            "largest_layer_gb": max(layers) / 1e9,
+            "largest_leaf_gb": largest_leaf_bytes(params) / 1e9,
+            "init_peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "base_bytes": base}
+
+
+def logits_vs_plain(model, params, toks, key):
+    """Phase 5 (and 12): a 64-token prefill through the kernels against the
+    same prefill under ``dispatch.use_plain()``, the logits within 1e-3.
+    The kernels' prefill allocates its activations and nothing the size
+    of the largest leaf (no weight is copied on the serving path); the
+    plain side's peak (its term copies of each weight) is recorded."""
+    from repro_torch.kernels import dispatch
+    largest = largest_leaf_bytes(params)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fast, _ = model.prefill(params, toks)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        with dispatch.use_plain():
+            plain, _ = model.prefill(params, toks)
+        torch.cuda.synchronize()
+        plain_peak = torch.cuda.max_memory_allocated()
+    rel = float((fast - plain).abs().max() / plain.abs().max())
+    row = {"logits_check": "64-token prefill, kernels vs dispatch.use_plain()",
+           "max_rel_diff": rel, "limit": 1e-3,
+           "kernel_prefill_extra_gb": extra / 1e9,
+           "plain_peak_allocated_gb": plain_peak / 1e9}
+    emit(row)
+    RECORD[key]["logits_check"] = row
+    check(math.isfinite(rel) and rel <= 1e-3, "prefill logits vs plain path")
+    check(extra < largest, "the kernels' prefill copies no weight: it "
+          "allocates less than the largest leaf")
+    return plain_peak
 
 
 def main_path(dev):
     """Phases 4, 4b and 5 on qwen3-0.6b."""
-    from repro_torch.kernels import dispatch
     launches, (cfg, model, params), toks = serve_run(dev, "qwen3-0.6b",
                                                      "serving")
-    with torch.no_grad():
-        fast, _ = model.prefill(params, toks)
-        with dispatch.use_plain():
-            plain, _ = model.prefill(params, toks)
-    rel = float((fast - plain).abs().max() / plain.abs().max())
-    row = {"logits_check": "64-token prefill, kernels vs dispatch.use_plain()",
-           "max_rel_diff": rel, "limit": 1e-3}
-    emit(row)
-    RECORD["serving"]["logits_check"] = row
-    check(math.isfinite(rel) and rel <= 1e-3, "prefill logits vs plain path")
+    logits_vs_plain(model, params, toks, "serving")
     return launches, (cfg, model, params)
 
 
@@ -1975,6 +2079,42 @@ def long_sequence(dev, L_check=8192, S_train=16384):
     return launches
 
 
+# ------------------------------------------------------------ phase 12
+
+LARGE_DENSE = ("gemma-2b", "gemma2-9b", "qwen2.5-14b")
+
+
+def large_dense(dev):
+    """Phase 12: the larger dense models at full width, random weights
+    from seed 0, each freed before the next; returns their launches."""
+    total = dict.fromkeys(PORT_KERNELS, 0)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    for arch in LARGE_DENSE:
+        key = f"large_{arch}"
+        launches, (cfg, model, params), toks = serve_run(dev, arch, key)
+        for name in total:
+            total[name] += launches[name]
+        mem = RECORD[key]["engine"]["memory"]
+        plain_peak = logits_vs_plain(model, params, toks, key)
+        torch.cuda.reset_peak_memory_stats()
+        where_time_goes(dev, cfg, model, params, timed=16, steps=2,
+                        label=f"{arch}: ")
+        # the largest allocation of the arch's phases: the engine run, the
+        # replay check, the plain prefill, the timed engine
+        mem["phase_peak_gb"] = max(
+            mem["run_peak_gb"], mem["replay_peak_gb"],
+            (max(plain_peak, torch.cuda.max_memory_allocated())
+             - mem["base_bytes"]) / 1e9)
+        mem["card_gb"] = card / 1e9
+        row = {"memory": arch, **mem}
+        emit(row)
+        check(mem["phase_peak_gb"] * 1e9 < card,
+              f"{arch}: the run's peak below the card's memory")
+        del params, model, cfg
+        torch.cuda.empty_cache()
+    return total
+
+
 def paper_numerics(dev):
     """Phase 11: (a) the Fig. 11 battery, (b) the long-sequence path."""
     a = fig11_battery(dev)
@@ -2079,6 +2219,15 @@ def main():
                 plain_reps=1)
     matmul_case("unembed dW at 1x16384, K 16384, A^T", 1024, 151936, 16384,
                 dev, trans_a=True, reps=3, plain_reps=1)
+    # phase 12's larger dense models: gemma-2b's tied unembedding at decode
+    # (N 256000, B^T: the 2.1 GB embedding read in place), qwen2.5-14b's
+    # MLP gate at decode and at the 2 x 512 prefill
+    matmul_case("gemma-2b unembed at decode (4 slots), N 256000, B^T", 4,
+                256000, 2048, dev, trans_b=True, reps=20, plain_reps=2)
+    matmul_case("qwen2.5-14b mlp gate at decode (4 slots)", 4, 13824, 5120,
+                dev, reps=40, plain_reps=5)
+    matmul_case("qwen2.5-14b mlp gate at prefill (B*P=2*512)", 1024, 13824,
+                5120, dev, reps=10, plain_reps=2)
     matmul_epilogue_check(dev)
     # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
     # and a window (ragged: 150 is a multiple of neither key tile)
@@ -2102,6 +2251,23 @@ def main():
                    2, 512, 16, 16, 64, dev, causal=False)
     attention_case("seamless cross-attention at decode, 4 x 1 against T 512",
                    4, 1, 16, 16, 64, dev, causal=False, T=512, reps=40)
+    # phase 12's head_dim 256: gemma-2b's MQA prefill, gemma2-9b's global
+    # and local layers (softcap 50; the window binds at 1 x 8192), and x3
+    # and x10 at 256 (32- and 16-key tiles); qwen2.5-14b's 40/8 heads of
+    # 128 (rep 5: 4 padding rows a block)
+    attention_case("gemma-2b prefill 2x512, 8/1 heads, hd 256", 2, 512, 8, 1,
+                   256, dev)
+    attention_case("gemma2-9b prefill 2x512, 16/8 heads, hd 256, softcap 50",
+                   2, 512, 16, 8, 256, dev, softcap=50.0)
+    attention_case("gemma2-9b local 1x8192, hd 256, window 4096, softcap 50",
+                   1, 8192, 16, 8, 256, dev, window=4096, softcap=50.0,
+                   reps=5)
+    attention_case("x3 2x512, 16/8 heads, hd 256", 2, 512, 16, 8, 256, dev,
+                   policy="tcec_bf16x3")
+    attention_case("x10 2x512, 16/8 heads, hd 256", 2, 512, 16, 8, 256, dev,
+                   policy="tcec_bf16x10")
+    attention_case("qwen2.5-14b prefill 2x512, 40/8 heads", 2, 512, 40, 8,
+                   128, dev)
     k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
                     40, dev)
     paged_case("decode 4 slots, hd 64", [520, 520, 208, 208], 16, 8, 64, 16,
@@ -2111,6 +2277,13 @@ def main():
     # bound by bytes: 134 MB of K/V, more than the L2 in one call
     paged_case("decode 32 slots x 1024", [1024] * 32, 16, 8, 128, 16, 64,
                dev, copies=3, plain_reps=1)
+    # phase 12: gemma-2b's MQA decode at hd 256 (one kv head: C 1), and
+    # gemma2-9b's local layer where its window binds (C 2, 104 MB of K/V)
+    paged_case("gemma-2b decode 4 slots, 8/1 heads, hd 256",
+               [520, 520, 208, 208], 8, 1, 256, 16, 40, dev)
+    paged_case("gemma2-9b decode 4 slots, hd 256, window 4096, softcap 50",
+               [5000, 5000, 4200, 300], 16, 8, 256, 16, 320, dev,
+               window=4096, softcap=50.0, copies=2)
 
     paper_check(dev)                               # phase 3
     launches, model = main_path(dev)               # phases 4 and 5
@@ -2121,6 +2294,7 @@ def main():
     ssm_launches = ssm_path(dev)                   # phase 9
     encdec_launches = encdec_vlm_path(dev)         # phase 10
     numerics_launches = paper_numerics(dev)        # phase 11
+    large_launches = large_dense(dev)              # phase 12
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -2134,7 +2308,8 @@ def main():
             "replaces": rep.format(replaces),
             "launches": launches[name] + train_launches.get(name, 0)
             + moe_launches[name] + ssm_launches[name]
-            + encdec_launches[name] + numerics_launches[name],
+            + encdec_launches[name] + numerics_launches[name]
+            + large_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

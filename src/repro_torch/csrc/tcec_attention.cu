@@ -500,7 +500,7 @@ tcec_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // padding rows are zeros.  Four items at a time: every load of a batch
   // is issued before its first split.
   constexpr int QITEMS = ROWS * HDP / 8 / CONSUMERS, QB = 4;
-#pragma unroll
+#pragma unroll 1
   for (int b0 = 0; b0 < QITEMS; b0 += QB) {
     float qx[QB][8];
 #pragma unroll

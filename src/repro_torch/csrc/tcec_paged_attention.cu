@@ -40,7 +40,8 @@
 // per (kv head, slot), combines the live chunks in chunk order without
 // atomics (M = max m_j, w_j = exp(m_j - M), acc_g = sum w_j acc_g,j,
 // l = sum w_j l_j), folds the groups smallest-first, divides by
-// max(l, 1e-30) and writes the output.  With a single chunk the first
+// max(l, 1e-30) and writes the output; it runs a block for each 256 of a
+// slot's rep x hdv outputs.  With a single chunk the first
 // kernel writes the output itself.  At maxp == 1 the probabilities are
 // normalised before P.V (the JAX kernel's one-step branch).  Rows with
 // length <= 0 return 0.
@@ -423,10 +424,13 @@ paged_chunk_kernel(const float* __restrict__ q,
   }
 }
 
-// The second pass: one block per (kv head, slot) combines the live chunks'
-// partials in chunk order.  The live chunks are consecutive; their weights
-// w_j = exp(m_j - M) go to shared memory first, so that each thread's loads
-// of the accumulators are independent and many are in flight at once.
+// The second pass: one block per (kv head, slot, CTHREADS of the rep x hdv
+// outputs) combines the live chunks' partials in chunk order (a block for
+// each 256 outputs: MQA's 8 query heads of 256 on one kv head give 8
+// blocks a slot, where one block a slot would leave the card idle).  The
+// live chunks are consecutive; their weights w_j = exp(m_j - M) go to
+// shared memory first, so that each thread's loads of the accumulators
+// are independent and many are in flight at once.
 constexpr int CTHREADS = 256;
 
 template <int NS>
@@ -447,9 +451,9 @@ paged_combine_kernel(const int* __restrict__ lengths,
       c1 = c;
     }
   const int nl = c1 - c0 + 1;
+  const int o = blockIdx.z * CTHREADS + tid;   // this thread's output
   if (nl <= 0) {
-    for (int i = tid; i < rep * hdv; i += CTHREADS)
-      out[bh * rep * hdv + i] = 0.0f;
+    if (o < rep * hdv) out[bh * rep * hdv + o] = 0.0f;
     return;
   }
   const long long pf = partial_floats(rep, hdv, NS);
@@ -476,9 +480,9 @@ paged_combine_kernel(const int* __restrict__ lengths,
     l_s[tid] = l;
   }
   __syncthreads();
-  for (int i = tid; i < rep * hdv; i += CTHREADS) {
-    const int r = i / hdv;
-    const float* pc = base + 2 * rep + i;   // (g, r, d) at g rep hdv + i
+  if (o < rep * hdv) {
+    const int r = o / hdv;
+    const float* pc = base + 2 * rep + o;   // (g, r, d) at g rep hdv + o
     float acc[NS];
 #pragma unroll
     for (int g = 0; g < NS; ++g) acc[g] = 0.0f;
@@ -489,7 +493,7 @@ paged_combine_kernel(const int* __restrict__ lengths,
       for (int g = 0; g < NS; ++g)
         acc[g] = fmaf(w, pc[j * pf + (long long)g * rep * hdv], acc[g]);
     }
-    out[bh * rep * hdv + i] = fold<NS>(acc, inv) / fmaxf(l_s[r], 1e-30f);
+    out[bh * rep * hdv + o] = fold<NS>(acc, inv) / fmaxf(l_s[r], 1e-30f);
   }
 }
 
@@ -546,7 +550,8 @@ cudaError_t launch(const float* q, const __nv_bfloat16* kp,
                                cbytes);
     if (err != cudaSuccess) return err;
   }
-  paged_combine_kernel<NS><<<dim3(Hkv, B), CTHREADS, cbytes, stream>>>(
+  const int nz = (rep * hdv + CTHREADS - 1) / CTHREADS;
+  paged_combine_kernel<NS><<<dim3(Hkv, B, nz), CTHREADS, cbytes, stream>>>(
       lens, work, out, Hkv, rep, hdv, ps, maxp, C, nch, window, inv);
   return cudaGetLastError();
 }

@@ -1,5 +1,7 @@
-"""Decoder-only LM: the dense family (qwen3 / gemma-style blocks) and the
-MoE family (granite-style: GShard top-k experts in place of the MLP).
+"""Decoder-only LM: the dense family (qwen3-0.6b; qwen2.5-14b with its QKV
+bias; gemma-2b and gemma2-9b: GeGLU, scaled embeddings, sandwich norms,
+local/global windows, the attention and final softcaps, head_dim 256) and
+the MoE family (granite-style: GShard top-k experts in place of the MLP).
 
 Parameters are the JAX package's ``lm.init`` tree as nested dicts of
 tensors: ``embed``, ``ln_f``, ``dense_blocks`` for the first
@@ -140,7 +142,10 @@ def _stack_layers(cfg, views_of):
 # ----------------------------------------------------------- top level
 
 def init(cfg, seed: int = 0, device=None):
-    """Random parameters from a seeded ``torch.Generator`` on ``device``."""
+    """Random parameters from a seeded ``torch.Generator`` on ``device``.
+    Each layer stack is filled layer by layer (``modules.stack_init``), so
+    the peak is the weights and one layer: qwen2.5-14b's 59 GB in f32
+    initialize on an 80 GB card."""
     _check_ported(cfg)
     device = resolve_device(device)
     gen = generator(seed, device)

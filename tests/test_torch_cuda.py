@@ -910,11 +910,12 @@ def test_init_peak_is_weights_and_one_layer(dev):
     params = get_model(cfg).init(seed=0, device=dev)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    leaves = tree_leaves(params)
-    weights = sum(t.numel() * t.element_size() for t in leaves)
-    blocks = params["dense_blocks"]
-    layer = sum(t[0].numel() * t.element_size() for t in tree_leaves(blocks))
-    largest = max(t.numel() * t.element_size() for t in leaves)
-    assert weights <= peak <= weights + layer + largest
+    weights = sum(t.nbytes for t in tree_leaves(params))
+    layer = [t[0] for t in tree_leaves(params["dense_blocks"])]
+    # the largest leaf: the embedding or unembedding, or one layer's slice
+    # of a stacked leaf
+    largest = max(t.nbytes for t in layer + [params["embed"],
+                                            params["unembed"]])
+    assert weights <= peak <= weights + sum(t.nbytes for t in layer) + largest
     del params
     torch.cuda.empty_cache()
