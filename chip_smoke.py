@@ -60,8 +60,8 @@ Phases, each of which raises on a failed check (nothing is caught):
      a ragged one with a window, 32 slots of 1024 tokens (bound by
      bytes), gemma-2b's decode (8/1 heads of 256) and gemma2-9b's at 4
      slots of 5000/5000/4200/300 tokens (window 4096, which binds, softcap
-     50; the f32 gate takes both); copies of its page pools are rotated so that each timed call
-     reads K/V cold, and each row names the chunk size ``chunk_pages``, the
+     50; the f32 gate takes both); copies of its page pools are rotated so
+     that each timed call reads K/V cold, and each row names the chunk size ``chunk_pages``, the
      blocks and live blocks of the first pass and the share of the bound
      reached on the device (``bound_share``);
   3. the paper's check: at 2048^3, kernel 1's x6 residual against an f64
@@ -545,7 +545,8 @@ def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
     row = {"kernel": "tcec_paged_attention", "shape": name,
            "lengths": lengths if B <= 8 else f"{B} x {lengths[0]}",
            "window": window, "softcap": softcap,
-           "window_binds": bool(window) and max(lengths) > window, "H": H, "Hkv": Hkv, "hd": hd, "page_size": ps,
+           "window_binds": bool(window) and max(lengths) > window, "H": H,
+           "Hkv": Hkv, "hd": hd, "page_size": ps,
            "maxp": maxp, "chunk_pages": C, "blocks": live.numel() * Hkv,
            "live_blocks": int(live.sum()) * Hkv,
            "second_pass": live.shape[1] > 1, "copies": copies,
@@ -689,7 +690,7 @@ def serve_run(dev, arch, key):
 
 def tree_bytes(tree):
     from repro_torch.models.modules import tree_leaves
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    return sum(t.nbytes for t in tree_leaves(tree))
 
 
 def largest_leaf_bytes(params):

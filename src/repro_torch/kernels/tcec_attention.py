@@ -48,19 +48,14 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_void_p]
 
 
-def padded_head_dim(head_dim: int) -> int:
-    """The head dim the kernel pads to, for the larger of hd and hdv: 128
-    or 256.  Above ``HDMAX`` the kernel and its plain version refuse."""
+def key_tile(n_splits: int, head_dim: int) -> int:
+    """Keys per K/V tile for ``n_splits`` terms at ``head_dim`` (the larger
+    of hd and hdv, padded to 128 or 256): 64, 32 at x10, at 128; half that
+    at 256.  Above ``HDMAX`` the kernel and its plain version refuse."""
     if head_dim > HDMAX:
         raise ValueError(f"TCEC attention takes head dims <= {HDMAX}; got "
                          f"{head_dim}")
-    return 128 if head_dim <= 128 else 256
-
-
-def key_tile(n_splits: int, head_dim: int) -> int:
-    """Keys per K/V tile for ``n_splits`` terms at ``head_dim`` (the larger
-    of hd and hdv): 64, 32 at x10, when padded to 128; half that at 256."""
-    base = 64 if padded_head_dim(head_dim) == 128 else 32
+    base = 64 if head_dim <= 128 else 32
     return base // 2 if n_splits == 4 else base
 
 
