@@ -37,9 +37,11 @@ Phases, each of which raises on a failed check (nothing is caught):
      products, a batch of 8: the scores and dP at M 4096, K 128, N 2048,
      P.V and dQ at M 4096, K 2048, N 128, dV and dK with A^T at K 4096;
      the MLP gate at M 16384; the unembedding's weight gradient at K
-     16384, A^T); three take phase 12's (gemma-2b's tied unembedding at
+     16384, A^T); six take phase 12's (gemma-2b's tied unembedding at
      decode, N 256000, K 2048, B^T; qwen2.5-14b's MLP gate at decode and
-     at the 2 x 512 prefill, N 13824, K 5120).
+     at the 2 x 512 prefill, N 13824, K 5120; at that prefill, M 1024 on
+     path W, the gemmas' tied unembeddings, N 256000, K 2048 and 3584,
+     B^T, and gemma2-9b's MLP gate, N 14336, K 3584).
      Kernel 2 runs at all four
      of the engine's prefill shapes, at the training shape 8 x 128, at 2 x
      512 with head_dim 64 (granite, and zamba2's 32/32 heads), once at
@@ -81,7 +83,9 @@ Phases, each of which raises on a failed check (nothing is caught):
      of the same state; logits, guard bits, tokens and the page pools must
      be bitwise equal;
   5. one 64-token prefill through the kernels against the same prefill with
-     ``dispatch.use_plain()`` (relative logits difference <= 1e-3);
+     ``dispatch.use_plain()`` (relative logits difference <= 1e-3); then a
+     prefill of its first 4 tokens through the kernels allocates less than
+     one layer's largest weight (the weights are read in place);
   6. where the time goes: a third engine with four slots (512, 512, 200
      and 64 tokens) times 32 decode steps one by one with the profiler off
      (median and spread), then profiles 4 steps and one 2 x 512 prefill
@@ -188,13 +192,18 @@ Phases, each of which raises on a failed check (nothing is caught):
      in f32), random weights from seed 0, each freed before the next: phase
      4's engine run with its checks (7L + 1 / L / L launches a forward,
      prefill and decode step) and phase 4b's replay, phase 5's 64-token
-     prefill against ``dispatch.use_plain()`` (1e-3), phase 6's timed and
-     profiled windows (16 steps, 2 profiled, a profiled 2 x 512 prefill);
-     the parameter count, ``init_s`` and the memory: the init's peak at
-     most the weights + the largest layer + the largest leaf, the
-     kernels' 64-token prefill allocating less than the largest leaf (no
-     weight copied), and each phase's peak below the card's memory.  The
-     same memory fields are recorded in phases 4 and 8.
+     prefill against ``dispatch.use_plain()`` (1e-3); (12b)
+     ``forward_logits`` at the engine's widest prefill, 2 x 512 (kernel 1
+     on path W, M 1024, the unembedding too), against the plain path run
+     one sequence at a time (1e-3; 7L + 1 / L / 0 launches); phase 6's
+     timed and profiled windows (16 steps, 2 profiled, a profiled 2 x 512
+     prefill); the parameter count, ``init_s`` and the memory: the init's
+     peak at most the weights + the largest layer + the largest leaf; no
+     weight copied: a 4-token prefill through the kernels (path S)
+     allocates less than one layer's largest weight (as in phase 5), and
+     the 2 x 512 forward less than its logits (three times over with the
+     final softcap) and that weight; each phase's peak below the card's
+     memory.  The same memory fields are recorded in phases 4 and 8.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -702,6 +711,13 @@ def largest_leaf_bytes(params):
                for k, v in params.items() for t in tree_leaves(v))
 
 
+def layer_leaf_bytes(params):
+    """One layer's largest weight: the largest slice of a stacked leaf."""
+    from repro_torch.models.modules import tree_leaves
+    return max(t[0].nbytes for k, v in params.items() if k.endswith("blocks")
+               for t in tree_leaves(v))
+
+
 def init_memory(params, base):
     """The parameters' bytes, their largest layer and leaf, and the peak
     of the init that made them (allocated since ``base``), in GB."""
@@ -717,34 +733,46 @@ def init_memory(params, base):
 
 def logits_vs_plain(model, params, toks, key):
     """Phase 5 (and 12): a 64-token prefill through the kernels against the
-    same prefill under ``dispatch.use_plain()``, the logits within 1e-3.
-    The kernels' prefill allocates its activations and nothing the size
-    of the largest leaf (no weight is copied on the serving path); the
-    plain side's peak (its term copies of each weight) is recorded."""
+    same prefill under ``dispatch.use_plain()``, the logits within 1e-3;
+    the plain side's peak (its term copies of each weight) is recorded.
+    Then the weights are read in place: a prefill of the first 4 tokens
+    through the kernels (kernel 1 on path S, as at decode) allocates less
+    than one layer's largest weight, so a copy of that weight or of the
+    embedding fails the gate.  (At 64 tokens the logits and K/V alone
+    outgrow qwen3-0.6b's largest layer weight; that prefill's allocation
+    is recorded.)"""
     from repro_torch.kernels import dispatch
-    largest = largest_leaf_bytes(params)
-    with torch.no_grad():
+
+    def allocated(fn):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        fast, _ = model.prefill(params, toks)
+        out = fn()
         torch.cuda.synchronize()
-        extra = torch.cuda.max_memory_allocated() - before
+        return out, torch.cuda.max_memory_allocated() - before
+
+    with torch.no_grad():
+        (fast, _), extra = allocated(lambda: model.prefill(params, toks))
         torch.cuda.reset_peak_memory_stats()
         with dispatch.use_plain():
             plain, _ = model.prefill(params, toks)
         torch.cuda.synchronize()
         plain_peak = torch.cuda.max_memory_allocated()
-    rel = float((fast - plain).abs().max() / plain.abs().max())
+        rel = float((fast - plain).abs().max() / plain.abs().max())
+        del fast, plain
+        _, probe = allocated(lambda: model.prefill(params, toks[:, :4]))
+    layer = layer_leaf_bytes(params)
     row = {"logits_check": "64-token prefill, kernels vs dispatch.use_plain()",
            "max_rel_diff": rel, "limit": 1e-3,
            "kernel_prefill_extra_gb": extra / 1e9,
-           "plain_peak_allocated_gb": plain_peak / 1e9}
+           "plain_peak_allocated_gb": plain_peak / 1e9,
+           "probe_4_tokens_extra_gb": probe / 1e9,
+           "largest_layer_weight_gb": layer / 1e9}
     emit(row)
     RECORD[key]["logits_check"] = row
     check(math.isfinite(rel) and rel <= 1e-3, "prefill logits vs plain path")
-    check(extra < largest, "the kernels' prefill copies no weight: it "
-          "allocates less than the largest leaf")
+    check(probe < layer, "the kernels' 4-token prefill copies no weight: it "
+          "allocates less than one layer's largest weight")
     return plain_peak
 
 
@@ -2097,11 +2125,12 @@ def large_dense(dev):
             total[name] += launches[name]
         mem = RECORD[key]["engine"]["memory"]
         plain_peak = logits_vs_plain(model, params, toks, key)
+        plain_peak = max(plain_peak, wide_vs_plain(cfg, model, params, key))
         torch.cuda.reset_peak_memory_stats()
         where_time_goes(dev, cfg, model, params, timed=16, steps=2,
                         label=f"{arch}: ")
         # the largest allocation of the arch's phases: the engine run, the
-        # replay check, the plain prefill, the timed engine
+        # replay check, the plain prefills and forwards, the timed engine
         mem["phase_peak_gb"] = max(
             mem["run_peak_gb"], mem["replay_peak_gb"],
             (max(plain_peak, torch.cuda.max_memory_allocated())
@@ -2114,6 +2143,77 @@ def large_dense(dev):
         del params, model, cfg
         torch.cuda.empty_cache()
     return total
+
+
+def wide_vs_plain(cfg, model, params, key, B=2, S=512):
+    """Phase 12b: ``forward_logits`` at the engine's widest prefill, B x S
+    = 2 x 512, through the kernels (kernel 1 on path W at M 1024, the
+    unembedding too) against ``dispatch.use_plain()``, the logits within
+    1e-3.  The plain side runs one sequence at a time, to keep its term
+    copies of each weight beside qwen2.5-14b's 59 GB: a row of a product
+    depends on that row alone, so the logits are the same function.  The
+    kernel side launches 7L + 1 / L / 0, the plain side nothing.  The
+    kernel side allocates less than its logits (three times over with a
+    final softcap: ``x / cap``, its tanh) and one layer's largest weight,
+    so a copy of the embedding or unembedding on path W fails the gate.
+    Returns the plain side's peak allocation."""
+    from repro_torch.kernels import dispatch, tcec_matmul as tm
+    dev = params["embed"].device
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    L = cfg.n_layers
+    counts = {"tcec_matmul": 7 * L + 1, "tcec_attention": L,
+              "tcec_paged_attention": 0}
+    with torch.no_grad():
+        c0 = kernel_counts()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fast = model.forward_logits(params, toks)
+        c1 = kernel_counts()
+        wall = (time.perf_counter() - t0) * 1e3
+        extra = torch.cuda.max_memory_allocated() - before
+        logits_bytes = fast.nbytes
+        fast = fast.cpu()
+        torch.cuda.reset_peak_memory_stats()
+        diff = scale = 0.0
+        t0 = time.perf_counter()
+        with dispatch.use_plain():
+            for i in range(B):
+                plain = model.forward_logits(params, toks[i:i + 1]).cpu()
+                diff = max(diff, float((fast[i] - plain[0]).abs().max()))
+                scale = max(scale, float(plain.abs().max()))
+                del plain
+        c2 = kernel_counts()
+        plain_wall = (time.perf_counter() - t0) * 1e3
+        plain_peak = torch.cuda.max_memory_allocated()
+    del fast
+    rel = diff / scale
+    kernel_launches = {k: c1[k] - c0[k] for k in c0}
+    plain_launches = {k: c2[k] - c1[k] for k in c0}
+    layer = layer_leaf_bytes(params)
+    allowed = (3 if cfg.final_softcap else 1) * logits_bytes + layer
+    row = {"logits_check": f"{cfg.name}: forward_logits {B} x {S}, kernels "
+           "vs dispatch.use_plain() (one sequence at a time)",
+           "kernel1_path": tm.path(B * S), "max_rel_diff": rel,
+           "limit": 1e-3, "forward_ms": wall, "plain_forward_ms": plain_wall,
+           "kernel_launches": kernel_launches, "launches_counted": counts,
+           "plain_launches": plain_launches,
+           "kernel_extra_gb": extra / 1e9, "logits_gb": logits_bytes / 1e9,
+           "allowed_gb": allowed / 1e9,
+           "plain_peak_allocated_gb": plain_peak / 1e9}
+    emit(row)
+    RECORD[key]["wide_logits_check"] = row
+    check(tm.path(B * S) == "wgmma", f"{cfg.name}: M {B * S} on path W")
+    check(kernel_launches == counts, f"{cfg.name}: forward launches as "
+          "counted")
+    check(not any(plain_launches.values()), "plain side: no kernel launch")
+    check(math.isfinite(rel) and rel <= 1e-3, f"{cfg.name}: {B} x {S} "
+          "logits vs plain path")
+    check(extra < allowed, f"{cfg.name}: the kernels' {B} x {S} forward "
+          "copies no weight: it allocates less than its logits and one "
+          "layer's largest weight")
+    return plain_peak
 
 
 def paper_numerics(dev):
@@ -2229,6 +2329,14 @@ def main():
                 dev, reps=40, plain_reps=5)
     matmul_case("qwen2.5-14b mlp gate at prefill (B*P=2*512)", 1024, 13824,
                 5120, dev, reps=10, plain_reps=2)
+    # and path W at the gemmas' 2 x 512 prefill: their tied unembeddings
+    # (N 256000, B^T) and gemma2-9b's MLP gate
+    matmul_case("gemma-2b unembed at prefill (B*P=2*512), N 256000, B^T",
+                1024, 256000, 2048, dev, trans_b=True, reps=3, plain_reps=1)
+    matmul_case("gemma2-9b unembed at prefill (B*P=2*512), N 256000, B^T",
+                1024, 256000, 3584, dev, trans_b=True, reps=3, plain_reps=1)
+    matmul_case("gemma2-9b mlp gate at prefill (B*P=2*512)", 1024, 14336,
+                3584, dev, reps=10, plain_reps=2)
     matmul_epilogue_check(dev)
     # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
     # and a window (ragged: 150 is a multiple of neither key tile)
