@@ -41,7 +41,14 @@ Phases, each of which raises on a failed check (nothing is caught):
      decode, N 256000, K 2048, B^T; qwen2.5-14b's MLP gate at decode and
      at the 2 x 512 prefill, N 13824, K 5120; at that prefill, M 1024 on
      path W, the gemmas' tied unembeddings, N 256000, K 2048 and 3584,
-     B^T, and gemma2-9b's MLP gate, N 14336, K 3584).
+     B^T, and gemma2-9b's MLP gate, N 14336, K 3584); three take phase
+     13's (deepseek-v3-671b's experts' gate at decode, a batch of 256, K
+     7168, N 2048: 15 GB streamed; the absorbed decode's ``w_uk`` product,
+     a batch of 128 heads, K 128, N 512, B a per-head view of the stored
+     (512, 128, 128) weight read in place, ``torch.einsum`` beside it; and
+     ``wo`` at the 2 x 512 prefill, K 16384, N 7168).  The rows are
+     ``KERNEL1_CASES`` and ``DEEPSEEK_KERNEL1_CASES``;
+     ``scripts/kernel1_rows.py`` times the first list on two checkouts.
      Kernel 2 runs at all four
      of the engine's prefill shapes, at the training shape 8 x 128, at 2 x
      512 with head_dim 64 (granite, and zamba2's 32/32 heads), once at
@@ -53,7 +60,9 @@ Phases, each of which raises on a failed check (nothing is caught):
      gemma-2b (8/1 heads) and gemma2-9b (16/8, softcap 50), gemma2-9b's
      local layer at 1 x 8192 (window 4096, which binds, softcap 50), x3 and
      x10 at head_dim 256, and qwen2.5-14b's 40/8 heads of 128 (5 query
-     heads a kv head: padding rows in each block); the f32 gate takes the
+     heads a kv head: padding rows in each block), and deepseek-v3-671b's
+     MLA prefill (2 x 512, 128/128 heads, qk head dim 192 beside a v head
+     dim of 128; f32 SDPA beside it); the f32 gate takes the
      window and the softcap; its ``ms`` is the public entry's,
      ``device_only_ms`` the same with the host taken out,
      ``kernel_only_ms`` the kernel's launch alone on operands already
@@ -203,13 +212,37 @@ Phases, each of which raises on a failed check (nothing is caught):
      allocates less than one layer's largest weight (as in phase 5), and
      the 2 x 512 forward less than its logits (three times over with the
      final softcap) and that weight; each phase's peak below the card's
-     memory.  The same memory fields are recorded in phases 4 and 8.
+     memory.  The same memory fields are recorded in phases 4 and 8;
+  13. MLA and the MoE layer of deepseek-v3-671b at full width, depth cut
+     to 4 layers (3 dense MLA layers, 1 MoE layer of 256 experts with a
+     shared expert; the MTP head off: 60.44 GB in f32), random weights
+     from seed 0.  (a) the init's peak at most the weights + the largest
+     leaf (an expert stack, 15.03 GB); (b) phase 4's engine run and 4b's
+     replay (``forward_counts``: 44 / 4 / 0 launches a prefill, 44 / 0 / 0
+     a decode step; MLA decodes in the latent space over a page gather,
+     without kernel 3); (c) the 64-token prefill and ``forward_logits`` at
+     2 x 512 (path W; the plain side one sequence at a time) against
+     ``dispatch.use_plain()``, each MoE layer's routes recorded on both
+     sides: 1e-3 at the positions before a sequence's first moved route,
+     and 8c's layer check on identical inputs (2^-8); (d) during one
+     decode step and one 4-token prefill, every kernel-1 launch reads its
+     B inside a parameter leaf's storage (the copy gate of this model: its
+     largest layer weight is a 15 GB expert stack); (e) phase 6's windows
+     (16 steps, 2 profiled, a profiled 2 x 512 prefill): the step's median
+     and spread, busy and idle share, kernel 1's share and its weight
+     stream in TB/s against the step's byte bound (every weight but the
+     embedding, 56.74 GB); the peaks below the card; (f) 9a's
+     ``generate_dense`` over the MLA dense cache (the prompts prefilled in
+     one forward), then the engine on the same prompts: equal tokens
+     reported, no gate; (g) the MTP head at the smoke config: ``loss_fn``
+     and its gradients against ``use_plain()`` (7b's 1e-3 rule).
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
 also written to ``chiprun_out/chip_smoke.json``.
 """
 import contextlib
+import functools
 import json
 import math
 import os
@@ -283,13 +316,16 @@ def bound(nbytes, ops, rate):
 
 def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
                 plain_reps=2, policy="tcec_bf16x6", trans_a=False,
-                batch=None):
+                batch=None, per_head=False):
     """Kernel 1 at one product.  ``trans_a``: A is the transpose of a
     contiguous (K, M) tensor, as in a weight gradient ``x^T . g``; the
     entry then copies it first (``dispatch._canonicalize`` does), and the
     row gives that copy's time alone (``copy_ms``, device only).
     ``batch``: a batch of that many products (the MoE expert products;
-    the library call is then ``torch.bmm``)."""
+    the library call is then ``torch.bmm``).  ``per_head``: B is the
+    per-head view (batch, K, N) of a weight stored (N, batch, K), as MLA's
+    absorbed decode reads ``w_uk`` (batch stride K, columns batch K
+    apart), read in place; the library call is then ``torch.einsum``."""
     from repro_torch.core import get_policy
     from repro_torch.kernels import ops, tcec_matmul as tm
     g = torch.Generator(device=dev).manual_seed(M + N + K)
@@ -301,10 +337,13 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
         return ops.tcec_matmul(a.contiguous(), b, policy)
     # `copies` weight copies of more than the 50 MB L2 in all, so a timed
     # launch reads its weight cold, as each layer of a decode step does
-    shape = bsh + ((N, K) if trans_b else (K, N))
+    shape = ((N, batch, K) if per_head else
+             bsh + ((N, K) if trans_b else (K, N)))
     ws = [torch.randn(shape, generator=g, device=dev) * K ** -0.5
           for _ in range(copies)]
-    bs = [w.T if trans_b else w for w in ws]
+    bs = [w.permute(1, 2, 0) if per_head else w.mT if trans_b else w
+          for w in ws]
+    trans_b = trans_b or per_head
     out = entry(bs[0])
     ref = tm.tcec_matmul_plain(a, bs[0], policy)
     tol = 8 * K * U24 * (a.abs() @ bs[0].abs())
@@ -314,7 +353,8 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
     ms = time_ms(rotating(lambda i: entry(bs[i % copies])), reps)
     plain_ms = time_ms(rotating(lambda i: tm.tcec_matmul_plain(
         a, bs[i % copies], policy)), plain_reps)
-    lib = torch.bmm if batch else torch.matmul
+    lib = (functools.partial(torch.einsum, "hmk,hkn->hmn") if per_head
+           else torch.bmm if batch else torch.matmul)
     lib_ms = time_ms(rotating(lambda i: lib(a, bs[i % copies])), reps)
     # the same launches with host time taken out (decode rows are host
     # bound through the entry, as torch.matmul is)
@@ -328,6 +368,7 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     row = {"kernel": "tcec_matmul", "shape": name, "batch": batch, "M": M,
            "N": N, "K": K, "trans_a": trans_a, "trans_b": trans_b,
+           "per_head": per_head,
            "policy": policy,
            "path": tm.path(M),
            "blocks": blocks, "blocks_per_sm": per_sm,
@@ -338,7 +379,9 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
            "ms": ms, "device_only_ms": dev_ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
            "library_device_only_ms": lib_dev_ms,
-           "library": f"torch.{'bmm' if batch else 'matmul'} f32, TF32 off"}
+           "library": ("torch.einsum" if per_head else
+                       f"torch.{'bmm' if batch else 'matmul'}")
+           + " f32, TF32 off"}
     if trans_a:
         row["copy_ms"] = device_only_ms(lambda i: a.contiguous(), reps)
     if policy == "tcec_bf16x6":
@@ -348,6 +391,111 @@ def matmul_case(name, M, N, K, dev, trans_b=False, copies=1, reps=5,
     del a, ws, bs, out, ref, tol, err
     torch.cuda.empty_cache()
     return row
+
+
+# Kernel 1's phase-2 rows: each at the shapes the main path gives it.
+# ``scripts/kernel1_rows.py`` times the same list on two checkouts.
+KERNEL1_CASES = [
+    dict(name="unembed at prefill (B*P=2*512)", M=1024, N=151936, K=1024,
+         trans_b=True, reps=3),
+    dict(name="mlp gate at prefill (B*P=2*512)", M=1024, N=3072, K=1024,
+         reps=20, plain_reps=5),
+    dict(name="mlp gate at decode (4 slots)", M=4, N=3072, K=1024, copies=8,
+         reps=40, plain_reps=10),
+    # the same product on each side of the path threshold (64)
+    dict(name="mlp gate at M 64 (path threshold 64)", M=64, N=3072, K=1024,
+         copies=8, reps=40, plain_reps=10),
+    dict(name="mlp gate at M 65 (path threshold 64)", M=65, N=3072, K=1024,
+         copies=8, reps=40, plain_reps=10),
+    dict(name="unembed at decode (4 slots)", M=4, N=151936, K=1024,
+         trans_b=True, reps=20, plain_reps=3),
+    dict(name="ragged 1000^3", M=1000, N=1000, K=1000, reps=10,
+         plain_reps=5),
+    # the backward of a training step at 8 x 128 tokens (phase 7): the
+    # weight gradients x^T . g read A transposed, the tied unembedding's
+    # input gradient g . E contracts over the vocabulary
+    dict(name="unembed dW at training (8x128)", M=1024, N=151936, K=1024,
+         trans_a=True, reps=3, plain_reps=1),
+    dict(name="unembed dx at training (8x128)", M=1024, N=1024, K=151936,
+         reps=3, plain_reps=1),
+    dict(name="mlp down dW at training (8x128)", M=3072, N=1024, K=1024,
+         trans_a=True, reps=20, plain_reps=5),
+    # granite-moe-1b-a400m's expert gate product (phase 8), a batch of 32
+    # experts: at decode (4 slots, capacity 4) and at the 2 x 512 prefill
+    # (8 groups of 128 tokens, capacity 40)
+    dict(name="expert gate at decode (4 slots), batch 32", M=4, N=512,
+         K=1024, batch=32, copies=2, reps=40, plain_reps=5),
+    dict(name="expert gate at 2x512 prefill, batch 32", M=320, N=512,
+         K=1024, batch=32, reps=20, plain_reps=3),
+    # the SSM and hybrid families (phase 9): mamba2-130m's SSD chunk
+    # products at 2 x 512 (chunks of 256, 24 heads of 64, state 128), the
+    # chunk state's A a transposed view; zamba2-1.2b's w_cat at decode
+    dict(name="mamba2 y_intra at 2x512, batch 48", M=256, N=64, K=256,
+         batch=48, reps=20, plain_reps=3),
+    dict(name="mamba2 chunk state at 2x512, batch 2, A^T", M=128, N=1536,
+         K=256, batch=2, trans_a=True, reps=20, plain_reps=3),
+    dict(name="zamba2 w_cat at decode (4 slots)", M=4, N=2048, K=4096,
+         copies=4, reps=40, plain_reps=5),
+    # zamba2's B, C and dt projections at decode: N 64 gives path S 4 blocks
+    dict(name="zamba2 B/C/dt projection at decode (4 slots), N 64", M=4,
+         N=64, K=2048, copies=128, reps=128, plain_reps=5),
+    # the enc-dec and VLM families (phase 10): seamless's untied
+    # unembedding at decode (N 256256, B read as stored, 1.05 GB) and
+    # internvl2's MLP gate at decode
+    dict(name="seamless unembed at decode (4 slots), N 256256", M=4,
+         N=256256, K=1024, reps=20, plain_reps=3),
+    dict(name="internvl2 mlp gate at decode (4 slots)", M=4, N=8192, K=2048,
+         copies=4, reps=40, plain_reps=10),
+    # phase 11b's qwen3-0.6b step at 1 x 16384: blocked attention's chunk
+    # products, a batch of B x Hkv = 8 (2 query heads of a KV head x 2048
+    # queries, 2048 keys, head_dim 128): the scores and dP = dO . V^T, P . V
+    # and dQ = dS . K, and the A^T gradient products dV = P^T . dO and
+    # dK = dS^T . Q; the MLP gate at M 16384 and the unembedding's weight
+    # gradient at K 16384 (x^T . g)
+    dict(name="blocked scores / dP at 1x16384, batch 8", M=4096, N=2048,
+         K=128, batch=8, reps=10, plain_reps=2),
+    dict(name="blocked P.V / dQ at 1x16384, batch 8", M=4096, N=128, K=2048,
+         batch=8, reps=10, plain_reps=2),
+    dict(name="blocked dV at 1x16384, batch 8, A^T", M=2048, N=128, K=4096,
+         batch=8, trans_a=True, reps=10, plain_reps=2),
+    dict(name="blocked dK at 1x16384, batch 8, A^T", M=128, N=2048, K=4096,
+         batch=8, trans_a=True, reps=10, plain_reps=2),
+    dict(name="mlp gate at 1x16384", M=16384, N=3072, K=1024, reps=5,
+         plain_reps=1),
+    dict(name="unembed dW at 1x16384, K 16384, A^T", M=1024, N=151936,
+         K=16384, trans_a=True, reps=3, plain_reps=1),
+    # phase 12's larger dense models: gemma-2b's tied unembedding at decode
+    # (N 256000, B^T: the 2.1 GB embedding read in place), qwen2.5-14b's
+    # MLP gate at decode and at the 2 x 512 prefill
+    dict(name="gemma-2b unembed at decode (4 slots), N 256000, B^T", M=4,
+         N=256000, K=2048, trans_b=True, reps=20, plain_reps=2),
+    dict(name="qwen2.5-14b mlp gate at decode (4 slots)", M=4, N=13824,
+         K=5120, reps=40, plain_reps=5),
+    dict(name="qwen2.5-14b mlp gate at prefill (B*P=2*512)", M=1024,
+         N=13824, K=5120, reps=10, plain_reps=2),
+    # and path W at the gemmas' 2 x 512 prefill: their tied unembeddings
+    # (N 256000, B^T) and gemma2-9b's MLP gate
+    dict(name="gemma-2b unembed at prefill (B*P=2*512), N 256000, B^T",
+         M=1024, N=256000, K=2048, trans_b=True, reps=3, plain_reps=1),
+    dict(name="gemma2-9b unembed at prefill (B*P=2*512), N 256000, B^T",
+         M=1024, N=256000, K=3584, trans_b=True, reps=3, plain_reps=1),
+    dict(name="gemma2-9b mlp gate at prefill (B*P=2*512)", M=1024, N=14336,
+         K=3584, reps=10, plain_reps=2),
+]
+# phase 13's deepseek-v3-671b: the experts' gate at decode (256 experts of
+# 7168 x 2048, 15.03 GB, streamed once), the absorbed decode's w_uk product
+# over 128 heads (B a per-head view of the (512, 128, 128) weight, read in
+# place: batch stride 128, columns 16384 apart), and wo at the 2 x 512
+# prefill (path W, K 16384)
+DEEPSEEK_KERNEL1_CASES = [
+    dict(name="deepseek expert gate at decode (4 slots), batch 256", M=4,
+         N=2048, K=7168, batch=256, reps=10, plain_reps=1),
+    dict(name="deepseek absorbed w_uk at decode (4 slots), batch 128, "
+         "per-head B", M=4, N=512, K=128, batch=128, per_head=True,
+         copies=4, reps=40, plain_reps=5),
+    dict(name="deepseek wo at prefill (B*P=2*512), K 16384", M=1024, N=7168,
+         K=16384, reps=10, plain_reps=2),
+]
 
 
 def matmul_epilogue_check(dev):
@@ -416,18 +564,19 @@ def attention_direct(q, k, v, dtype, causal=True, window=0, softcap=None):
 
 
 def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
-                   window=0, softcap=None, causal=True, T=None):
+                   window=0, softcap=None, causal=True, T=None, hdv=None):
     """Kernel 2 at (B, S) queries against T keys (default S; positions
-    from 0): against its plain version (1e-5 max|v|) and, for plain x6
-    attention, against f64 (the f32 gate); timed beside f32 SDPA where SDPA
-    computes the same function."""
+    from 0), value head dim ``hdv`` (default hd): against its plain version
+    (1e-5 max|v|) and, for plain x6 attention, against f64 (the f32 gate);
+    timed beside f32 SDPA where SDPA computes the same function."""
     from repro_torch.core import get_policy
     from repro_torch.kernels import tcec_attention as ta
     T = S if T is None else T
+    hdv = hd if hdv is None else hdv
     g = torch.Generator(device=dev).manual_seed(S + B + T)
     q = torch.randn(B, S, H, hd, generator=g, device=dev)
     k = torch.randn(B, T, Hkv, hd, generator=g, device=dev)
-    v = torch.randn(B, T, Hkv, hd, generator=g, device=dev)
+    v = torch.randn(B, T, Hkv, hdv, generator=g, device=dev)
     kw = dict(policy=policy, window=window, softcap=softcap, causal=causal)
     out = ta.tcec_attention(q, k, v, **kw)
     ref = ta.tcec_attention_plain(q, k, v, **kw)
@@ -459,11 +608,12 @@ def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
     if window:
         kept = kept & (d < window)
     pairs = int(kept.sum())
-    ops = pol.passes * 2 * (hd + hd) * pairs * H * B   # QK^T and PV products
-    nbytes = 4 * (2 * B * S * H * hd + 2 * B * T * Hkv * hd) + 4 * (S + T)
+    ops = pol.passes * 2 * (hd + hdv) * pairs * H * B  # QK^T and PV products
+    nbytes = 4 * (B * S * H * (hd + hdv) + B * T * Hkv * (hd + hdv)) + 4 * (
+        S + T)
     b_ms, by = bound(nbytes, ops, H100_BF16_OPS)
     row = {"kernel": "tcec_attention", "shape": name, "B": B, "S": S,
-           "T": T, "H": H, "Hkv": Hkv, "hd": hd, "policy": policy,
+           "T": T, "H": H, "Hkv": Hkv, "hd": hd, "hdv": hdv, "policy": policy,
            "causal": causal, "window": window,
            "window_binds": bool(window) and S > window, "softcap": softcap,
            "max_abs_err": err, "tolerance": "1e-5*max|v|", "tol": tol,
@@ -596,20 +746,42 @@ def paper_check(dev):
 
 # ------------------------------------------------------------ phase 4/5
 
-def serve_run(dev, arch, key):
-    """Phase 4 (8 for granite): the engine at the full width of ``arch``,
-    random weights from seed 0, the 8 greedy requests; the launch counts
-    are zeroed just before the run and read just after.  Then phase 4b on
-    the same weights.  Returns the launches, ``(cfg, model, params)`` and
-    the 64 tokens of phase 5 (drawn after the prompts); the rows go to
-    ``RECORD[key]``."""
+def forward_counts(cfg):
+    """Kernel launches of one engine prefill and of one decode step,
+    counted from the code.  Kernel 1: 4 products in a layer's attention (q,
+    k, v, o) or 7 with MLA (w_dq, w_uq, w_dkv, w_kr, w_uk and w_uv: at
+    decode absorbed, at prefill decompressing K and V; wo), 3 in its MLP or
+    experts (the router and the bf16 dispatch and combine are plain
+    products), 3 more in a shared expert, and the unembedding: 7L + 1 in
+    the dense family and granite, 10 n_dense + 13 n_moe + 1 in
+    deepseek-v3-671b.  Kernel 2 once a layer in a prefill; kernel 3 once a
+    layer in a decode step, none with MLA (its latent attend is three
+    plain bf16 products over a page gather)."""
+    from repro_torch.models.lm import stacks
+    k1 = 1 + sum(n * ((7 if cfg.use_mla else 4) + 3
+                      + (3 if moe and cfg.n_shared_experts else 0))
+                 for _, n, moe in stacks(cfg))
+    L = cfg.n_layers
+    return {"prefill": {"tcec_matmul": k1, "tcec_attention": L,
+                        "tcec_paged_attention": 0},
+            "decode": {"tcec_matmul": k1, "tcec_attention": 0,
+                       "tcec_paged_attention": 0 if cfg.use_mla else L}}
+
+
+def serve_run(dev, arch, key, cfg=None):
+    """Phase 4 (8 for granite, 12, 13): the engine at the full width of
+    ``arch`` (or at ``cfg``), random weights from seed 0, the 8 greedy
+    requests; the launch counts are zeroed just before the run and read
+    just after.  Then phase 4b on the same weights.  Returns the launches,
+    ``(cfg, model, params)`` and the 64 tokens of phase 5 (drawn after the
+    prompts); the rows go to ``RECORD[key]``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
                                      tcec_paged_attention as tp)
     from repro_torch.models import get_model
     from repro_torch.models.modules import param_count
     from repro_torch.serving import Engine, SamplingParams
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     model = get_model(cfg)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -648,6 +820,7 @@ def serve_run(dev, arch, key):
     stats = engine.stats()
     tokens = sum(len(v) for v in out.values())
     row = {"engine": f"{arch} full width, random weights (seed 0)",
+           "n_layers": cfg.n_layers,
            "params": param_count(params), "init_s": init_s,
            "requests": len(prompts), "prompt_lengths": lens,
            "max_tokens": 16, "max_slots": 4, "page_size": 16,
@@ -670,7 +843,10 @@ def serve_run(dev, arch, key):
           "layer + the largest leaf")
     check(all(v.finish_reason == "length" and len(v) == 16
               for v in out.values()), "every request finished with 16 tokens")
-    check(all(n > 0 for n in launches.values()), "every kernel launched")
+    counts = forward_counts(cfg)
+    check(all(launches[k] > 0 for k in launches
+              if counts["prefill"][k] or counts["decode"][k]),
+          "every kernel of the path launched")
     check(stats["prefills"] == 4 and stats["preemptions"] == 0,
           "four prefills of two prompts each: 2x512, 2x208, 2x64, 2x32")
     check(stats["decode_warmups"] == 1
@@ -678,17 +854,13 @@ def serve_run(dev, arch, key):
           and stats["sampler_replays"] == 0,
           "every decode step a replay of the graph captured after one "
           "warm-up step; all greedy, so no sampler replay")
-    L = cfg.n_layers
     # decode forwards: every step, plus the warm-up before the capture
     decodes = stats["decode_steps"] + stats["decode_warmups"]
-    check(launches["tcec_matmul"] == (7 * L + 1) * (stats["prefills"]
-                                                    + decodes),
-          "kernel 1: 7 products a layer (q, k, v, o and the MLP's or the "
-          "experts' three) + the unembed, every forward")
-    check(launches["tcec_attention"] == L * stats["prefills"],
-          "kernel 2: one launch a layer, every prefill")
-    check(launches["tcec_paged_attention"] == L * decodes,
-          "kernel 3: one launch a layer, every decode step")
+    row["launches_counted"] = {
+        k: counts["prefill"][k] * stats["prefills"]
+        + counts["decode"][k] * decodes for k in launches}
+    check(launches == row["launches_counted"], "launches of every prefill "
+          "and decode forward as counted (forward_counts)")
 
     torch.cuda.reset_peak_memory_stats()
     RECORD[key]["replay_vs_eager"] = replay_equals_eager(
@@ -907,8 +1079,9 @@ def profile_window(name, fn, top=8):
 
 
 def where_time_goes(dev, cfg, model, params, timed=32, steps=4, label=""):
-    """Phase 6 (and 8 with ``label``, which prefixes every window's
-    name); returns the timed window's row."""
+    """Phase 6 (and 8, 12 and 13 with ``label``, which prefixes every
+    window's name); returns the rows: ``step`` (the timed window),
+    ``decode`` (the profiled steps), ``graphs`` and ``prefill``."""
     from repro_torch.serving import Engine, SamplingParams
     RECORD.setdefault("profile", [])
     rng = np.random.default_rng(1)
@@ -959,9 +1132,9 @@ def where_time_goes(dev, cfg, model, params, timed=32, steps=4, label=""):
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).to(dev)
     with torch.no_grad():
         model.prefill(params, toks)     # warm
-        profile_window(f"{label}prefill 2 x 512",
-                       lambda: model.prefill(params, toks))
-    return step_row
+        pre = profile_window(f"{label}prefill 2 x 512",
+                             lambda: model.prefill(params, toks))
+    return {"step": step_row, "decode": prof, "graphs": row, "prefill": pre}
 
 
 # ------------------------------------------------------------ phase 7
@@ -1253,16 +1426,17 @@ def moe_path(dev):
     moe_layer_check(dev, cfg, params)
     del fast, plain
     RECORD["moe"]["decode"] = where_time_goes(dev, cfg, model, params,
-                                              label=f"{arch}: ")
+                                              label=f"{arch}: ")["step"]
     return launches
 
 
-def moe_layer_check(dev, cfg, params, B=2, S=512):
-    """8c: the first MoE layer's weights on identical random inputs (B, S,
-    d_model), through the kernels and under ``dispatch.use_plain()``: the
-    routes must be equal (the router and the bf16 dispatch and combine
-    products are plain products on both sides), kernel 1 launched 3 times
-    (gate, up, down) on the kernel side and never on the plain side, the
+def moe_layer_check(dev, cfg, params, B=2, S=512, key="moe"):
+    """8c (and 13c): the first MoE layer's weights on identical random
+    inputs (B, S, d_model), through the kernels and under
+    ``dispatch.use_plain()``: the routes must be equal (the router and the
+    bf16 dispatch and combine products are plain products on both sides),
+    kernel 1 launched 3 times (gate, up, down; 3 more for a shared expert)
+    on the kernel side and never on the plain side, the
     experts' f32 outputs (the down product, before the combine rounds them
     to bf16) within 8 F 2^-24 of their largest entry, the layer's output
     within 2^-8 of its largest entry, and the aux term equal.  The row
@@ -1300,10 +1474,11 @@ def moe_layer_check(dev, cfg, params, B=2, S=512):
            "aux": float(aux), "plain_aux": float(paux),
            "kernel_launches": n1 - n0, "plain_launches": n2 - n1}
     emit(row)
-    RECORD["moe"]["layer_check"] = row
+    RECORD[key]["layer_check"] = row
     check(same, "equal routes, positions and keep masks on both sides")
-    check((n1 - n0, n2 - n1) == (3, 0),
-          "kernel 1: 3 launches on the kernel side, none on the plain side")
+    expected = 6 if cfg.n_shared_experts else 3
+    check((n1 - n0, n2 - n1) == (expected, 0), f"kernel 1: {expected} "
+          "launches on the kernel side, none on the plain side")
     check(ye_rel <= ye_limit, "experts' f32 outputs vs plain within "
           "8 F 2^-24 of their largest entry")
     check(bool(torch.isfinite(y).all()) and row["max_rel_diff"] <= 2.0 ** -8,
@@ -1406,14 +1581,17 @@ def ssm_path(dev):
 
 
 def dense_run(dev, cfg, model, params, rec, per_step, weight_bytes, B=4,
-              P=64, gen=16):
-    """9a (and 10c): ``generate_dense``, B greedy prompts of P tokens,
+              P=64, gen=16, prefill=None):
+    """9a (and 10c, 13f): ``generate_dense``, B greedy prompts of P tokens,
     ``gen`` generated; the launch counts are zeroed before the run and read
-    after, and must be ``per_step`` a decode step.  Then the same run again
-    with every decode step timed to its synchronize.  The step's byte bound
-    is ``weight_bytes`` (what a step reads of the weights) with the cache
-    read and written once.  Returns the launches and the generated steps'
-    median."""
+    after, and must be ``per_step`` a decode step (the prompt fed through
+    ``decode_step`` a token at a time), or ``prefill`` for the prompt's one
+    forward and ``per_step`` a generated token where the model has a
+    prefill.  Then the same run again with every decode step timed to its
+    synchronize.  The step's byte bound is ``weight_bytes`` (what a step
+    reads of the weights) with the cache read and written once.  Returns
+    the launches and the generated steps' median; the tokens go to
+    ``rec["tokens"]``."""
     from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
                                      tcec_paged_attention as tp)
     from repro_torch.launch import serve
@@ -1429,7 +1607,8 @@ def dense_run(dev, cfg, model, params, rec, per_step, weight_bytes, B=4,
     launches = kernel_counts()
     with synced_times(model.module, "decode_step") as steps:
         again = serve.generate_dense(cfg, params, prompts, gen, device=dev)
-    gen_ms = steps[P:]                 # the steps after each drawn token
+    fed = P if model.prefill is None else 0   # prompt tokens fed one a step
+    gen_ms = steps[fed:]               # the steps after each drawn token
     cache = model.init_cache(B, P + gen + 1, device=dev)
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(cache))
@@ -1444,19 +1623,23 @@ def dense_run(dev, cfg, model, params, rec, per_step, weight_bytes, B=4,
            "p10_ms": float(np.percentile(gen_ms, 10)),
            "p90_ms": float(np.percentile(gen_ms, 90)),
            "min_ms": min(gen_ms), "max_ms": max(gen_ms),
-           "prompt_step_ms": float(np.median(steps[:P])),
+           "prompt_step_ms": float(np.median(steps[:P])) if fed else None,
            "step_bytes": step_bytes,
            "step_bound_ms": step_bytes / H100_BYTES_PER_S * 1e3,
            "launches": launches, "launches_per_step": per_step}
     emit(row)
     rec["generate_dense"] = row
-    check(len(steps) == P + gen, "one decode step a prompt and drawn token")
+    rec["tokens"] = out.tolist()
+    check(len(steps) == fed + gen, "one decode step a drawn token and, "
+          "without a prefill, a prompt token")
     check(out.shape == (B, gen) and out.min() >= 0
           and out.max() < cfg.vocab_size,
           f"every request yields {gen} tokens of the vocabulary")
     check(np.array_equal(out, again), "two greedy runs, the same tokens")
-    check(launches == {k: (P + gen) * n for k, n in per_step.items()},
-          f"{cfg.name}: launches of {P + gen} decode steps as counted")
+    check(launches == {k: (fed + gen) * n + (prefill or {}).get(k, 0)
+                       for k, n in per_step.items()},
+          f"{cfg.name}: launches of {fed + gen} decode steps (and the "
+          "prefill) as counted")
     return launches, row["decode_step_ms"]
 
 
@@ -2161,9 +2344,7 @@ def wide_vs_plain(cfg, model, params, key, B=2, S=512):
     dev = params["embed"].device
     rng = np.random.default_rng(3)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
-    L = cfg.n_layers
-    counts = {"tcec_matmul": 7 * L + 1, "tcec_attention": L,
-              "tcec_paged_attention": 0}
+    counts = forward_counts(cfg)["prefill"]
     with torch.no_grad():
         c0 = kernel_counts()
         before = torch.cuda.memory_allocated()
@@ -2216,6 +2397,320 @@ def wide_vs_plain(cfg, model, params, key, B=2, S=512):
     return plain_peak
 
 
+# ------------------------------------------------------------ phase 13
+
+DEEPSEEK = "deepseek-v3-671b"
+
+
+def deepseek_config():
+    """deepseek-v3-671b at full width, depth cut to 4 layers (3 dense MLA
+    layers and 1 MoE layer of 256 experts, top 8, a shared expert): 60.44
+    GB in f32 (the 61 layers are about 2.7 TB).  The MTP head is off:
+    serving never runs it, and it is a second 46 GB MoE layer."""
+    from repro_torch.configs import get_config
+    return get_config(DEEPSEEK).replace(n_layers=4, mtp=False)
+
+
+def deepseek_path(dev):
+    """Phase 13; returns (b)'s launches."""
+    from repro_torch.models.modules import param_count
+    key = "deepseek"
+    card = torch.cuda.get_device_properties(dev).total_memory
+    launches, (cfg, model, params), toks = serve_run(
+        dev, DEEPSEEK, key, deepseek_config())                 # (a), (b)
+    rec = RECORD[key]
+    mem = rec["engine"]["memory"]
+    check(mem["init_peak_gb"] <= mem["weights_gb"] + mem["largest_leaf_gb"],
+          "13a: init peak <= the weights + the largest leaf")
+    plain_peak = routed_logits_vs_plain(                        # (c)
+        cfg, lambda t: model.prefill(params, t)[0], toks, "64-token prefill",
+        rec)
+    toks2 = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 512))).to(dev)
+    plain_peak = max(plain_peak, routed_logits_vs_plain(
+        cfg, lambda t: model.forward_logits(params, t), toks2,
+        "forward_logits 2 x 512", rec, per_sequence=True))
+    del toks2
+    torch.cuda.reset_peak_memory_stats()
+    moe_layer_check(dev, cfg, params, key=key)
+    plain_peak = max(plain_peak, torch.cuda.max_memory_allocated())
+    weights_read_in_place(cfg, model, params, toks, rec)        # (d)
+    torch.cuda.reset_peak_memory_stats()
+    rows = where_time_goes(dev, cfg, model, params, timed=16,   # (e)
+                           steps=2, label=f"{DEEPSEEK}: ")
+    timed_peak = torch.cuda.max_memory_allocated()
+    # a decode step streams every weight but the embedding, which it only
+    # gathers (B rows of it)
+    streamed = tree_bytes(params) - params["embed"].nbytes
+    steps, step, prof = 2, rows["step"], rows["decode"]
+    k1_ms = prof["port_kernels"]["tcec_matmul"]["ms"] / steps
+    busy = prof["device_busy_ms"] / steps
+    row = {"deepseek_decode": f"{DEEPSEEK}, 4 layers at full width: decode "
+           "step at 4 slots and the 2 x 512 prefill",
+           "decode_step_ms": step["decode_step_ms"], "p10_ms": step["p10_ms"],
+           "p90_ms": step["p90_ms"], "device_busy_ms_per_step": busy,
+           "idle_share_of_median_step":
+               rows["graphs"]["idle_share_of_median_step"],
+           "kernel1_ms_per_step": k1_ms,
+           "kernel1_launches_per_step":
+               prof["port_kernels"]["tcec_matmul"]["count"] / steps,
+           "kernel1_share_of_busy": k1_ms / busy,
+           "streamed_weight_bytes": streamed,
+           "step_bound_ms": streamed / H100_BYTES_PER_S * 1e3,
+           "kernel1_stream_tb_s": streamed / (k1_ms * 1e-3) / 1e12,
+           "step_stream_tb_s": streamed / (step["decode_step_ms"] * 1e-3)
+           / 1e12,
+           "prefill_wall_ms": rows["prefill"]["wall_ms"],
+           "prefill_busy_ms": rows["prefill"]["device_busy_ms"]}
+    emit(row)
+    rec["decode"] = row
+    rec["params"] = param_count(params)
+    rec["init_s"] = rec["engine"]["init_s"]
+    counts = forward_counts(cfg)
+    engine_tokens_vs_dense(dev, cfg, model, params, rec, counts,     # (f)
+                           streamed + 4 * cfg.d_model * 4)
+    mem["plain_peak_gb"] = (plain_peak - mem["base_bytes"]) / 1e9
+    mem["phase_peak_gb"] = max(
+        mem["run_peak_gb"], mem["replay_peak_gb"], mem["plain_peak_gb"],
+        (timed_peak - mem["base_bytes"]) / 1e9)
+    mem["card_gb"] = card / 1e9
+    emit({"memory": DEEPSEEK, **mem})
+    check(mem["phase_peak_gb"] * 1e9 < card, f"{DEEPSEEK}: every peak "
+          "below the card's memory")
+    del params, model
+    torch.cuda.empty_cache()
+    mtp_on_the_card(dev, rec)                                   # (g)
+    return launches
+
+
+def routed_logits_vs_plain(cfg, forward, toks, what, rec, per_sequence=False):
+    """13c: ``forward(toks)``'s logits (toks (B, S)) through the kernels
+    against ``dispatch.use_plain()``, with phase 8's rule for moved routes:
+    each MoE layer's routes are recorded on both sides; a moved route
+    changes its token and, through attention, every later position of its
+    sequence, so each sequence is held to 1e-3 at the positions before its
+    first moved route, and the count of moved routes is reported.
+    ``per_sequence``: the plain side runs one sequence at a time, to keep
+    its term copies of each weight beside the 60 GB of weights; each
+    sequence is one routing group on both sides, so the routes are the
+    same function.  The kernel side launches as ``forward_counts`` counts
+    a prefill, the plain side nothing.  Returns the plain side's peak."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import layers
+    B, S = toks.shape
+    if per_sequence:
+        check(layers.group_size(B * S, cfg) == S, "one routing group a "
+              "sequence")
+    with recorded(layers, "moe_route", keep=lambda r: r["topi"]) as routes, \
+            torch.no_grad():
+        c0 = kernel_counts()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fast = forward(toks)
+        c1 = kernel_counts()
+        wall = (time.perf_counter() - t0) * 1e3
+        extra = torch.cuda.max_memory_allocated() - before
+        fast = fast.cpu()
+        n = len(routes)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with dispatch.use_plain():
+            plain = torch.cat([forward(t).cpu() for t in (
+                toks.split(1) if per_sequence else [toks])])
+        c2 = kernel_counts()
+        plain_wall = (time.perf_counter() - t0) * 1e3
+        plain_peak = torch.cuda.max_memory_allocated()
+    # each side's routes of each MoE layer, tokens in (B, S) order
+    calls = len(routes) - n
+    plain_routes = [torch.cat(routes[n + l::n]) for l in range(n)] \
+        if per_sequence else routes[n:]
+    moved, held = 0, [S] * B
+    for a, b in zip(routes[:n], plain_routes):
+        differ = (a.sort(-1).values != b.sort(-1).values).any(-1).reshape(-1)
+        moved += int(differ.sum())
+        for t in differ.nonzero()[:, 0].tolist():
+            held[t // S] = min(held[t // S], t % S)
+    diff = max((float((fast[i, :h] - plain[i, :h]).abs().max())
+                for i, h in enumerate(held) if h), default=0.0)
+    scale = max((float(plain[i, :h].abs().max())
+                 for i, h in enumerate(held) if h), default=1.0)
+    counts = forward_counts(cfg)["prefill"]
+    row = {"logits_check": f"{cfg.name}: {what}, kernels vs "
+           "dispatch.use_plain()"
+           + (" (one sequence at a time)" if per_sequence else ""),
+           "moved_routes": moved, "routed_tokens": B * S * n,
+           "positions_held": held,
+           "max_rel_diff_held": diff / scale, "limit": 1e-3,
+           "max_rel_diff_all": float((fast - plain).abs().max()
+                                     / plain.abs().max()),
+           "forward_ms": wall, "plain_forward_ms": plain_wall,
+           "kernel_launches": {k: c1[k] - c0[k] for k in c0},
+           "launches_counted": counts,
+           "plain_launches": {k: c2[k] - c1[k] for k in c0},
+           "kernel_extra_gb": extra / 1e9,
+           "plain_peak_allocated_gb": plain_peak / 1e9}
+    emit(row)
+    rec.setdefault("logits_checks", []).append(row)
+    from repro_torch.models.lm import stacks
+    check(n == sum(k for _, k, moe in stacks(cfg) if moe)
+          and calls == n * (B if per_sequence else 1),
+          "one routing a MoE layer (and sequence) on each side")
+    check(row["kernel_launches"] == counts, f"{what}: launches as counted")
+    check(not any(row["plain_launches"].values()),
+          "plain side: no kernel launch")
+    check(math.isfinite(row["max_rel_diff_held"])
+          and row["max_rel_diff_held"] <= 1e-3,
+          f"{what}: logits vs plain before the first moved route")
+    return plain_peak
+
+
+def weights_read_in_place(cfg, model, params, toks, rec):
+    """13d: during one decode step (4 slots) and one 4-token prefill
+    through the kernels, every kernel-1 launch reads its B from inside a
+    parameter leaf's own storage: the span of B (its first element to its
+    last, by its strides) lies within one leaf's bytes.  A copy of a weight,
+    of a per-head view of ``w_uk`` or ``w_uv`` say, fails."""
+    from repro_torch.kernels import tcec_matmul as tm
+    from repro_torch.models.modules import tree_leaves
+    dev = toks.device
+    spans = [(t.data_ptr(), t.data_ptr() + t.nbytes)
+             for t in tree_leaves(params)]
+    reads, launch = [], tm.launch
+
+    def spy(a, b, *rest):
+        lo = b.data_ptr()
+        hi = lo + b.element_size() * (1 + sum(
+            (n - 1) * st for n, st in zip(b.shape, b.stride())))
+        reads.append(any(s <= lo and hi <= e for s, e in spans))
+        return launch(a, b, *rest)
+
+    B, ps, maxp = 4, 16, 4
+    pools = model.init_paged_cache(1 + B * maxp, ps, device=dev)
+    bt = torch.arange(1, 1 + B * maxp, dtype=torch.int32,
+                      device=dev).reshape(B, maxp)
+    lengths = torch.tensor([3, 17, 40, 63], dtype=torch.int32, device=dev)
+    tm.launch = spy
+    try:
+        with torch.no_grad():
+            model.decode_step_paged(params, pools, bt, lengths, toks[0, :B])
+            at_decode = len(reads)
+            model.prefill(params, toks[:, :4])
+        torch.cuda.synchronize()
+    finally:
+        tm.launch = launch
+    counts = forward_counts(cfg)
+    row = {"weights_in_place": f"{cfg.name}: every kernel-1 launch of one "
+           "decode step (4 slots) and one 4-token prefill reads B inside a "
+           "parameter leaf", "decode_launches": at_decode,
+           "prefill_launches": len(reads) - at_decode,
+           "in_place": sum(reads), "copied": len(reads) - sum(reads)}
+    emit(row)
+    rec["weights_in_place"] = row
+    check(at_decode == counts["decode"]["tcec_matmul"]
+          and len(reads) - at_decode == counts["prefill"]["tcec_matmul"],
+          "13d: the step's and the prefill's kernel-1 launches as counted")
+    check(all(reads), "13d: every kernel-1 launch reads B in place")
+
+
+def engine_tokens_vs_dense(dev, cfg, model, params, rec, counts, weights):
+    """13f: ``generate_dense`` over the MLA dense cache (9a's run: 4 greedy
+    prompts of 64 tokens, 16 generated; the prompts prefill in one
+    forward), then the engine on the same prompts: how many tokens are
+    equal is reported, with no gate (the two attend over caches of other
+    lengths, so their masked reductions differ in order)."""
+    from repro_torch.serving import Engine, SamplingParams
+    dense_run(dev, cfg, model, params, rec, counts["decode"], weights,
+              prefill=counts["prefill"])
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 64))
+    engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 6,
+                    page_size=16, max_pages_per_slot=6, device=dev)
+    rids = [engine.add_request(p, SamplingParams(max_tokens=16))
+            for p in prompts]
+    out = engine.run()
+    got = [list(out[r]) for r in rids]
+    same = sum(a == b for g, d in zip(got, rec["tokens"])
+               for a, b in zip(g, d))
+    row = {"engine_vs_generate_dense": f"{cfg.name}: the engine on "
+           "generate_dense's 4 prompts of 64 tokens, 16 greedy tokens each",
+           "equal_tokens": same, "tokens": 4 * 16,
+           "equal_requests": sum(g == d for g, d in zip(got, rec["tokens"]))}
+    emit(row)
+    rec["engine_vs_generate_dense"] = row
+
+
+def mtp_on_the_card(dev, rec):
+    """13g: the MTP head at deepseek-v3-671b's smoke config (3 layers,
+    d_model 64, 4 experts top 2, mtp on): ``loss_fn`` and its gradients
+    through the kernels against ``dispatch.use_plain()`` (phase 7b's
+    rule: the loss, the MTP loss, the gradient norm and the worst leaf
+    within 1e-3), the routes recorded on both sides; the kernel side
+    launches kernels 1 and 2, the plain side neither."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import get_model, layers
+    from repro_torch.models.modules import tree_leaves, tree_map
+    cfg = get_smoke_config(DEEPSEEK)
+    model = get_model(cfg)
+    params = model.init(seed=0, device=dev)
+    batch = device_batch(cfg, DataConfig(seed=1, global_batch=4, seq_len=32),
+                         0, dev)
+
+    def loss_and_grads():
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, met = model.loss_fn(p, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        return {k: float(v.detach()) for k, v in met.items()}, grads
+
+    with recorded(layers, "moe_route", keep=lambda r: r["topi"]) as routes:
+        c0 = kernel_counts()
+        met, grads = loss_and_grads()
+        c1 = kernel_counts()
+        n = len(routes)
+        with dispatch.use_plain():
+            pmet, pgrads = loss_and_grads()
+        c2 = kernel_counts()
+    moved = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(routes[:n], routes[n:]))
+    norm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    pnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in pgrads)))
+    def paths(tree, at=""):
+        if isinstance(tree, dict):
+            return [q for k, v in tree.items() for q in paths(v, f"{at}/{k}")]
+        return [at]
+
+    names = paths(params)
+    leaves = [float((g - q).abs().max() / q.abs().max())
+              for g, q in zip(grads, pgrads)]
+    worst = max(range(len(leaves)), key=leaves.__getitem__)
+    row = {"mtp_check": f"{cfg.name} smoke (mtp on), 4 x 32: loss_fn + "
+           "backward, kernels vs dispatch.use_plain()",
+           "loss": met["loss"], "plain_loss": pmet["loss"],
+           "mtp_loss": met["mtp_loss"], "plain_mtp_loss": pmet["mtp_loss"],
+           "loss_rel_diff": abs(met["loss"] - pmet["loss"]) / abs(
+               pmet["loss"]),
+           "mtp_loss_rel_diff": abs(met["mtp_loss"] - pmet["mtp_loss"])
+           / abs(pmet["mtp_loss"]),
+           "grad_norm_rel_diff": abs(norm - pnorm) / pnorm,
+           "worst_leaf_rel_diff": leaves[worst],
+           "worst_leaf": names[worst], "moved_routes": moved,
+           "routings": n, "tolerance": "1e-3 each",
+           "kernel_launches": {k: c1[k] - c0[k] for k in c0},
+           "plain_launches": {k: c2[k] - c1[k] for k in c0}}
+    emit(row)
+    rec["mtp_check"] = row
+    check(len(routes) == 2 * n and moved == 0, "13g: equal routes")
+    check(row["kernel_launches"]["tcec_matmul"] > 0
+          and row["kernel_launches"]["tcec_attention"] > 0,
+          "13g: the kernel side runs kernels 1 and 2")
+    check(not any(row["plain_launches"].values()),
+          "13g: plain side: no kernel launch")
+    for k in ("loss_rel_diff", "mtp_loss_rel_diff", "grad_norm_rel_diff",
+              "worst_leaf_rel_diff"):
+        check(row[k] <= 1e-3, f"13g: {k} <= 1e-3")
+
+
 def paper_numerics(dev):
     """Phase 11: (a) the Fig. 11 battery, (b) the long-sequence path."""
     a = fig11_battery(dev)
@@ -2252,91 +2747,12 @@ def main():
         f"== {k}\n{v}" for k, v in _build.build_logs.items()))
 
     # phase 2: every kernel at its main-path shapes, plus a ragged one
-    k1 = matmul_case("unembed at prefill (B*P=2*512)", 1024, 151936, 1024,
-                     dev, trans_b=True, reps=3)
-    matmul_case("mlp gate at prefill (B*P=2*512)", 1024, 3072, 1024, dev,
-                reps=20, plain_reps=5)
-    matmul_case("mlp gate at decode (4 slots)", 4, 3072, 1024, dev,
-                copies=8, reps=40, plain_reps=10)
-    # the same product on each side of the path threshold
-    last_s = tm.skinny_max()
-    for m in (last_s, last_s + 1):
-        matmul_case(f"mlp gate at M {m} (path threshold {last_s})", m, 3072,
-                    1024, dev, copies=8, reps=40, plain_reps=10)
-    matmul_case("unembed at decode (4 slots)", 4, 151936, 1024, dev,
-                trans_b=True, reps=20, plain_reps=3)
-    matmul_case("ragged 1000^3", 1000, 1000, 1000, dev, reps=10,
-                plain_reps=5)
-    # the backward of a training step at 8 x 128 tokens (phase 7): the
-    # weight gradients x^T . g read A transposed, the tied unembedding's
-    # input gradient g . E contracts over the vocabulary
-    matmul_case("unembed dW at training (8x128)", 1024, 151936, 1024, dev,
-                trans_a=True, reps=3, plain_reps=1)
-    matmul_case("unembed dx at training (8x128)", 1024, 1024, 151936, dev,
-                reps=3, plain_reps=1)
-    matmul_case("mlp down dW at training (8x128)", 3072, 1024, 1024, dev,
-                trans_a=True, reps=20, plain_reps=5)
-    # granite-moe-1b-a400m's expert gate product (phase 8), a batch of 32
-    # experts: at decode (4 slots, capacity 4) and at the 2 x 512 prefill
-    # (8 groups of 128 tokens, capacity 40)
-    matmul_case("expert gate at decode (4 slots), batch 32", 4, 512, 1024,
-                dev, batch=32, copies=2, reps=40, plain_reps=5)
-    matmul_case("expert gate at 2x512 prefill, batch 32", 320, 512, 1024,
-                dev, batch=32, reps=20, plain_reps=3)
-    # the SSM and hybrid families (phase 9): mamba2-130m's SSD chunk
-    # products at 2 x 512 (chunks of 256, 24 heads of 64, state 128), the
-    # chunk state's A a transposed view; zamba2-1.2b's w_cat at decode
-    matmul_case("mamba2 y_intra at 2x512, batch 48", 256, 64, 256, dev,
-                batch=48, reps=20, plain_reps=3)
-    matmul_case("mamba2 chunk state at 2x512, batch 2, A^T", 128, 1536, 256,
-                dev, batch=2, trans_a=True, reps=20, plain_reps=3)
-    matmul_case("zamba2 w_cat at decode (4 slots)", 4, 2048, 4096, dev,
-                copies=4, reps=40, plain_reps=5)
-    # zamba2's B, C and dt projections at decode: N 64 gives path S 4 blocks
-    matmul_case("zamba2 B/C/dt projection at decode (4 slots), N 64", 4, 64,
-                2048, dev, copies=128, reps=128, plain_reps=5)
-    # the enc-dec and VLM families (phase 10): seamless's untied
-    # unembedding at decode (N 256256, B read as stored, 1.05 GB) and
-    # internvl2's MLP gate at decode
-    matmul_case("seamless unembed at decode (4 slots), N 256256", 4, 256256,
-                1024, dev, reps=20, plain_reps=3)
-    matmul_case("internvl2 mlp gate at decode (4 slots)", 4, 8192, 2048, dev,
-                copies=4, reps=40, plain_reps=10)
-    # phase 11b's qwen3-0.6b step at 1 x 16384: blocked attention's chunk
-    # products, a batch of B x Hkv = 8 (2 query heads of a KV head x 2048
-    # queries, 2048 keys, head_dim 128): the scores and dP = dO . V^T, P . V
-    # and dQ = dS . K, and the A^T gradient products dV = P^T . dO and
-    # dK = dS^T . Q; the MLP gate at M 16384 and the unembedding's weight
-    # gradient at K 16384 (x^T . g)
-    matmul_case("blocked scores / dP at 1x16384, batch 8", 4096, 2048, 128,
-                dev, batch=8, reps=10, plain_reps=2)
-    matmul_case("blocked P.V / dQ at 1x16384, batch 8", 4096, 128, 2048,
-                dev, batch=8, reps=10, plain_reps=2)
-    matmul_case("blocked dV at 1x16384, batch 8, A^T", 2048, 128, 4096, dev,
-                batch=8, trans_a=True, reps=10, plain_reps=2)
-    matmul_case("blocked dK at 1x16384, batch 8, A^T", 128, 2048, 4096, dev,
-                batch=8, trans_a=True, reps=10, plain_reps=2)
-    matmul_case("mlp gate at 1x16384", 16384, 3072, 1024, dev, reps=5,
-                plain_reps=1)
-    matmul_case("unembed dW at 1x16384, K 16384, A^T", 1024, 151936, 16384,
-                dev, trans_a=True, reps=3, plain_reps=1)
-    # phase 12's larger dense models: gemma-2b's tied unembedding at decode
-    # (N 256000, B^T: the 2.1 GB embedding read in place), qwen2.5-14b's
-    # MLP gate at decode and at the 2 x 512 prefill
-    matmul_case("gemma-2b unembed at decode (4 slots), N 256000, B^T", 4,
-                256000, 2048, dev, trans_b=True, reps=20, plain_reps=2)
-    matmul_case("qwen2.5-14b mlp gate at decode (4 slots)", 4, 13824, 5120,
-                dev, reps=40, plain_reps=5)
-    matmul_case("qwen2.5-14b mlp gate at prefill (B*P=2*512)", 1024, 13824,
-                5120, dev, reps=10, plain_reps=2)
-    # and path W at the gemmas' 2 x 512 prefill: their tied unembeddings
-    # (N 256000, B^T) and gemma2-9b's MLP gate
-    matmul_case("gemma-2b unembed at prefill (B*P=2*512), N 256000, B^T",
-                1024, 256000, 2048, dev, trans_b=True, reps=3, plain_reps=1)
-    matmul_case("gemma2-9b unembed at prefill (B*P=2*512), N 256000, B^T",
-                1024, 256000, 3584, dev, trans_b=True, reps=3, plain_reps=1)
-    matmul_case("gemma2-9b mlp gate at prefill (B*P=2*512)", 1024, 14336,
-                3584, dev, reps=10, plain_reps=2)
+    check(tm.path(64) == "skinny" and tm.path(65) == "wgmma",
+          "the M 64 / 65 rows straddle the path threshold")
+    k1 = None
+    for case in KERNEL1_CASES + DEEPSEEK_KERNEL1_CASES:
+        row = matmul_case(dev=dev, **case)
+        k1 = k1 or row
     matmul_epilogue_check(dev)
     # kernel 2 at the engine's four prefill shapes, then x10 with a softcap
     # and a window (ragged: 150 is a multiple of neither key tile)
@@ -2377,6 +2793,10 @@ def main():
                    policy="tcec_bf16x10")
     attention_case("qwen2.5-14b prefill 2x512, 40/8 heads", 2, 512, 40, 8,
                    128, dev)
+    # phase 13: deepseek-v3-671b's MLA prefill, qk head dim 192 (nope 128 +
+    # rope 64: the 256 instantiation) beside a v head dim of 128
+    attention_case("deepseek MLA prefill 2x512, 128/128 heads, hd 192, "
+                   "hdv 128", 2, 512, 128, 128, 192, dev, hdv=128)
     k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
                     40, dev)
     paged_case("decode 4 slots, hd 64", [520, 520, 208, 208], 16, 8, 64, 16,
@@ -2404,6 +2824,7 @@ def main():
     encdec_launches = encdec_vlm_path(dev)         # phase 10
     numerics_launches = paper_numerics(dev)        # phase 11
     large_launches = large_dense(dev)              # phase 12
+    deepseek_launches = deepseek_path(dev)         # phase 13
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -2418,7 +2839,7 @@ def main():
             "launches": launches[name] + train_launches.get(name, 0)
             + moe_launches[name] + ssm_launches[name]
             + encdec_launches[name] + numerics_launches[name]
-            + large_launches[name],
+            + large_launches[name] + deepseek_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

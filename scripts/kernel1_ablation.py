@@ -136,7 +136,8 @@ def crossing(libs, dev, stream):
             for path, fn in fns.items():
                 ms = device_only_ms(lambda i: fn(
                     a.data_ptr(), ws[i % copies].data_ptr(), None,
-                    c.data_ptr(), 1, M, N, K, int(tb), 3, 8, 1.0, 0, stream),
+                    c.data_ptr(), 1, M, N, K, int(tb), 0, K if tb else N,
+                    3, 8, 1.0, 0, stream),
                     max(10, 2 * copies))
                 row[f"{name} {path}_ms"] = ms
                 total[path] += per_forward * ms
@@ -179,7 +180,7 @@ def main():
         w = torch.randn((N, K) if tb else (K, N), device=dev)
         c = torch.empty(M, N, device=dev)
         args = (a.data_ptr(), w.data_ptr(), None, c.data_ptr(), 1, M, N, K,
-                int(tb), 3, 8, 1.0, 0, stream)
+                int(tb), 0, K if tb else N, 3, 8, 1.0, 0, stream)
         row = {"shape": name, "M": M, "N": N, "K": K, "policy": "tcec_bf16x6"}
         for v in VARIANTS:
             fn = ctypes.CDLL(str(libs[v])).tcec_matmul_launch

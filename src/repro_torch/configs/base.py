@@ -133,6 +133,6 @@ def list_archs() -> list[str]:
 def _ensure_loaded():
     if _REGISTRY:
         return
-    from . import (gemma2_9b, gemma_2b, granite_moe_1b,  # noqa: F401
-                   internvl2_2b, mamba2_130m, qwen2_5_14b, qwen3_0_6b,
-                   seamless_m4t_large_v2, zamba2_1_2b)
+    from . import (deepseek_v3_671b, gemma2_9b, gemma_2b,  # noqa: F401
+                   granite_moe_1b, internvl2_2b, mamba2_130m, qwen2_5_14b,
+                   qwen3_0_6b, seamless_m4t_large_v2, zamba2_1_2b)

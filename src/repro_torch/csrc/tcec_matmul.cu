@@ -1,7 +1,11 @@
 // TCEC GEMM for Hopper: an f32-accurate matrix product from bf16
 // tensor-core products, act(fold(sum_g acc_g) out_scale + bias), for 2-D and
 // batched operands, B as (K, N) or read in place as (N, K) (trans_b), any M,
-// N and K (masked, never padded), 2, 3 or 4 terms (x3, x6, x10).
+// N and K (masked, never padded), 2, 3 or 4 terms (x3, x6, x10).  B is read
+// through a batch stride and a row stride, so any B whose rows are
+// contiguous is read where it lies: a contiguous (K, N) or (N, K) tensor,
+// and a per-head view of a weight stored (K, H, N) or (N, H, K) (MLA's
+// absorbed products: batch stride N or K, row stride H N or H K).
 //
 // Replaces the TPU kernel src/repro/kernels/tcec_matmul.py::_kernel (:69,
 // helper _split_tile), launched there by tcec_matmul_pallas (:208).
@@ -112,7 +116,8 @@ __host__ __device__ constexpr int term_i(int p) {
 }
 
 typedef void (*Kernel)(const float*, const float*, const float*, float*, int,
-                       int, int, int, float, float, float, int);
+                       int, int, long long, int, int, float, float, float,
+                       int);
 
 // The epilogue of one output element: fold, out_scale, bias, activation.
 template <int NS, class Get>
@@ -197,23 +202,24 @@ __device__ __forceinline__ void split_tile(const float* src, int ld,
   }
 }
 
-// Copy the ROWS x COLS f32 tile at (r0, c0) of a row-major matrix (R, Cn)
-// into a staging tile with rows ld floats apart; what lies outside is zero.
+// Copy the ROWS x COLS f32 tile at (r0, c0) of a matrix (R, Cn) whose rows
+// lie lds floats apart into a staging tile with rows ld floats apart; what
+// lies outside is zero.
 template <int ROWS, int COLS>
 __device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src,
-                                          int R, int Cn, int r0, int c0,
-                                          int vec, int tid) {
+                                          int R, int Cn, long long lds, int r0,
+                                          int c0, int vec, int tid) {
   if (vec) {
     // thread t copies 16-byte column t % CH of rows t / CH + STEP i
     constexpr int CH = COLS / 4, STEP = PRODUCER / CH;
     const int ch = tid % CH, r = tid / CH, gc = c0 + 4 * ch;
-    const float* s = src + (long long)(r0 + r) * Cn + gc;
+    const float* s = src + (r0 + r) * lds + gc;
     float* d = dst + r * ld + 4 * ch;
 #pragma unroll
     for (int it = 0; it < ROWS / STEP; ++it) {
       const bool ok = r0 + r + STEP * it < R && gc < Cn;
       cp_async16_zfill(d + STEP * it * ld, ok ? s : src, ok ? 16 : 0);
-      s += (long long)STEP * Cn;
+      s += STEP * lds;
     }
   } else {
 #pragma unroll 4
@@ -222,7 +228,7 @@ __device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src,
       const int gr = r0 + r, gc = c0 + e;
       const bool ok = gr < R && gc < Cn;
       cp_async4_zfill(dst + r * ld + e,
-                      ok ? src + (long long)gr * Cn + gc : src, ok ? 4 : 0);
+                      ok ? src + gr * lds + gc : src, ok ? 4 : 0);
     }
   }
 }
@@ -233,12 +239,13 @@ __device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src,
 template <int NS, int TB>
 __device__ __forceinline__ void produce(unsigned char* smem, const float* A,
                                         const float* B, int M, int N, int K,
-                                        int vec, float scale) {
+                                        long long sb, int ldb, int vec,
+                                        float scale) {
   using L = Layout<NS>;
   const int tid = threadIdx.x;
   const long long z = blockIdx.z;
   A += z * M * K;
-  B += z * K * N;
+  B += z * sb;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int nst = (K + BK - 1) / BK;
   auto copy = [&](int s) {
@@ -246,11 +253,11 @@ __device__ __forceinline__ void produce(unsigned char* smem, const float* A,
       float* fa = reinterpret_cast<float*>(smem + (s % DEPTH) * L::SLOT);
       float* fb = fa + L::A_F32 / 4;
       const int k0 = s * BK;
-      copy_tile<BM, BK>(fa, LDA, A, M, K, m0, k0, vec, tid);
+      copy_tile<BM, BK>(fa, LDA, A, M, K, K, m0, k0, vec, tid);
       if (TB)
-        copy_tile<BN, BK>(fb, LDT, B, N, K, n0, k0, vec, tid);
+        copy_tile<BN, BK>(fb, LDT, B, N, K, ldb, n0, k0, vec, tid);
       else
-        copy_tile<BK, BN>(fb, LDB, B, K, N, k0, n0, vec, tid);
+        copy_tile<BK, BN>(fb, LDB, B, K, N, ldb, k0, n0, vec, tid);
     }
     cp_async_commit();
   };
@@ -282,8 +289,8 @@ template <int NS, int TB>
 __global__ void __launch_bounds__(THREADS, 1)
 wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
             const float* __restrict__ bias, float* __restrict__ C, int M,
-            int N, int K, int vec, float scale, float inv, float out_scale,
-            int activation) {
+            int N, int K, long long sb, int ldb, int vec, float scale,
+            float inv, float out_scale, int activation) {
   using L = Layout<NS>;
   constexpr int NP = L::NP, KSUB = L::KSUB;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -291,7 +298,7 @@ wide_kernel(const float* __restrict__ A, const float* __restrict__ B,
   // setmaxnreg would be spilled.
   if (threadIdx.x < PRODUCER) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    produce<NS, TB>(smem, A, B, M, N, K, vec, scale);
+    produce<NS, TB>(smem, A, B, M, N, K, sb, ldb, vec, scale);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
@@ -428,8 +435,8 @@ template <int NS, int TB>
 __global__ void __launch_bounds__(THREADS, min_blocks(TB))
 skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
               const float* __restrict__ bias, float* __restrict__ C, int M,
-              int N, int K, int vec, float scale, float inv, float out_scale,
-              int activation) {
+              int N, int K, long long sb, int ldb, int vec, float scale,
+              float inv, float out_scale, int activation) {
   constexpr int NP = NS * (NS + 1) / 2;
   constexpr int WF = weight_floats(TB);
   extern __shared__ __align__(128) float sm[];
@@ -438,7 +445,7 @@ skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int groups = (M + SLOTS - 1) / SLOTS;
   const int m0 = SLOTS * (blockIdx.x % groups), MS = min(SLOTS, M - m0);
   A += (z * M + m0) * K;
-  B += z * K * N;
+  B += z * sb;
   C += (z * M + m0) * N;
   const int n0 = blockIdx.x / groups * BN, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -463,7 +470,7 @@ skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
             dst = w + (c / CN) * LDW_N + 4 * (c % CN);
           }
           const bool ok = gn < N && gk < K;
-          const float* src = TB ? B + (long long)gn * K + gk : B + (long long)gk * N + gn;
+          const float* src = TB ? B + (long long)gn * ldb + gk : B + (long long)gk * ldb + gn;
           cp_async16_zfill(dst, ok ? src : B, ok ? 16 : 0);
         }
         for (int c = tid; c < MS * CK; c += THREADS) {
@@ -484,7 +491,7 @@ skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
             dst = w + (c / BN) * LDW_N + c % BN;
           }
           const bool ok = gn < N && gk < K;
-          const float* src = TB ? B + (long long)gn * K + gk : B + (long long)gk * N + gn;
+          const float* src = TB ? B + (long long)gn * ldb + gk : B + (long long)gk * ldb + gn;
           cp_async4_zfill(dst, ok ? src : B, ok ? 4 : 0);
         }
         for (int c = tid; c < MS * BKS; c += THREADS) {
@@ -647,24 +654,28 @@ Plan plan(int M, int N, int batch, int tb, int n_splits) {
 
 }  // namespace
 
+// B's element (z, k, n) lies at b[z sb + k ldb + n], or with trans_b at
+// b[z sb + n ldb + k]: a contiguous B has ldb N (K with trans_b) and sb K N.
 extern "C" int tcec_matmul_launch(const void* a, const void* b,
                                   const void* bias, void* c, int batch, int M,
-                                  int N, int K, int trans_b, int n_splits,
-                                  int scale_bits, float out_scale,
-                                  int activation, void* stream) {
+                                  int N, int K, int trans_b, long long sb,
+                                  int ldb, int n_splits, int scale_bits,
+                                  float out_scale, int activation,
+                                  void* stream) {
   const Plan p = plan(M, N, batch, trans_b, n_splits);
   if (p.kernel == nullptr) return cudaErrorInvalidValue;
   const cudaError_t err = prepare(p);
   if (err != cudaSuccess) return err;
   // 16-byte copies need every row of A and B to start 16-byte aligned
-  const int vec = K % 4 == 0 && (trans_b || N % 4 == 0) &&
+  const int vec = K % 4 == 0 && (trans_b || N % 4 == 0) && ldb % 4 == 0 &&
+                  sb % 4 == 0 &&
                   ((reinterpret_cast<uintptr_t>(a) |
                     reinterpret_cast<uintptr_t>(b)) & 15) == 0;
   p.kernel<<<p.grid, p.threads, p.bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(bias), static_cast<float*>(c), M, N, K, vec,
-      ldexpf(1.0f, scale_bits), ldexpf(1.0f, -scale_bits), out_scale,
-      activation);
+      static_cast<const float*>(bias), static_cast<float*>(c), M, N, K, sb,
+      ldb, vec, ldexpf(1.0f, scale_bits), ldexpf(1.0f, -scale_bits),
+      out_scale, activation);
   return cudaGetLastError();
 }
 

@@ -41,7 +41,7 @@ import threading
 from repro_torch.core.policy import PrecisionPolicy, get_policy
 from . import ops
 from .tcec_attention import tcec_attention, tcec_attention_plain
-from .tcec_matmul import takes_policy, tcec_matmul_plain
+from .tcec_matmul import b_layout, takes_policy, tcec_matmul_plain
 from .tcec_paged_attention import (tcec_paged_attention,
                                    tcec_paged_attention_plain)
 
@@ -80,8 +80,10 @@ def _canonicalize(a, b, dims):
 
     Returns ``(a3, b3, out_shape)``; ``out_shape`` restores the
     ``(batch..., lhs free..., rhs free...)`` layout of ``dot_general``.  ``b``
-    keeps a transposed view when that is what it is (the tied unembedding),
-    since the kernel reads a transposed B in place.
+    stays a view wherever its rows or its columns are contiguous, since the
+    kernel reads such a B in place (``tcec_matmul.b_layout``): the tied
+    unembedding's transposed table, and MLA's per-head views of ``w_uk``
+    and ``w_uv`` at decode (batch stride k, row stride h k).
     """
     (ca, cb), (ba, bb) = dims
     am = [d for d in range(a.ndim) if d not in ca and d not in ba]
@@ -100,7 +102,7 @@ def _canonicalize(a, b, dims):
         at = at.reshape(M, K)
         bt = bt.reshape(K, N)
     at = at.contiguous()
-    if not (bt.is_contiguous() or bt.transpose(-1, -2).is_contiguous()):
+    if b_layout(bt) is None:
         bt = bt.contiguous()
     return at, bt, tuple(bsh) + tuple(msh) + tuple(nsh)
 

@@ -63,7 +63,9 @@ def check_policy(policy: PrecisionPolicy) -> None:
 
 
 def split_tile(x: torch.Tensor, n_splits: int, scale_bits: int):
-    """Split an f32 tensor into ``n_splits`` bf16 terms (Eqs. 19-22)."""
+    """Split an f32 tensor into ``n_splits`` bf16 terms (Eqs. 19-22).  The
+    residual is one f32 tensor beside ``x``, updated in place (a bf16 term
+    is subtracted exactly, upcast by type promotion)."""
     scale = 2.0 ** scale_bits
     parts = []
     r = x
@@ -71,7 +73,8 @@ def split_tile(x: torch.Tensor, n_splits: int, scale_bits: int):
         a = r.to(torch.bfloat16)
         parts.append(a)
         if i + 1 < n_splits:
-            r = (r - a.float()) * scale
+            r = (r - a) if r is x else r.sub_(a)
+            r.mul_(scale)
     return parts
 
 
@@ -93,37 +96,88 @@ def epilogue(out, bias=None, activation=None, out_scale: float = 1.0):
     return EPILOGUE_ACTIVATIONS[activation](out)
 
 
+# The most bytes of f32 term copies of B that the plain version holds at
+# once: a larger batched B is taken a slice of its batch at a time (a
+# deepseek-v3-671b expert stack is 15 GB, its three copies 45 GB).
+PLAIN_CHUNK_BYTES = 2 * 2 ** 30
+
+
 def tcec_matmul_plain(a, b, policy="tcec_bf16x6", bias=None, activation=None,
                       out_scale: float = 1.0):
     """Kernel 1's function in plain PyTorch: ``(M, K) @ (K, N)`` or batched
-    ``(B, M, K) @ (B, K, N)`` -> f32, with the fused epilogue."""
+    ``(B, M, K) @ (B, K, N)`` -> f32, with the fused epilogue.  A batched
+    product whose B terms would pass ``PLAIN_CHUNK_BYTES`` is taken in
+    slices of the batch, bit for bit the same products."""
     pol = get_policy(policy)
     check_policy(pol)
-    sa = [t.float() for t in split_tile(a.float(), pol.n_splits,
-                                        pol.scale_bits)]
-    sb = [t.float() for t in split_tile(b.float(), pol.n_splits,
-                                        pol.scale_bits)]
-    parts: dict[int, torch.Tensor] = {}
-    for (i, j) in pol.keep:
-        t = torch.matmul(sa[i], sb[j])
-        g = i + j
-        parts[g] = t if g not in parts else parts[g] + t
-    out = fold([parts[g] for g in pol.groups], pol.scale_bits)
+    step = b.shape[0]
+    if a.ndim == 3 and b.ndim == 3 and b.numel():
+        step = max(1, PLAIN_CHUNK_BYTES // (pol.n_splits * 4 * b[0].numel()))
+    if step >= b.shape[0]:
+        out = _plain(a, b, pol)
+    else:
+        out = torch.empty((*a.shape[:-1], b.shape[-1]), dtype=torch.float32,
+                          device=a.device)
+        for i in range(0, b.shape[0], step):
+            out[i:i + step] = _plain(a[i:i + step], b[i:i + step], pol)
+    # the epilogue once over the whole: its activations are not bitwise
+    # the same on slices of another length
     return epilogue(out, bias, activation, out_scale)
 
 
-# a, b, bias, c; batch, M, N, K, trans_b, n_splits, scale_bits; out_scale;
-# activation; stream
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+def _plain(a, b, pol):
+    """The folded product: each kept term product as an f32 ``matmul`` of
+    the upcast terms, summed per group in ``keep`` order.  B's terms are
+    kept in bf16 and upcast one at a time."""
+    sa = [t.float() for t in split_tile(a.float(), pol.n_splits,
+                                        pol.scale_bits)]
+    tb = split_tile(b.float(), pol.n_splits, pol.scale_bits)
+    prods = {}
+    for j in range(pol.n_splits):
+        bj = tb[j].float()
+        for (i, jj) in pol.keep:
+            if jj == j:
+                prods[i, j] = torch.matmul(sa[i], bj)
+        del bj
+    parts: dict[int, torch.Tensor] = {}
+    for (i, j) in pol.keep:
+        t = prods.pop((i, j))
+        g = i + j
+        parts[g] = t if g not in parts else parts[g] + t
+    return fold([parts[g] for g in pol.groups], pol.scale_bits)
+
+
+# a, b, bias, c; batch, M, N, K, trans_b; B's batch stride; B's row stride,
+# n_splits, scale_bits; out_scale; activation; stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    ctypes.c_longlong] + [ctypes.c_int] * 3 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def b_layout(b) -> tuple[int, int, int] | None:
+    """``(trans_b, batch stride, row stride)`` in which the kernel reads
+    ``b`` (``(K, N)`` or ``(batch, K, N)``) where it lies, or None when it
+    cannot.  Its rows of N contiguous: ``trans_b`` 0 (a contiguous B); its
+    columns of K contiguous: ``trans_b`` 1 (the transpose of a contiguous
+    ``(N, K)``, as the tied unembedding reads the embedding table).  Any
+    batch and row strides: MLA's per-head view of ``w_uv`` stored ``(K, H,
+    N)`` has batch stride N and rows H N apart, that of ``w_uk`` stored
+    ``(N, H, K)`` batch stride K and columns H K apart."""
+    *bdims, K, N = b.shape
+    st = b.stride()
+    sb = st[0] if bdims else 0
+    if N == 1 or st[-1] == 1:
+        return 0, sb, N if K == 1 else st[-2]
+    if K == 1 or st[-2] == 1:
+        return 1, sb, st[-1]
+    return None
 
 
 def launch(a, b, policy="tcec_bf16x6", bias=None, activation=None,
            out_scale: float = 1.0):
-    """Launch the CUDA kernel on contiguous f32 CUDA operands.
-
-    ``b`` may also be the transpose of a contiguous ``(.., N, K)`` tensor
-    (the tied unembedding reads the embedding table in place)."""
+    """Launch the CUDA kernel on f32 CUDA operands: ``a`` contiguous,
+    ``b`` any tensor whose rows or columns are contiguous, read in place
+    (:func:`b_layout`)."""
     global launches
     # this runs ~200 times a decode step: few Python objects on its path
     splits = _SPLITS.get(policy) if isinstance(policy, str) else None
@@ -156,14 +210,11 @@ def launch(a, b, policy="tcec_bf16x6", bias=None, activation=None,
         raise ValueError(f"shape mismatch {tuple(ash)} @ {tuple(bsh)}")
     if not a.is_contiguous():
         raise ValueError("a must be contiguous")
-    if b.is_contiguous():
-        trans_b = 0
-    elif b.stride()[-2:] == (1, K) and (not bdims or b.stride(0) == N * K) \
-            or b.transpose(-1, -2).is_contiguous():
-        trans_b = 1
-    else:
-        raise ValueError("b must be contiguous or the transpose of a "
-                         "contiguous tensor")
+    layout = b_layout(b)
+    if layout is None:
+        raise ValueError(f"b of shape {tuple(bsh)} and strides {b.stride()}:"
+                         " neither its rows nor its columns are contiguous")
+    trans_b, sb, ldb = layout
     if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()):
         raise ValueError(f"bias must be a contiguous ({N},) vector")
     out = a.new_empty((*bdims, M, N))
@@ -171,7 +222,8 @@ def launch(a, b, policy="tcec_bf16x6", bias=None, activation=None,
         return out
     status = _build.entry("tcec_matmul", _ARGTYPES)(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), batch, M, N, K, trans_b, *splits, out_scale,
+        out.data_ptr(), batch, M, N, K, trans_b, sb, ldb, *splits,
+        out_scale,
         ACTIVATION_IDS[activation],
         _build.stream(a))
     _build.check("tcec_matmul", status)

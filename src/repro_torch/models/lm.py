@@ -1,7 +1,9 @@
 """Decoder-only LM: the dense family (qwen3-0.6b; qwen2.5-14b with its QKV
 bias; gemma-2b and gemma2-9b: GeGLU, scaled embeddings, sandwich norms,
 local/global windows, the attention and final softcaps, head_dim 256) and
-the MoE family (granite-style: GShard top-k experts in place of the MLP).
+the MoE family (granite-style: GShard top-k experts in place of the MLP;
+deepseek-v3-671b: dense first layers, a shared expert, MLA attention from
+``models.mla`` and the multi-token-prediction head).
 
 Parameters are the JAX package's ``lm.init`` tree as nested dicts of
 tensors: ``embed``, ``ln_f``, ``dense_blocks`` for the first
@@ -15,12 +17,11 @@ recomputes each block in the backward (``jax.checkpoint`` of
 (:func:`init_paged_cache`, :func:`decode_step_paged`, kernel 3) and the
 dense cache of ``launch.serve.generate_dense`` (:func:`init_cache`,
 :func:`decode_step`, attended in plain bf16 as JAX does); both are updated
-in place.  The VLM family (``models.vlm_lm``) reuses the parameters, the
-block stack (:func:`apply_blocks`), the unembedding and the dense-cache
-decode of this module.  The MLA attention and the multi-token-prediction
-head of the JAX module are not ported yet, and configs that use them
-raise; so does the enc-dec family (``models.encdec_lm``), which has
-entries of its own.
+in place.  With MLA both caches hold the latent ``{"c_kv", "k_rope"}``
+entries in place of ``{"k", "v"}``.  The VLM family (``models.vlm_lm``)
+reuses the parameters, the block stack (:func:`apply_blocks`), the
+unembedding and the dense-cache decode of this module; the enc-dec family
+(``models.encdec_lm``) has entries of its own, and this module refuses it.
 """
 from __future__ import annotations
 
@@ -33,19 +34,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.core import pdot
 from . import layers as L
+from . import mla as M
 from .modules import (dense_init, embed_init, generator, layer, layer_views,
                       stack_init, tree_leaves, zeros)
 
 
 def _check_ported(cfg):
-    missing = [what for what, used in (
-        (f"family {cfg.family!r}", cfg.family not in ("dense", "moe",
-                                                      "vlm")),
-        ("MLA attention (use_mla)", cfg.use_mla),
-        ("multi-token prediction (mtp)", cfg.mtp)) if used]
-    if missing:
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet")
+            f"{cfg.name}: family {cfg.family!r} is not served by "
+            "models.lm")
 
 
 def stacks(cfg) -> list[tuple[str, int, bool]]:
@@ -63,7 +61,8 @@ def stacks(cfg) -> list[tuple[str, int, bool]]:
 def block_init(gen, cfg, device=None, *, moe: bool = False):
     p = {"ln1": zeros((cfg.d_model,), device),
          "ln2": zeros((cfg.d_model,), device),
-         "attn": L.attn_init(gen, cfg, device)}
+         "attn": (M.mla_init if cfg.use_mla else L.attn_init)(gen, cfg,
+                                                              device)}
     if moe:
         p["moe"] = L.moe_init(gen, cfg, device)
     else:
@@ -92,9 +91,13 @@ def _residual_ffn(p, x, a, cfg, moe):
 
 def block_prefill(p, x, cfg, positions, window, *, moe: bool = False):
     """One block over a whole sequence: ``(x, aux, kv)`` with the block's
-    K/V."""
+    K/V (MLA: its latent entries)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, kv = L.attention_prefill(p["attn"], h, cfg, positions, window=window)
+    if cfg.use_mla:
+        a, kv = M.mla_attention_prefill(p["attn"], h, cfg, positions)
+    else:
+        a, kv = L.attention_prefill(p["attn"], h, cfg, positions,
+                                    window=window)
     x, aux = _residual_ffn(p, x, a, cfg, moe)
     return x, aux, kv
 
@@ -103,8 +106,11 @@ def block_decode(p, x, cfg, cache, cache_index, window, *, moe: bool = False):
     """One block for one decode token a row at position ``cache_index``,
     against its dense K/V cache (written in place)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, _ = L.attention_decode(p["attn"], h, cfg, cache, cache_index,
-                              window=window)
+    if cfg.use_mla:
+        a, _ = M.mla_decode(p["attn"], h, cfg, cache, cache_index)
+    else:
+        a, _ = L.attention_decode(p["attn"], h, cfg, cache, cache_index,
+                                  window=window)
     return _residual_ffn(p, x, a, cfg, moe)[0]
 
 
@@ -112,8 +118,12 @@ def block_decode_paged(p, x, cfg, pool, block_tables, lengths, window, *,
                        moe: bool = False):
     """One block for one decode token per slot, against its page pool."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a = L.attention_decode_paged(p["attn"], h, cfg, pool, block_tables,
-                                 lengths, window=window)
+    if cfg.use_mla:
+        a = M.mla_decode_paged(p["attn"], h, cfg, pool, block_tables,
+                               lengths)
+    else:
+        a = L.attention_decode_paged(p["attn"], h, cfg, pool, block_tables,
+                                     lengths, window=window)
     return _residual_ffn(p, x, a, cfg, moe)[0]
 
 
@@ -143,9 +153,12 @@ def _stack_layers(cfg, views_of):
 
 def init(cfg, seed: int = 0, device=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``.
-    Each layer stack is filled layer by layer (``modules.stack_init``), so
-    the peak is the weights and one layer: qwen2.5-14b's 59 GB in f32
-    initialize on an 80 GB card."""
+    Each layer stack's leaves are drawn straight into their slots
+    (``modules.stack_init``), so the peak is the weights: deepseek-v3-671b
+    cut to 4 layers (60 GB in f32, one MoE layer 46 GB) initializes on an
+    80 GB card.  With ``cfg.mtp``, the multi-token-prediction head:
+    ``mtp_block`` (a MoE block when the config has experts) and
+    ``mtp_proj`` (2 d_model, d_model)."""
     _check_ported(cfg)
     device = resolve_device(device)
     gen = generator(seed, device)
@@ -158,6 +171,11 @@ def init(cfg, seed: int = 0, device=None):
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab),
                                        fan_in=cfg.d_model, device=device)
+    if cfg.mtp:
+        params["mtp_block"] = block_init(gen, cfg, device,
+                                         moe=bool(cfg.n_experts))
+        params["mtp_proj"] = dense_init(gen, (2 * cfg.d_model, cfg.d_model),
+                                        fan_in=2 * cfg.d_model, device=device)
     return params
 
 
@@ -247,7 +265,12 @@ def loss_fn(params, batch, cfg):
     """``(loss, metrics)`` of a batch ``{"tokens", "labels"}`` (B, S):
     metrics ``lm_loss``, ``aux_loss`` (the MoE layers' summed
     load-balancing term; 0 in the dense family), ``tokens`` and ``loss``
-    (``lm_loss + 0.01 aux_loss`` with experts)."""
+    (``lm_loss + 0.01 aux_loss`` with experts).  With ``cfg.mtp``,
+    DeepSeek-V3's multi-token prediction (one extra depth predicting t + 2):
+    ``mtp_loss`` is the CE of ``mtp_block`` over ``mtp_proj`` of the final
+    hidden state at t beside the embedding of token t + 1, against
+    ``labels[:, 1:]``, and ``loss`` adds ``0.3 mtp_loss``.  The head's own
+    MoE aux term is dropped, as in JAX."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -259,6 +282,16 @@ def loss_fn(params, batch, cfg):
     metrics = {"lm_loss": loss, "aux_loss": aux, "tokens": denom}
     if cfg.n_experts:
         loss = loss + 0.01 * aux
+    if cfg.mtp:
+        h = torch.cat([x[:, :-1], embed(params, tokens, cfg)[:, 1:]], dim=-1)
+        h = pdot("bsd,de->bse", h, params["mtp_proj"], cfg.policy)
+        h = block_prefill(params["mtp_block"], h, cfg,
+                          _positions(B, S - 1, tokens.device), 0,
+                          moe=bool(cfg.n_experts))[0]
+        mtp_loss, _ = cross_entropy(unembed_logits(params, h, cfg),
+                                    batch["labels"][:, 1:])
+        metrics["mtp_loss"] = mtp_loss
+        loss = loss + 0.3 * mtp_loss
     metrics["loss"] = loss
     return loss, metrics
 
@@ -269,7 +302,8 @@ def prefill(params, cfg, tokens, positions=None):
     tokens: (B, P) (right-padded prompts; causal masking keeps padded tails
     from influencing earlier positions, though in the MoE layers they take
     expert capacity).  ``kv`` mirrors the cache tree: ``{stack: {"k":
-    (layers, B, P, Hkv, hd), "v": ...}}`` for each of :func:`stacks`.
+    (layers, B, P, Hkv, hd), "v": ...}}`` for each of :func:`stacks`
+    (MLA: ``{"c_kv": (layers, B, P, kvr), "k_rope": (layers, B, P, dr)}``).
     """
     _check_ported(cfg)
     B, P = tokens.shape
@@ -279,30 +313,35 @@ def prefill(params, cfg, tokens, positions=None):
     x, _ = backbone(params, tokens, cfg, positions, kvs)
     return unembed_logits(params, x, cfg), {
         name: {k: torch.stack([kv[k] for kv in per_layer])
-               for k in ("k", "v")} for name, per_layer in kvs.items()}
+               for k in per_layer[0]} for name, per_layer in kvs.items()}
 
 
 def _kv_cache(cfg, rows, dtype, device):
     """``{stack: {"k", "v"}}`` for each of :func:`stacks`, zero leaves
-    (layers, *rows, Hkv, hd)."""
+    (layers, *rows, Hkv, hd); with MLA ``{stack: {"c_kv", "k_rope"}}``,
+    leaves (layers, *rows, kvr) and (layers, *rows, dr)."""
     _check_ported(cfg)
     device = resolve_device(device)
-    return {name: {k: torch.zeros((n, *rows, cfg.n_kv_heads, cfg.head_dim),
-                                  dtype=dtype, device=device)
-                   for k in ("k", "v")} for name, n, _ in stacks(cfg)}
+    if cfg.use_mla:
+        one = M.mla_init_cache(cfg, *rows, dtype, device="meta")
+    else:
+        one = {k: torch.empty((*rows, cfg.n_kv_heads, cfg.head_dim),
+                              device="meta") for k in ("k", "v")}
+    return {name: {k: torch.zeros((n, *t.shape), dtype=dtype, device=device)
+                   for k, t in one.items()} for name, n, _ in stacks(cfg)}
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """The dense KV cache of ``launch.serve.generate_dense``: leaves
-    (layers, batch, max_len, Hkv, hd)."""
+    (layers, batch, max_len, Hkv, hd), or MLA's latent leaves."""
     return _kv_cache(cfg, (batch, max_len), dtype, device)
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, device=None):
-    """The paged KV cache: leaves (layers, num_pages, page_size, Hkv, hd)
-    shared by all slots.  Page 0 is the engine's scrap page — inactive
+    """The paged KV cache: leaves (layers, num_pages, page_size, Hkv, hd),
+    or MLA's latent leaves, shared by all slots.  Page 0 is the engine's scrap page — inactive
     slots write into it."""
     return _kv_cache(cfg, (num_pages, page_size), dtype, device)
 

@@ -85,6 +85,51 @@ def test_matmul_wrapper_raises_instead_of_falling_back(dev):
         ops.tcec_matmul(a.T.contiguous().T, a.T)     # a not contiguous
 
 
+# MLA's absorbed decode reads per-head views of a weight stored (r, h, k)
+# (r the kv rank): w_uk's ``bshk,rhk->bshr`` takes B (h, k, r) with batch
+# stride k and columns h k apart (trans_b), w_uv's ``bshr,rhk->bshk`` B
+# (h, r, k) with rows h k apart; on path S (M 4, the engine's slots) and
+# path W (M 130).  (512, 16, 128) is full width's rank and head dim at 16
+# of the 128 heads; (90, 6, 45) is ragged and not 16-byte aligned.
+@pytest.mark.parametrize("policy", ["tcec_bf16x3", "tcec_bf16x6",
+                                    "tcec_bf16x10"])
+@pytest.mark.parametrize("M", [4, 130])
+@pytest.mark.parametrize("weight", ["w_uk", "w_uv"])
+@pytest.mark.parametrize("r,h,k", [(512, 16, 128), (90, 6, 45)])
+def test_matmul_reads_per_head_views_in_place(dev, policy, M, weight, r, h,
+                                              k):
+    g = torch.Generator(device=dev).manual_seed(M + r + k)
+    w = torch.randn(r, h, k, generator=g, device=dev) * r ** -0.5
+    b = w.permute(1, 2, 0) if weight == "w_uk" else w.permute(1, 0, 2)
+    assert tcec_matmul.b_layout(b) == ((1, k, h * k) if weight == "w_uk"
+                                       else (0, k, h * k))
+    a = torch.randn(h, M, b.shape[1], generator=g, device=dev)
+    before = tcec_matmul.launches
+    out = ops.tcec_matmul(a, b, policy)
+    assert tcec_matmul.launches == before + 1
+    ref = tcec_matmul.tcec_matmul_plain(a, b.contiguous(), policy)
+    K = b.shape[1]
+    assert bool(((out - ref).abs() <= 8 * K * U24 * (a.abs() @ b.abs()))
+                .all())
+
+
+def test_matmul_refuses_b_without_a_contiguous_dimension(dev):
+    a = torch.randn(2, 4, 8, device=dev)
+    b = torch.randn(2, 8, 32, device=dev)[..., ::2]      # strides 256, 32, 2
+    assert tcec_matmul.b_layout(b) is None
+    before = tcec_matmul.launches
+    with pytest.raises(ValueError):
+        tcec_matmul.launch(a, b)
+    assert tcec_matmul.launches == before
+    # dispatch copies such a B first, so a contraction still runs kernel 1
+    from repro_torch.core import pdot
+    out = pdot("gmk,gkn->gmn", a, b, "tcec_bf16x6")
+    assert tcec_matmul.launches == before + 1
+    ref = tcec_matmul.tcec_matmul_plain(a, b.contiguous())
+    assert bool(((out - ref).abs() <= 8 * 8 * U24 * (a.abs() @ b.abs()))
+                .all())
+
+
 # Kernel 1 as the MoE layers call it: granite-moe-1b-a400m's expert products
 # as one batch of 32, M = groups x capacity of the engine's decode step and
 # prefills (4, 20, 40 on path S; 144, 320 on path W), the gate and up

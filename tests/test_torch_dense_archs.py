@@ -38,8 +38,11 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import (tcec_attention,  # noqa: E402
                                  tcec_paged_attention)
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import get_model, layers, lm, modules  # noqa: E402
+from repro_torch.models import get_model, layers, lm, mla, modules  # noqa
 from repro_torch.serving import Engine, SamplingParams  # noqa: E402
+from torch.multiprocessing.reductions import StorageWeakRef  # noqa
+from torch.utils import _pytree as pytree  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 FORCED = dict(force=True, interpret=True, min_dim=0)
 REL = 2.0 ** -13
@@ -227,15 +230,17 @@ def _old_rule(monkeypatch):
         trees = [init_fn() for _ in range(n)]
         return modules.tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
 
-    for mod in (lm, layers):
+    for mod in (lm, layers, mla):
         monkeypatch.setattr(mod, "dense_init", dense_init)
     monkeypatch.setattr(lm, "embed_init", embed_init)
     monkeypatch.setattr(lm, "stack_init", stack_init)
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ARCHS + ["granite-moe-1b-a400m",
+                                          "deepseek-v3-671b"])
 def test_stack_init_is_bitwise_the_stack_of_layer_trees(arch, monkeypatch):
-    cfg = get_smoke_config(arch).replace(n_layers=3)
+    cfg = get_smoke_config(arch)
+    cfg = cfg.replace(n_layers=3 + cfg.first_dense_layers)
     new = lm.init(cfg, seed=5, device="cpu")
     with monkeypatch.context() as m:
         _old_rule(m)
@@ -244,6 +249,57 @@ def test_stack_init_is_bitwise_the_stack_of_layer_trees(arch, monkeypatch):
     assert len(a) == len(b)
     assert all(x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
     assert any(x.shape[0] == 3 for x in a)
+
+
+class _LiveBytes(TorchDispatchMode):
+    """The peak of the bytes that tensors made under the mode hold: each
+    storage counted once, from the operation that made it until it is
+    freed."""
+
+    def __init__(self):
+        super().__init__()
+        self.live, self.now, self.peak = {}, 0, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for key, (ref, n) in list(self.live.items()):
+            if ref.expired():
+                del self.live[key]
+                self.now -= n
+        for t in pytree.tree_leaves(out):
+            if isinstance(t, torch.Tensor) and not t.is_meta:
+                st = t.untyped_storage()
+                if st.data_ptr() not in self.live:
+                    self.live[st.data_ptr()] = (StorageWeakRef(st),
+                                                st.nbytes())
+                    self.now += st.nbytes()
+        self.peak = max(self.peak, self.now)
+        return out
+
+
+def test_stack_init_peak_is_the_weights_when_one_layer_outweighs_the_rest(
+        monkeypatch):
+    """deepseek-v3-671b's shape at smoke widths: one dense layer, then one
+    MoE layer of 64 experts that outweighs the rest of the tree.  Each
+    leaf is drawn into its slot, so the init holds no more than the
+    weights and one leaf; stacking layer trees (or copying a layer in)
+    holds that layer beside its stack."""
+    cfg = get_smoke_config("deepseek-v3-671b").replace(
+        n_layers=2, n_experts=64, mtp=False)
+    with _LiveBytes() as mem:
+        params = lm.init(cfg, seed=0, device="cpu")
+    leaves = modules.tree_leaves(params)
+    weights = sum(t.nbytes for t in leaves)
+    moe = sum(t.nbytes for t in modules.tree_leaves(params["moe_blocks"]))
+    assert moe > weights - moe                 # the MoE layer outweighs
+    largest = max(max(t[0].nbytes for t in modules.tree_leaves(v))
+                  if k.endswith("blocks") else v.nbytes
+                  for k, v in params.items())
+    assert weights <= mem.peak <= weights + largest
+    with monkeypatch.context() as m, _LiveBytes() as old:
+        _old_rule(m)
+        lm.init(cfg, seed=0, device="cpu")
+    assert old.peak > weights + largest        # the gate bites
 
 
 def test_stack_init_takes_the_meta_device():

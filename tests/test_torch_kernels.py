@@ -121,6 +121,31 @@ def test_matmul_x6_plain_reaches_f32_accuracy():
     assert r6 <= 2 * r32
 
 
+@pytest.mark.parametrize("policy", ["tcec_bf16x3", "tcec_bf16x6",
+                                    "tcec_bf16x10"])
+def test_matmul_plain_in_batch_slices_is_bitwise_the_whole(policy,
+                                                          monkeypatch):
+    """A batched B whose f32 terms pass ``PLAIN_CHUNK_BYTES`` is taken a
+    slice of the batch at a time (a deepseek-v3-671b expert stack on the
+    card): bit for bit the product taken whole, epilogue included, with a
+    transposed B and a ragged last slice."""
+    a = _t(_urand((7, 5, 96), 8))
+    b = _t(_urand((7, 48, 96), 9)).transpose(-1, -2)
+    bias = _t(_urand((48,), 10))
+    kw = dict(bias=bias, activation="gelu", out_scale=0.5)
+    whole = tcec_matmul.tcec_matmul_plain(a, b, policy, **kw)
+    terms = tcec_matmul.get_policy(policy).n_splits
+    calls = []
+    plain = tcec_matmul._plain
+    monkeypatch.setattr(tcec_matmul, "_plain", lambda a, b, pol: calls.append(
+        b.shape[0]) or plain(a, b, pol))
+    monkeypatch.setattr(tcec_matmul, "PLAIN_CHUNK_BYTES",
+                        3 * terms * 4 * 96 * 48)
+    sliced = tcec_matmul.tcec_matmul_plain(a, b, policy, **kw)
+    assert calls == [3, 3, 1]
+    assert torch.equal(sliced, whole)
+
+
 def test_matmul_wrapper_takes_plain_version_only_on_cpu():
     before = tcec_matmul.launches
     a, b = _urand((8, 16), 6), _urand((16, 8), 7)

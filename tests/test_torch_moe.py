@@ -324,9 +324,9 @@ def test_loss_and_grads_match_jax_value_and_grad(smoke, routes):
 
 # ---------------------------------------------------------- not ported
 
+# MLA and MTP are ported (tests/test_torch_mla.py); models.lm still refuses
+# the enc-dec family, which has entries of its own.
 @pytest.mark.parametrize("arch,kw,missing", [
-    ("deepseek-v3-671b", {}, "MLA attention"),
-    (ARCH, dict(mtp=True), "multi-token prediction"),
     ("seamless-m4t-large-v2", {}, "family 'audio'")])
 def test_unported_configs_raise_naming_what_is_missing(arch, kw, missing):
     cfg = ModelConfig(**dataclasses.asdict(jax_smoke_config(arch))).replace(
@@ -336,7 +336,5 @@ def test_unported_configs_raise_naming_what_is_missing(arch, kw, missing):
                lambda: lm.init_paged_cache(cfg, 4, 4, device="cpu")):
         with pytest.raises(NotImplementedError, match=missing):
             fn()
-    # the handle is the family's: lm's for MLA and MTP (whose entries
-    # raise), encdec_lm's for the enc-dec family, which lm refuses
-    assert get_model(cfg).module is (encdec_lm if cfg.family == "audio"
-                                     else lm)
+    # the handle is the family's: encdec_lm's for the enc-dec family
+    assert get_model(cfg).module is encdec_lm

@@ -113,10 +113,10 @@ def test_model_config_fields_equal_jax():
     (full and smoke), derived properties included."""
     assert [(f.name, f.default) for f in dataclasses.fields(ModelConfig)] \
         == [(f.name, f.default) for f in dataclasses.fields(JaxModelConfig)]
-    assert list_archs() == ["gemma-2b", "gemma2-9b", "granite-moe-1b-a400m",
-                            "internvl2-2b", "mamba2-130m", "qwen2.5-14b",
-                            "qwen3-0.6b", "seamless-m4t-large-v2",
-                            "zamba2-1.2b"]
+    assert list_archs() == ["deepseek-v3-671b", "gemma-2b", "gemma2-9b",
+                            "granite-moe-1b-a400m", "internvl2-2b",
+                            "mamba2-130m", "qwen2.5-14b", "qwen3-0.6b",
+                            "seamless-m4t-large-v2", "zamba2-1.2b"]
     for arch in list_archs():
         for port, ref in ((get_config, jax_get_config),
                           (get_smoke_config, jax_get_smoke)):
