@@ -235,7 +235,39 @@ Phases, each of which raises on a failed check (nothing is caught):
      ``generate_dense`` over the MLA dense cache (the prompts prefilled in
      one forward), then the engine on the same prompts: equal tokens
      reported, no gate; (g) the MTP head at the smoke config: ``loss_fn``
-     and its gradients against ``use_plain()`` (7b's 1e-3 rule).
+     and its gradients against ``use_plain()`` (7b's 1e-3 rule);
+  14. the numerics config and the measured tuner, the engine pinned to
+     ``NumericsConfig(policy="tcec_bf16x6", fuse_epilogue=True,
+     tune="force")`` with a tune cache of its own.  (a) qwen3-0.6b at full
+     width: phase 4's 8-request run (7L + 1 kernel-1 launches a forward, L
+     of them with the silu epilogue: ``tcec_matmul.epilogue_launches``),
+     the same run unfused (equal greedy tokens counted, no gate), the
+     64-token prefill's logits and ``forward_logits`` at 2 x 512 against
+     ``dispatch.use_plain()`` and against the unfused kernel path (1e-3
+     each), 4b's replay check under the pin; (b) gemma-2b at full width
+     the same (GeGLU: gelu in the epilogue, d_ff 16384); (c) the tuner:
+     each kernel-1 bucket the runs filled with its chosen path and both
+     paths' measured times, kernel 3's chosen C beside ``chunk_pages``'s; a
+     second ``BlockCache`` on the file gives the same choices with no
+     measurement; every bucket whose measured path is not the rule by M's
+     runs on the chosen path against plain (``8 K 2^-24 |A||B|``) and the
+     f32 gate; the 2 x 32 and 2 x 64 prefills timed tuned against
+     ``tune="off"`` (no gate); no miss during a capture; (d) the hatches:
+     an engine run under ``enabled=False`` launches no kernel (64-token
+     logits within 1e-3 of the kernel path), one under
+     ``paged_attention=False`` no kernel 3, and a train step's forward
+     under ``use(enabled=False)`` whose backward runs after the scope
+     launches none; (e) ``repro_torch.matmul`` at 2048^3 (kernel 1 once,
+     phase 3's gate) and ``repro_torch.attention`` at 2 x 512 (kernel 2
+     once, 1e-5 max|v| of plain); (f) reported, no gate: 13g's comparison
+     under ``tune="auto"``, beside the plain side against itself with the
+     parameters scaled by 1 + 1e-7.
+
+Phases 2-13 run under the default numerics config, whose tune mode is
+"off" (the rule by M, the parent's routing bit for bit); the tuner writes
+only to files under ``chiprun_out/`` that each run starts afresh
+(``tcec_autotune*.json``; the home directory is neither read nor written);
+phase 2's rows call the kernels directly.
 
 Every line of output is one JSON object, except the ``nvidia-smi`` line.
 The last line is ``{"ok": true, "device": {...}}``.  The full record is
@@ -243,9 +275,11 @@ also written to ``chiprun_out/chip_smoke.json``.
 """
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -972,15 +1006,18 @@ def timed_method(obj, name):
     return spent
 
 
-def replay_equals_eager(dev, cfg, params, steps=8):
+def replay_equals_eager(dev, cfg, params, steps=8, numerics_config=None):
     """Phase 4b: each of ``steps`` decode steps of a full-width engine is
     replayed and also run eagerly through ``_decode_and_sample`` on copies
-    of the same pools and inputs; everything must be bitwise equal."""
+    of the same pools and inputs; everything must be bitwise equal.  With
+    ``numerics_config`` the engine is pinned to it (its model handle runs
+    the eager step under it too)."""
     from repro_torch.models.modules import tree_leaves, tree_map
     from repro_torch.serving import Engine, SamplingParams
     from repro_torch.serving import engine as em
     engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
-                    page_size=16, max_pages_per_slot=40, device=dev)
+                    page_size=16, max_pages_per_slot=40, device=dev,
+                    numerics_config=numerics_config)
     rng = np.random.default_rng(2)
     knobs = [dict(), dict(temperature=0.8, top_k=50, top_p=0.9, seed=1),
              dict(), dict(temperature=1.0, seed=2)]
@@ -2646,6 +2683,25 @@ def mtp_on_the_card(dev, rec):
     rule: the loss, the MTP loss, the gradient norm and the worst leaf
     within 1e-3), the routes recorded on both sides; the kernel side
     launches kernels 1 and 2, the plain side neither."""
+    row, moved, n, n_routes = mtp_row(dev)
+    emit(row)
+    rec["mtp_check"] = row
+    check(n_routes == 2 * n and moved == 0, "13g: equal routes")
+    check(row["kernel_launches"]["tcec_matmul"] > 0
+          and row["kernel_launches"]["tcec_attention"] > 0,
+          "13g: the kernel side runs kernels 1 and 2")
+    check(not any(row["plain_launches"].values()),
+          "13g: plain side: no kernel launch")
+    for k in ("loss_rel_diff", "mtp_loss_rel_diff", "grad_norm_rel_diff",
+              "worst_leaf_rel_diff"):
+        check(row[k] <= 1e-3, f"13g: {k} <= 1e-3")
+
+
+def mtp_row(dev, scale=None):
+    """13g's comparison: ``(row, moved routes, routings a side, routings
+    recorded)``.  With ``scale``, the plain side against itself with every
+    parameter multiplied by ``scale`` (the leaves' conditioning: how far an
+    f32 rounding-sized change of the inputs moves each gradient)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data.pipeline import DataConfig, device_batch
     from repro_torch.kernels import dispatch
@@ -2665,7 +2721,14 @@ def mtp_on_the_card(dev, rec):
 
     with recorded(layers, "moe_route", keep=lambda r: r["topi"]) as routes:
         c0 = kernel_counts()
-        met, grads = loss_and_grads()
+        if scale is None:
+            met, grads = loss_and_grads()
+        else:
+            kept = params
+            params = tree_map(lambda t: t * scale, kept)
+            with dispatch.use_plain():
+                met, grads = loss_and_grads()
+            params = kept
         c1 = kernel_counts()
         n = len(routes)
         with dispatch.use_plain():
@@ -2698,17 +2761,7 @@ def mtp_on_the_card(dev, rec):
            "routings": n, "tolerance": "1e-3 each",
            "kernel_launches": {k: c1[k] - c0[k] for k in c0},
            "plain_launches": {k: c2[k] - c1[k] for k in c0}}
-    emit(row)
-    rec["mtp_check"] = row
-    check(len(routes) == 2 * n and moved == 0, "13g: equal routes")
-    check(row["kernel_launches"]["tcec_matmul"] > 0
-          and row["kernel_launches"]["tcec_attention"] > 0,
-          "13g: the kernel side runs kernels 1 and 2")
-    check(not any(row["plain_launches"].values()),
-          "13g: plain side: no kernel launch")
-    for k in ("loss_rel_diff", "mtp_loss_rel_diff", "grad_norm_rel_diff",
-              "worst_leaf_rel_diff"):
-        check(row[k] <= 1e-3, f"13g: {k} <= 1e-3")
+    return row, moved, n, len(routes)
 
 
 def paper_numerics(dev):
@@ -2716,6 +2769,479 @@ def paper_numerics(dev):
     a = fig11_battery(dev)
     b = long_sequence(dev)
     return {k: a[k] + b[k] for k in a}
+
+
+# ------------------------------------------------------------ phase 14
+
+def fresh_tune_cache(name):
+    """A fresh autotuner file under ``chiprun_out/`` (gitignored), so every
+    run starts cold and nothing is read from or left in the home
+    directory."""
+    path = ROOT / "chiprun_out" / name
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    return path
+
+
+def use_tune_cache(path):
+    """Point the process's env-default numerics config at ``path``: the
+    environment, not a ``numerics.use`` scope, so that autograd's worker
+    thread (which starts from the env defaults) sees it too."""
+    from repro_torch import numerics
+    os.environ["REPRO_TUNE_CACHE"] = str(path)
+    return numerics.reload_env_defaults()
+
+
+def zero_counts():
+    from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
+                                     tcec_paged_attention as tp)
+    for m in (tm, ta, tp):
+        m.launches = 0
+    for k in tm.epilogue_launches:
+        tm.epilogue_launches[k] = 0
+
+
+SERVE_LENS = [512, 512, 200, 200, 64, 64, 17, 17]
+
+
+def pinned_engine_run(dev, cfg, params, pin, label):
+    """Phase 4's 8-request run on an engine pinned to ``pin``, the counts
+    zeroed just before and read just after.  Returns the row (launches,
+    epilogue launches, times) and the tokens."""
+    from repro_torch.kernels import tcec_matmul as tm
+    from repro_torch.serving import Engine, SamplingParams
+    engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
+                    page_size=16, max_pages_per_slot=40, device=dev,
+                    numerics_config=pin)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENS]
+    prefill_s = timed_method(engine, "_admit_and_prefill")
+    step_s = timed_method(engine, "step")
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = engine.run(prompts, SamplingParams(max_tokens=16))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = kernel_counts()
+    stats = engine.stats()
+    # steps after the first (which captures the graph), without admissions
+    decode_s = sorted(s - p for s, p in zip(step_s[1:], prefill_s[1:])
+                      if p < 1e-3)
+    tokens = sum(len(v) for v in out.values())
+    row = {"phase14_engine": label, "n_layers": cfg.n_layers,
+           "generated_tokens": tokens, "seconds": dt,
+           "tokens_per_s": tokens / dt, "prefill_s": sum(prefill_s),
+           "first_step_s": step_s[0],
+           "decode_step_median_ms": 1e3 * decode_s[len(decode_s) // 2]
+           if decode_s else None,
+           "decode_steps_timed": len(decode_s),
+           "prefills": stats["prefills"],
+           "decode_steps": stats["decode_steps"],
+           "decode_warmups": stats["decode_warmups"],
+           "launches": launches,
+           "epilogue_launches": dict(tm.epilogue_launches),
+           "finish_reasons": sorted({v.finish_reason for v in out.values()})}
+    check(all(v.finish_reason == "length" and len(v) == 16
+              for v in out.values()),
+          f"{label}: every request finished with 16 tokens")
+    return row, stats, {r: list(v) for r, v in out.items()}
+
+
+def rel_diff(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+def fused_vs_plain_and_unfused(cfg, params, pin, label):
+    """14a/b: the 64-token prefill's logits and ``forward_logits`` at 2 x
+    512 through the pinned model (the gate's activation in kernel 1's
+    epilogue) against the same under ``dispatch.use_plain()`` and against
+    the unfused kernel path, each within 1e-3; L epilogue launches a
+    forward."""
+    from repro_torch.kernels import dispatch, tcec_matmul as tm
+    from repro_torch.models import get_model
+    fused = get_model(cfg, pin)
+    unfused = get_model(cfg, pin.replace(fuse_epilogue=False))
+    dev = params["embed"].device
+    rng = np.random.default_rng(5)
+    probe = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
+    wide = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512))).to(dev)
+    row = {"phase14_logits": label, "limit": 1e-3}
+    L = cfg.n_layers
+    with torch.no_grad():
+        for name, run in (
+                ("prefill_64", lambda m: m.prefill(params, probe)[0]),
+                ("forward_2x512", lambda m: m.forward_logits(params, wide))):
+            zero_counts()
+            fast = run(fused)
+            counts = kernel_counts()
+            check(tm.epilogue_launches[cfg.activation] == L
+                  and counts["tcec_matmul"] == 7 * L + 1,
+                  f"{label} {name}: 7L + 1 launches, L with the "
+                  f"{cfg.activation} epilogue")
+            with dispatch.use_plain():
+                plain = run(fused)
+            other = run(unfused)
+            row[f"{name}_vs_plain"] = rel_diff(fast, plain)
+            row[f"{name}_vs_unfused"] = rel_diff(fast, other)
+            del fast, plain, other
+            torch.cuda.empty_cache()
+    emit(row)
+    for k, v in row.items():
+        if k.endswith(("_vs_plain", "_vs_unfused")):
+            check(math.isfinite(v) and v <= 1e-3, f"{label} {k} <= 1e-3")
+    return row
+
+
+def pinned_path(dev, arch, pin):
+    """14a / 14b: ``arch`` at full width, random weights from seed 0, served
+    under ``pin`` (the gate's activation fused); launch counts, logits
+    against plain and unfused, replay bitwise equal to eager, and the
+    greedy tokens of an unfused run counted beside the fused run's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    cfg = get_config(arch)
+    params = get_model(cfg).init(seed=0, device=dev)
+    L = cfg.n_layers
+    row, stats, toks = pinned_engine_run(dev, cfg, params, pin,
+                                         f"{arch} fused")
+    counts = forward_counts(cfg)
+    forwards = stats["prefills"] + stats["decode_steps"] \
+        + stats["decode_warmups"]
+    row["launches_counted"] = {
+        k: counts["prefill"][k] * stats["prefills"] + counts["decode"][k]
+        * (stats["decode_steps"] + stats["decode_warmups"])
+        for k in row["launches"]}
+    check(row["launches"] == row["launches_counted"],
+          f"{arch}: launches as counted (7L + 1 a forward)")
+    check(row["epilogue_launches"][cfg.activation] == L * forwards
+          and sum(row["epilogue_launches"].values()) == L * forwards,
+          f"{arch}: L of the 7L + 1 kernel-1 launches a forward carry the "
+          f"{cfg.activation} epilogue")
+    off_row, _, off_toks = pinned_engine_run(
+        dev, cfg, params, pin.replace(fuse_epilogue=False),
+        f"{arch} unfused")
+    row["unfused_tokens_per_s"] = off_row["tokens_per_s"]
+    row["unfused_decode_step_median_ms"] = off_row["decode_step_median_ms"]
+    row["unfused_prefill_s"] = off_row["prefill_s"]
+    row["greedy_tokens_equal_unfused"] = sum(
+        a == b for r in toks for a, b in zip(toks[r], off_toks[r]))
+    row["greedy_tokens"] = sum(len(v) for v in toks.values())
+    emit(row)
+    logits = fused_vs_plain_and_unfused(cfg, params, pin, arch)
+    replay = replay_equals_eager(dev, cfg, params, numerics_config=pin)
+    return {"engine": row, "logits": logits, "replay": replay}, \
+        (cfg, params), row["launches"]
+
+
+def prefill_tuned_vs_off(cfg, params, pin, reps=10):
+    """14c: the 2 x 32 and 2 x 64 prefills (M 64 and 128, the products
+    where a path crossing sits) timed under ``pin`` (tuned) and under
+    ``tune="off"`` (the rule by M), in turns: medians of host time to a
+    synchronize, and two profiled prefills of each (off, tuned, tuned,
+    off): the device's busy time and kernel 1's.  No gate: a first
+    measurement."""
+    from repro_torch.models import get_model
+    dev = params["embed"].device
+    rng = np.random.default_rng(6)
+    row = {"phase14_prefill_tuned_vs_off": cfg.name}
+    models = {"tuned": get_model(cfg, pin),
+              "off": get_model(cfg, pin.replace(tune="off"))}
+    with torch.no_grad():
+        for S in (32, 64):
+            toks = torch.from_numpy(
+                rng.integers(0, cfg.vocab_size, (2, S))).to(dev)
+            times = {k: [] for k in models}
+            for m in models.values():
+                m.prefill(params, toks)                  # tune, warm up
+            for i in range(reps):
+                for k in (("tuned", "off") if i % 2 else ("off", "tuned")):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    models[k].prefill(params, toks)
+                    torch.cuda.synchronize()
+                    times[k].append((time.perf_counter() - t0) * 1e3)
+            for k, v in times.items():
+                v.sort()
+                row[f"2x{S}_{k}_ms"] = v[len(v) // 2]
+                row[f"2x{S}_{k}_min_ms"] = v[0]
+            for k in ("off", "tuned", "tuned", "off"):
+                prof = profile_window(f"{cfg.name} prefill 2 x {S}, {k}",
+                                      lambda m=models[k]: m.prefill(params,
+                                                                    toks))
+                row.setdefault(f"2x{S}_{k}_device_busy_ms", []).append(
+                    prof["device_busy_ms"])
+                row.setdefault(f"2x{S}_{k}_kernel1_ms", []).append(
+                    prof["port_kernels"]["tcec_matmul"]["ms"])
+    emit(row)
+    return row
+
+
+def _bucket(key):
+    m = re.search(r"b(\d+)_m(\d+)_n(\d+)_k(\d+)$", key)
+    return tuple(int(x) for x in m.groups())
+
+
+def tuner_report(dev, cache_path, pin):
+    """14c: the cache the pinned runs filled.  For each kernel-1 bucket the
+    chosen path and both paths' measured times, for kernel 3 the chosen C
+    beside ``chunk_pages``'s; a second ``BlockCache`` on the file gives the
+    same choices with no measurement; every bucket whose measured path is
+    not the rule by M's is run on the chosen path and held to phase 2's
+    gate against plain and to the f32 gate."""
+    from repro_torch.kernels import ops, tcec_matmul as tm, tuning
+    from repro_torch.kernels import tcec_paged_attention as tp
+    entries = json.loads(Path(cache_path).read_text())["entries"]
+    names = {v: k for k, v in tm.tiles().items()}
+    rows, changed = [], []
+    for key, e in sorted(entries.items()):
+        if "/paged/" in key:
+            b, h, r, p, ps, d, v = (int(x) for x in re.search(
+                r"b(\d+)_h(\d+)_r(\d+)_p(\d+)_ps(\d+)_d(\d+)_v(\d+)",
+                key).groups())
+            rows.append({"key": key, "kernel": "tcec_paged_attention",
+                         "C": e["block"][0], "ms": e["ms"],
+                         "chunk_pages_C": tp.chunk_pages(b, h, p, ps, d, v),
+                         "timings": tuning.measured.get((str(cache_path),
+                                                         key))})
+            continue
+        if "/attn/" in key:
+            continue
+        B, M, N, K = _bucket(key)
+        path = names[tuple(e["block"])]
+        row = {"key": key, "kernel": "tcec_matmul", "path": path,
+               "rule_path": tm.path(M), "ms": e["ms"],
+               "timings": {names[tuple(json.loads(k))]: v for k, v in
+                           tuning.measured.get((str(cache_path), key),
+                                               {}).items()}}
+        rows.append(row)
+        if path != row["rule_path"]:
+            changed.append((key, B, M, N, K, e["block"]))
+    for row in rows:
+        emit({"phase14_tuner": row})
+    # a second cache object on the same file: the same choices, and the
+    # tuner measures nothing
+    cache2 = tuning.BlockCache(path=str(cache_path))
+    calls = []
+    for key, e in entries.items():
+        check(cache2.get(key)["block"] == e["block"],
+              f"{key}: the file's choice read back")
+        if "/paged/" in key or "/attn/" in key:
+            continue
+        B, M, N, K = _bucket(key)
+        blk, meta = tuning.autotune(
+            B, M, N, K, key.split("/")[1], cache=cache2, cfg=pin,
+            device=dev, measure=lambda b: calls.append(b) or 0.0)
+        check(meta["source"] == "cache" and list(blk) == e["block"],
+              f"{key}: a fresh cache hits")
+    check(not calls, "reuse from a fresh BlockCache measures nothing")
+    # the buckets whose measured path is not the rule's: that product on
+    # the chosen path, against plain and against f64
+    checked = []
+    for key, B, M, N, K, block in changed:
+        g = torch.Generator(device=dev).manual_seed(M + N + K)
+        bsh = (B,) if B > 1 else ()
+        a = torch.randn(*bsh, M, K, generator=g, device=dev)
+        b = torch.randn(*bsh, K, N, generator=g, device=dev) * K ** -0.5
+        pol = key.split("/")[1]
+        out = ops.tcec_matmul(a, b, pol, block=block)
+        ref = tm.tcec_matmul_plain(a, b, pol)
+        tol = 8 * K * U24 * (a.abs() @ b.abs())
+        err = (out - ref).abs()
+        row = {"shape": f"changed bucket {key}", "path": names[tuple(block)],
+               "max_abs_err": float(err.max()),
+               "max_err_over_tol": float((err / tol).max())}
+        check(bool((err <= tol).all()), f"{key}: chosen path vs plain")
+        ref64 = a.double() @ b.double()
+        f32_gate(row, ref64, out, a @ b)
+        emit({"phase14_changed_bucket": row})
+        checked.append(row)
+        del a, b, out, ref, ref64, err, tol
+        torch.cuda.empty_cache()
+    return {"entries": rows, "changed_buckets": checked,
+            "measure_launches": tuning.measure_launches,
+            "capture_misses": tuning.capture_misses}
+
+
+def hatches_on_the_card(dev, cfg, params, base):
+    """14d: an engine pinned to ``enabled=False`` launches none of the three
+    kernels and its 64-token logits are within 1e-3 of the kernel path's;
+    one pinned to ``paged_attention=False`` launches kernel 3 zero times;
+    a train step's forward under ``use(enabled=False)`` with its backward
+    run after the scope launches no kernel (the autograd functions and the
+    remat recompute carry the forward's config to autograd's worker
+    thread), while the same step under the default config does."""
+    from repro_torch import numerics
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import tree_leaves
+    row = {"phase14_hatches": cfg.name}
+    off = base.replace(enabled=False)
+    erow, _, _ = pinned_engine_run(dev, cfg, params, off,
+                                   f"{cfg.name} enabled=False")
+    row["enabled_false_launches"] = erow["launches"]
+    row["enabled_false_tokens_per_s"] = erow["tokens_per_s"]
+    check(not any(erow["launches"].values()),
+          "enabled=False: no kernel launched")
+    probe = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, 64))).to(dev)
+    with torch.no_grad():
+        plain = get_model(cfg, off).prefill(params, probe)[0]
+        fast = get_model(cfg, base).prefill(params, probe)[0]
+    row["enabled_false_logits_vs_kernels"] = rel_diff(plain, fast)
+    check(row["enabled_false_logits_vs_kernels"] <= 1e-3,
+          "enabled=False: 64-token logits within 1e-3 of the kernel path")
+    prow, _, _ = pinned_engine_run(dev, cfg, params,
+                                   base.replace(paged_attention=False),
+                                   f"{cfg.name} paged_attention=False")
+    row["paged_false_launches"] = prow["launches"]
+    check(prow["launches"]["tcec_paged_attention"] == 0
+          and prow["launches"]["tcec_matmul"] > 0,
+          "paged_attention=False: kernel 3 never launched")
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_()
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (2, 128))).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    model = get_model(cfg)
+    for scope in ("enabled=False", "default"):
+        zero_counts()
+        with numerics.use(enabled=scope == "default"):
+            loss, _ = model.loss_fn(params, batch)
+        forward = kernel_counts()
+        zero_counts()
+        loss.backward()
+        backward = kernel_counts()
+        row[f"train_{scope}_forward"] = forward
+        row[f"train_{scope}_backward"] = backward
+        check(math.isfinite(float(loss.detach())), "train step loss finite")
+        for t in leaves:
+            t.grad = None
+    for t in leaves:
+        t.requires_grad_(False)
+    check(not any(row["train_enabled=False_forward"].values())
+          and not any(row["train_enabled=False_backward"].values()),
+          "a forward under use(enabled=False), its backward after the scope:"
+          " no kernel launched")
+    check(row["train_default_backward"]["tcec_matmul"] > 0,
+          "the same step under the default config launches kernel 1 in its "
+          "backward")
+    emit(row)
+    return row
+
+
+def verbs_on_the_card(dev):
+    """14e: ``repro_torch.matmul`` at 2048^3 x6 launches kernel 1 once and
+    passes phase 3's gate; ``repro_torch.attention`` at 2 x 512, 16/8 heads
+    launches kernel 2 once, within 1e-5 max|v| of plain."""
+    import repro_torch
+    from repro_torch.kernels import tcec_attention as ta
+    g = torch.Generator(device=dev).manual_seed(2048)
+    a = torch.rand(2048, 2048, generator=g, device=dev) * 2 - 1
+    b = torch.rand(2048, 2048, generator=g, device=dev) * 2 - 1
+    zero_counts()
+    out = repro_torch.matmul(a, b, policy="tcec_bf16x6")
+    mm = kernel_counts()
+    ref = a.double() @ b.double()
+    r6 = residual(ref, out)
+    r32 = residual(ref, a @ b)
+    q = torch.randn(2, 512, 16, 128, generator=g, device=dev)
+    k = torch.randn(2, 512, 8, 128, generator=g, device=dev)
+    v = torch.randn(2, 512, 8, 128, generator=g, device=dev)
+    zero_counts()
+    o = repro_torch.attention(q, k, v, policy="tcec_bf16x6")
+    at = kernel_counts()
+    err = float((o - ta.tcec_attention_plain(q, k, v)).abs().max())
+    row = {"phase14_verbs": "matmul 2048^3 x6, attention 2x512 16/8 hd 128",
+           "matmul_launches": mm, "x6_residual": r6, "sgemm_residual": r32,
+           "ratio": r6 / r32, "attention_launches": at,
+           "attention_max_abs_err": err,
+           "attention_tol": 1e-5 * float(v.abs().max())}
+    emit(row)
+    check(mm == {"tcec_matmul": 1, "tcec_attention": 0,
+                 "tcec_paged_attention": 0}, "matmul verb: kernel 1 once")
+    check(r6 <= 2 * r32, "matmul verb: x6 residual <= 2x SGEMM's")
+    check(at == {"tcec_matmul": 0, "tcec_attention": 1,
+                 "tcec_paged_attention": 0}, "attention verb: kernel 2 once")
+    check(err <= row["attention_tol"], "attention verb vs plain, 1e-5 max|v|")
+    return row, {"tcec_matmul": 1, "tcec_attention": 1,
+                 "tcec_paged_attention": 0}
+
+
+def mtp_under_the_tuner(dev, cache_path):
+    """14f (reported, no gate): 13g's comparison with the kernel side under
+    ``tune="auto"`` (the tuner measures the smoke-sized products; it takes
+    path S at M 65-128, where the rule by M takes path W), beside the same
+    comparison with the plain side against itself, every parameter scaled
+    by 1 + 1e-7: how far an f32-rounding-sized change moves the worst
+    gradient leaf.  The port's default tune mode stays "off" while 13g's
+    gate (1e-3 on that leaf) sits below it (``repro_torch/numerics.py``)."""
+    from repro_torch import numerics
+    with numerics.use(tune="auto", tune_cache=str(cache_path)):
+        tuned, moved, _, _ = mtp_row(dev)
+    floor, _, _, _ = mtp_row(dev, scale=1.0 + 1e-7)
+    keys = ("worst_leaf_rel_diff", "worst_leaf", "grad_norm_rel_diff",
+            "loss_rel_diff")
+    row = {"phase14_mtp_under_the_tuner": "deepseek-v3-671b smoke: 13g's "
+           "comparison under tune=auto, and plain against plain with the "
+           "parameters scaled by 1 + 1e-7 (reported, no gate)",
+           "tuned": {k: tuned[k] for k in keys}, "moved_routes": moved,
+           "plain_scaled_1e-7": {k: floor[k] for k in keys},
+           "gate_of_13g": 1e-3}
+    emit(row)
+    return row
+
+
+def numerics_path(dev):
+    """Phase 14: the numerics config and the measured tuner; returns the
+    launches of (a), (b) and (e)."""
+    from repro_torch import numerics
+    from repro_torch.kernels import tuning
+    cache = fresh_tune_cache("tcec_autotune_phase14.json")
+    pin = numerics.NumericsConfig(policy="tcec_bf16x6", fuse_epilogue=True,
+                                  tune="force", tune_cache=str(cache))
+    base = numerics.active()
+    total = dict.fromkeys(PORT_KERNELS, 0)
+    rec = RECORD["phase14"] = {}
+    # the earlier phases' engines hold their models through reference
+    # cycles (a wrapped bound method): collect them before this one
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["allocated_at_start_gb"] = torch.cuda.memory_allocated() / 1e9
+    emit({"phase14_allocated_at_start_gb": rec["allocated_at_start_gb"]})
+    before = tuning.measure_launches, tuning.capture_misses
+    rec["qwen3"], (cfg, params), launches = pinned_path(
+        dev, "qwen3-0.6b", pin)                                 # 14a
+    for k in total:
+        total[k] += launches[k]
+    rec["prefill_tuned_vs_off"] = prefill_tuned_vs_off(cfg, params, pin)
+    rec["hatches"] = hatches_on_the_card(dev, cfg, params, base)  # 14d
+    rec["verbs"], launches = verbs_on_the_card(dev)              # 14e
+    for k in total:
+        total[k] += launches[k]
+    del params, cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["gemma"], (cfg, params), launches = pinned_path(
+        dev, "gemma-2b", pin)                                   # 14b
+    for k in total:
+        total[k] += launches[k]
+    del params, cfg
+    torch.cuda.empty_cache()
+    rec["tuner"] = tuner_report(dev, cache, pin)                # 14c
+    rec["mtp_under_the_tuner"] = mtp_under_the_tuner(          # 14f
+        dev, fresh_tune_cache("tcec_autotune_phase14f.json"))
+    rec["tuner"]["phase_measure_launches"] = \
+        tuning.measure_launches - before[0]
+    rec["tuner"]["phase_capture_misses"] = tuning.capture_misses - before[1]
+    emit({"phase14_tuner_counts": {
+        k: rec["tuner"][k] for k in ("measure_launches", "capture_misses",
+                                     "phase_measure_launches",
+                                     "phase_capture_misses")}})
+    check(rec["tuner"]["phase_capture_misses"] == 0,
+          "no tuner miss while a graph was captured: the warm-up step "
+          "filled the cache first")
+    return total
 
 
 def main():
@@ -2730,6 +3256,10 @@ def main():
     import repro_torch  # noqa: F401  (sets TF32 off)
     from repro_torch.kernels import _build, tcec_matmul as tm
     dev = torch.device("cuda")
+    # any tuning of this process (REPRO_TUNE=1, or a scope that turns it
+    # on) starts cold from a file of this run, never the home directory's
+    RECORD["tune_cache"] = str(use_tune_cache(
+        fresh_tune_cache("tcec_autotune.json")).tune_cache)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2825,6 +3355,7 @@ def main():
     numerics_launches = paper_numerics(dev)        # phase 11
     large_launches = large_dense(dev)              # phase 12
     deepseek_launches = deepseek_path(dev)         # phase 13
+    config_launches = numerics_path(dev)           # phase 14
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -2839,7 +3370,8 @@ def main():
             "launches": launches[name] + train_launches.get(name, 0)
             + moe_launches[name] + ssm_launches[name]
             + encdec_launches[name] + numerics_launches[name]
-            + large_launches[name] + deepseek_launches[name],
+            + large_launches[name] + deepseek_launches[name]
+            + config_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

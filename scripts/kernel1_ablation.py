@@ -12,11 +12,11 @@ anything.  (Without the epilogue the compiler would drop the adds that feed
 nothing, so there is no variant without it.)  A switch point that no
 longer matches the source raises.
 
-Where the paths cross: the source with its path threshold set so that
-every M takes path S, and so that every M takes path W, each timed on the
-device alone (``chip_smoke.device_only_ms``, weights read cold) at the
-products of one qwen3-0.6b forward for M from 4 to 256, with the forward's
-sum of kernel-1 time on each path.
+Where the paths cross: the kernel as built, each product launched on path
+S and on path W (the C entry's ``path`` argument), timed on the device
+alone (``chip_smoke.device_only_ms``, weights read cold) at the products
+of one qwen3-0.6b forward for M from 4 to 256, with the forward's sum of
+kernel-1 time on each path.
 
 Also times the host side of the public entry at the decode gate against
 ``torch.matmul``'s.
@@ -26,7 +26,6 @@ limit; builds go to ``build/kernel1_ablation/``.
 """
 import ctypes
 import json
-import re
 import subprocess
 import sys
 import time
@@ -79,8 +78,7 @@ VARIANTS = {
 SHAPES = [("unembed at prefill", 1024, 151936, 1024, True, 3),
           ("mlp gate at prefill", 1024, 3072, 1024, False, 20),
           ("ragged 1000^3", 1000, 1000, 1000, False, 20)]
-THRESHOLD = re.compile(r"constexpr int SKINNY_MAX_M = \d+;")
-PATHS = {"skinny": 1 << 30, "wgmma": 0}      # the threshold of each variant
+PATHS = {"skinny": 0, "wgmma": 1}      # the C entry's path argument
 # the products of a qwen3-0.6b forward: (N, K, trans_b), launches a forward
 FORWARD = {"q": (2048, 1024, False, 28), "k, v": (1024, 1024, False, 56),
            "o": (1024, 2048, False, 28), "gate, up": (3072, 1024, False, 56),
@@ -90,11 +88,6 @@ CROSS_M = (4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256)
 
 def sources() -> None:
     s = (ROOT / "src/repro_torch/csrc/tcec_matmul.cu").read_text()
-    if not THRESHOLD.search(s):
-        raise RuntimeError("path threshold not found")
-    for path, m in PATHS.items():
-        (OUT / f"{path}.cu").write_text(
-            THRESHOLD.sub(f"constexpr int SKINNY_MAX_M = {m};", s))
     for old, new in SWITCHES:
         if old not in s:
             raise RuntimeError(f"switch point not found: {old!r}")
@@ -104,10 +97,8 @@ def sources() -> None:
 
 def build(name: str) -> Path:
     lib = OUT / f"lib_{name}.so"
-    src, defs = OUT / f"{name}.cu", []
-    if name in VARIANTS:
-        src = OUT / "ablation.cu"
-        defs = [f"-D{f}={int(f in VARIANTS[name])}" for f in FLAGS]
+    src = OUT / "ablation.cu"
+    defs = [f"-D{f}={int(f in VARIANTS[name])}" for f in FLAGS]
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     r = subprocess.run([_build._nvcc(), *flags, "-I", str(_build.CSRC),
                         *defs, "-o", str(lib), str(src)],
@@ -117,12 +108,9 @@ def build(name: str) -> Path:
     return lib
 
 
-def crossing(libs, dev, stream):
+def crossing(dev, stream):
     """Both paths at each M of CROSS_M, at the products of one forward."""
-    fns = {}
-    for path in PATHS:
-        fns[path] = ctypes.CDLL(str(libs[path])).tcec_matmul_launch
-        fns[path].argtypes = tm._ARGTYPES
+    fn = _build.entry("tcec_matmul", tm._ARGTYPES)
     for M in CROSS_M:
         row = {"M": M, "policy": "tcec_bf16x6"}
         total = dict.fromkeys(PATHS, 0.0)
@@ -133,11 +121,11 @@ def crossing(libs, dev, stream):
             ws = [torch.randn((N, K) if tb else (K, N), device=dev)
                   for _ in range(copies)]
             c = torch.empty(M, N, device=dev)
-            for path, fn in fns.items():
+            for path, p in PATHS.items():
                 ms = device_only_ms(lambda i: fn(
                     a.data_ptr(), ws[i % copies].data_ptr(), None,
                     c.data_ptr(), 1, M, N, K, int(tb), 0, K if tb else N,
-                    3, 8, 1.0, 0, stream),
+                    3, 8, 1.0, 0, p, stream),
                     max(10, 2 * copies))
                 row[f"{name} {path}_ms"] = ms
                 total[path] += per_forward * ms
@@ -169,18 +157,19 @@ def main():
     print(json.dumps({"nvidia_smi": smi}), flush=True)
     OUT.mkdir(parents=True, exist_ok=True)
     sources()
-    names = [*PATHS, *VARIANTS]
+    _build.build()
     with ThreadPoolExecutor(8) as ex:
-        libs = dict(zip(names, ex.map(build, names)))
+        libs = dict(zip(VARIANTS, ex.map(build, VARIANTS)))
     dev = torch.device("cuda")
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    crossing(libs, dev, stream)
+    crossing(dev, stream)
     for name, M, N, K, tb, reps in SHAPES:
         a = torch.randn(M, K, device=dev)
         w = torch.randn((N, K) if tb else (K, N), device=dev)
         c = torch.empty(M, N, device=dev)
         args = (a.data_ptr(), w.data_ptr(), None, c.data_ptr(), 1, M, N, K,
-                int(tb), 0, K if tb else N, 3, 8, 1.0, 0, stream)
+                int(tb), 0, K if tb else N, 3, 8, 1.0, 0, PATHS["wgmma"],
+                stream)
         row = {"shape": name, "M": M, "N": N, "K": K, "policy": "tcec_bf16x6"}
         for v in VARIANTS:
             fn = ctypes.CDLL(str(libs[v])).tcec_matmul_launch

@@ -2,12 +2,15 @@
 """Kernel 1's phase-2 rows of ``chip_smoke.py`` (``KERNEL1_CASES``) timed
 on one card, for one checkout of the port.
 
-    python3 scripts/kernel1_rows.py [--tree DIR]
+    python3 scripts/kernel1_rows.py [--tree DIR] [--path skinny|wgmma]
 
 ``--tree`` is the root of the checkout whose ``src/repro_torch`` is timed
 (default: this one); the shapes are this checkout's list, so that two
 commits are timed on the same products, each in a process of its own:
-parent, change, change, parent.  Each row: the public entry's time
+parent, change, change, parent.  ``--path`` launches every row on that
+path (the entry's ``block=``, a tile of ``tcec_matmul.tiles()``; a tree
+whose entry has no ``block`` refuses it); without it each row takes the
+rule by M, as every tree's entry does.  Each row: the public entry's time
 (``ms``, CUDA events around ``reps`` calls after one warm-up, weight
 copies rotated as in ``chip_smoke.py``) and the same launches with the host
 taken out (``device_only_ms``).  No plain version or library call is timed.
@@ -31,6 +34,7 @@ from chip_smoke import (KERNEL1_CASES, device_only_ms, emit,  # noqa: E402
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(ROOT))
+    ap.add_argument("--path", choices=("skinny", "wgmma"), default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel1_rows: no CUDA card", file=sys.stderr)
@@ -38,7 +42,8 @@ def main(argv=None):
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree / "src"))
     import repro_torch  # noqa: F401  (sets TF32 off)
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, tcec_matmul as tm
+    kw = {} if args.path is None else {"block": tm.tiles()[args.path]}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -60,9 +65,10 @@ def main(argv=None):
         bs = [w.mT if tb else w for w in ws]
 
         def entry(i):
-            return ops.tcec_matmul(a.contiguous(), bs[i % copies])
+            return ops.tcec_matmul(a.contiguous(), bs[i % copies], **kw)
 
         emit({"shape": case["name"], "M": M, "N": N, "K": K,
+              "path": args.path or tm.path(M),
               "ms": time_ms(rotating(entry), reps),
               "device_only_ms": device_only_ms(entry, reps)})
         del a, ws, bs

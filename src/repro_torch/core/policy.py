@@ -16,10 +16,12 @@ in plain PyTorch on any device (the JAX package's XLA scan; no kernel).
 Gradients keep the policy: :class:`_PolicyDot` (the counterpart of the JAX
 package's ``_make_dg`` ``custom_vjp``) runs the backward's two products
 ``da = g . b`` and ``db = a . g`` through :func:`_dot_impl` under the same
-policy, so on the card they run kernel 1 too.  The front-ends take it only
-when autograd needs it (grad mode on and an operand that requires grad);
-otherwise they call :func:`_dot_impl` directly, so serving pays nothing
-for it.
+policy, so on the card they run kernel 1 too, and under the forward's
+numerics config (autograd runs a CUDA backward on a worker thread, which
+does not see the forward's ``numerics.use`` scope).  The front-ends take it
+only when autograd needs it (grad mode on and an operand that requires
+grad); otherwise they call :func:`_dot_impl` directly, so serving pays
+nothing for it.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import numerics
 from .split import MANTISSA_BITS, split
 
 
@@ -106,15 +109,12 @@ POLICIES: dict[str, PrecisionPolicy] = {
         keep=((0, 0), (0, 1), (1, 0)), upcast_products=True),
 }
 
-DEFAULT_POLICY = "fp32"
-
-
 def get_policy(p) -> PrecisionPolicy:
-    """Resolve a policy name / instance / None (None = ``fp32``, the
-    default of the JAX package's numerics config)."""
+    """Resolve a policy name / instance / None (None = the active
+    ``numerics.NumericsConfig``'s policy, ``fp32`` by default)."""
     if isinstance(p, PrecisionPolicy):
         return p
-    return POLICIES[DEFAULT_POLICY if p is None else p]
+    return POLICIES[numerics.active().policy if p is None else p]
 
 
 # ---------------------------------------------------------------------------
@@ -282,12 +282,14 @@ class _PolicyDot(torch.autograd.Function):
     -> (batch..., m..., n...)`` with a policy-preserving backward: both
     gradient products run through :func:`_dot_impl` under the forward's
     policy (a ``bf16`` policy rounds the cotangent to bf16 as well), and
-    come back in the operands' dtypes."""
+    come back in the operands' dtypes.  The backward runs under the
+    forward's numerics config."""
 
     @staticmethod
     def forward(ctx, at, bt, policy, nbatch, nm, nk, nn):
         ctx.save_for_backward(at, bt)
         ctx.policy, ctx.counts = policy, (nbatch, nm, nk, nn)
+        ctx.numerics = numerics.active()
         return _dot_impl(at, bt, policy, _canonical_dims(nbatch, nm, nk))
 
     @staticmethod
@@ -297,17 +299,18 @@ class _PolicyDot(torch.autograd.Function):
         nbatch, nm, nk, nn = ctx.counts
         bdims = tuple(range(nbatch))
         da = db = None
-        if ctx.needs_input_grad[0]:
-            # g: (batch, m, n); da = g . bt over n -> (batch, m, k)
-            gn = tuple(range(nbatch + nm, nbatch + nm + nn))
-            btn = tuple(range(nbatch + nk, nbatch + nk + nn))
-            da = _dot_impl(g, bt, ctx.policy,
-                           ((gn, btn), (bdims, bdims))).to(at.dtype)
-        if ctx.needs_input_grad[1]:
-            # db = at . g over m -> (batch, k, n)
-            m = tuple(range(nbatch, nbatch + nm))
-            db = _dot_impl(at, g, ctx.policy,
-                           ((m, m), (bdims, bdims))).to(bt.dtype)
+        with numerics.use(ctx.numerics):
+            if ctx.needs_input_grad[0]:
+                # g: (batch, m, n); da = g . bt over n -> (batch, m, k)
+                gn = tuple(range(nbatch + nm, nbatch + nm + nn))
+                btn = tuple(range(nbatch + nk, nbatch + nk + nn))
+                da = _dot_impl(g, bt, ctx.policy,
+                               ((gn, btn), (bdims, bdims))).to(at.dtype)
+            if ctx.needs_input_grad[1]:
+                # db = at . g over m -> (batch, k, n)
+                m = tuple(range(nbatch, nbatch + nm))
+                db = _dot_impl(at, g, ctx.policy,
+                               ((m, m), (bdims, bdims))).to(bt.dtype)
         return da, db, None, None, None, None, None
 
 

@@ -19,7 +19,9 @@
 // The f32 operands are split into their bf16 terms on chip; the terms never
 // reach device memory.
 //
-// One C entry, tcec_matmul_launch, chooses the path by M alone:
+// One C entry, tcec_matmul_launch, runs one of two paths: the one its path
+// argument names (0 path S, 1 path W; the autotuner measures both), or by
+// M alone (path -1):
 //
 // Path W (M > SKINNY_MAX_M, prefill): bound by operations.  x6 runs 6 bf16
 //   products (989 TFLOP/s dense), and the rule's f32 adds cost as many SM
@@ -88,7 +90,9 @@
 //   is the faster of the two on the sum of one qwen3-0.6b forward's
 //   products up to M 64 and path W from M 96.  Each product's own crossing
 //   lies between M 24-32 (the unembed, where path W fills the card) and
-//   M 128-192 (o, down).
+//   M 128-192 (o, down).  So the threshold is the rule of path -1 only:
+//   the dispatcher passes the path that kernels/tuning.py measured fastest
+//   for the product's shape bucket, or this rule where it did not measure.
 #include <cstdint>
 #include <mutex>
 #include <type_traits>
@@ -628,9 +632,10 @@ cudaError_t prepare(const Plan& p) {
   return err;
 }
 
+// path: 0 path S, 1 path W, -1 by M (path S up to SKINNY_MAX_M).
 template <int NS>
-Plan plan_for(int M, int N, int batch, int tb) {
-  if (M <= SKINNY_MAX_M) {
+Plan plan_for(int M, int N, int batch, int tb, int path) {
+  if (path < 0 ? M <= SKINNY_MAX_M : path == 0) {
     using namespace skinny;
     Kernel k = tb ? skinny_kernel<NS, 1> : skinny_kernel<NS, 0>;
     const int groups = (M + SLOTS - 1) / SLOTS;
@@ -643,11 +648,12 @@ Plan plan_for(int M, int N, int batch, int tb) {
           wide::THREADS, wide::Layout<NS>::bytes, wide::Layout<NS>::bytes};
 }
 
-Plan plan(int M, int N, int batch, int tb, int n_splits) {
+Plan plan(int M, int N, int batch, int tb, int n_splits, int path) {
+  if (path < -1 || path > 1) return {nullptr, dim3(), 0, 0, 0};
   switch (n_splits) {
-    case 2: return plan_for<2>(M, N, batch, tb);
-    case 3: return plan_for<3>(M, N, batch, tb);
-    case 4: return plan_for<4>(M, N, batch, tb);
+    case 2: return plan_for<2>(M, N, batch, tb, path);
+    case 3: return plan_for<3>(M, N, batch, tb, path);
+    case 4: return plan_for<4>(M, N, batch, tb, path);
     default: return {nullptr, dim3(), 0, 0, 0};
   }
 }
@@ -661,8 +667,8 @@ extern "C" int tcec_matmul_launch(const void* a, const void* b,
                                   int N, int K, int trans_b, long long sb,
                                   int ldb, int n_splits, int scale_bits,
                                   float out_scale, int activation,
-                                  void* stream) {
-  const Plan p = plan(M, N, batch, trans_b, n_splits);
+                                  int path, void* stream) {
+  const Plan p = plan(M, N, batch, trans_b, n_splits, path);
   if (p.kernel == nullptr) return cudaErrorInvalidValue;
   const cudaError_t err = prepare(p);
   if (err != cudaSuccess) return err;
@@ -684,8 +690,8 @@ extern "C" int tcec_matmul_skinny_max() { return SKINNY_MAX_M; }
 
 // The grid of a launch: out[0] blocks, out[1] blocks resident an SM.
 extern "C" int tcec_matmul_grid(int M, int N, int batch, int trans_b,
-                                int n_splits, int* out) {
-  const Plan p = plan(M, N, batch, trans_b, n_splits);
+                                int n_splits, int path, int* out) {
+  const Plan p = plan(M, N, batch, trans_b, n_splits, path);
   if (p.kernel == nullptr) return cudaErrorInvalidValue;
   const cudaError_t err = prepare(p);
   if (err != cudaSuccess) return err;

@@ -1,10 +1,13 @@
 """Kernel 1: the TCEC GEMM — an f32-accurate product from bf16 tensor cores.
 
 Counterpart of ``repro/kernels/tcec_matmul.py::_kernel``.  The CUDA kernel
-(``csrc/tcec_matmul.cu``) has two paths under one entry, chosen by M: for
-M above :func:`skinny_max` (prefill) a warp-specialised wgmma kernel, for
-smaller M (decode, M = slots; short prefills) a kernel that streams the
-weight once.  Both split the f32 operands into bf16 terms on chip, run
+(``csrc/tcec_matmul.cu``) has two paths under one entry: path W, a
+warp-specialised wgmma kernel (prefill), and path S, a kernel that streams
+the weight once (decode, M = slots; short prefills).  A launch names its
+path (``path=``, or a tile of :func:`tiles` through ``ops.tcec_matmul``'s
+``block=``: the autotuner's choice, ``kernels/tuning.py``) or takes the
+rule by M (path S up to :func:`skinny_max`).  Both split the f32 operands
+into bf16 terms on chip, run
 every kept term product on the tensor cores into a zeroed fragment, add it
 in f32 into the accumulator of its scale group, fold the groups
 smallest-first and apply ``out_scale`` -> bias -> activation before their
@@ -15,12 +18,17 @@ each kept pass as an f32 ``torch.matmul`` of the upcast terms (exact
 products), per-group sums, smallest-first fold, epilogue.  The CPU tests run
 it; on the card ``chip_smoke.py`` holds the kernel against it.
 
-``launches`` counts kernel launches (one per :func:`launch`).
+``launches`` counts kernel launches (one per :func:`launch`), and
+``epilogue_launches`` those of them that fused an activation, by its name.
+The autotuner's measurement launches go through :func:`enqueue`, which
+counts nothing here (``tuning.measure_launches`` counts them).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import re
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +50,7 @@ EPILOGUE_ACTIVATIONS = {
 ACTIVATION_IDS = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 
 launches = 0
+epilogue_launches = {name: 0 for name in ACTIVATION_IDS if name}
 # (n_splits, scale_bits) of each policy name the kernel took
 _SPLITS: dict[str, tuple[int, int]] = {}
 
@@ -148,10 +157,13 @@ def _plain(a, b, pol):
 
 
 # a, b, bias, c; batch, M, N, K, trans_b; B's batch stride; B's row stride,
-# n_splits, scale_bits; out_scale; activation; stream
+# n_splits, scale_bits; out_scale; activation; path; stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
     ctypes.c_longlong] + [ctypes.c_int] * 3 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+# The kernel's paths, by the index the C entry takes (-1: by M).
+PATHS = ("skinny", "wgmma")
 
 
 def b_layout(b) -> tuple[int, int, int] | None:
@@ -174,11 +186,23 @@ def b_layout(b) -> tuple[int, int, int] | None:
 
 
 def launch(a, b, policy="tcec_bf16x6", bias=None, activation=None,
-           out_scale: float = 1.0):
+           out_scale: float = 1.0, path: int | None = None):
     """Launch the CUDA kernel on f32 CUDA operands: ``a`` contiguous,
     ``b`` any tensor whose rows or columns are contiguous, read in place
-    (:func:`b_layout`)."""
+    (:func:`b_layout`).  ``path``: 0 path S, 1 path W, None the rule by M.
+    Counted in ``launches`` (and ``epilogue_launches``)."""
     global launches
+    out = enqueue(a, b, policy, bias, activation, out_scale, path)
+    launches += 1
+    if activation is not None:
+        epilogue_launches[activation] += 1
+    return out
+
+
+def enqueue(a, b, policy="tcec_bf16x6", bias=None, activation=None,
+            out_scale: float = 1.0, path: int | None = None, out=None):
+    """:func:`launch` without its count, into ``out`` when given (the
+    autotuner's measurements)."""
     # this runs ~200 times a decode step: few Python objects on its path
     splits = _SPLITS.get(policy) if isinstance(policy, str) else None
     if splits is None:
@@ -217,42 +241,97 @@ def launch(a, b, policy="tcec_bf16x6", bias=None, activation=None,
     trans_b, sb, ldb = layout
     if bias is not None and (bias.shape != (N,) or not bias.is_contiguous()):
         raise ValueError(f"bias must be a contiguous ({N},) vector")
-    out = a.new_empty((*bdims, M, N))
+    if path not in (None, 0, 1):
+        raise ValueError(f"path must be 0 (path S), 1 (path W) or None, "
+                         f"got {path!r}")
+    if out is None:
+        out = a.new_empty((*bdims, M, N))
+    elif out.shape != (*bdims, M, N) or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous {(*bdims, M, N)}")
     if out.numel() == 0:
         return out
     status = _build.entry("tcec_matmul", _ARGTYPES)(
         a.data_ptr(), b.data_ptr(), None if bias is None else bias.data_ptr(),
         out.data_ptr(), batch, M, N, K, trans_b, sb, ldb, *splits,
         out_scale,
-        ACTIVATION_IDS[activation],
+        ACTIVATION_IDS[activation], -1 if path is None else path,
         _build.stream(a))
     _build.check("tcec_matmul", status)
-    launches += 1
     return out
 
 
+def _int_constants(block: str) -> dict[str, int]:
+    """The ``constexpr int`` declarations of a piece of C++ that are a
+    product of literals and earlier names (``BKS = 16 * WARPS``)."""
+    vals: dict[str, int] = {}
+    for decl in re.findall(r"constexpr int ([^;(]+);", block):
+        for part in decl.split(","):
+            name, _, expr = part.partition("=")
+            factors = [f.strip() for f in expr.split("*")]
+            if all(f.isdigit() or f in vals for f in factors):
+                vals[name.strip()] = math.prod(
+                    int(f) if f.isdigit() else vals[f] for f in factors)
+    return vals
+
+
+@functools.lru_cache(maxsize=None)
+def _source_constants() -> dict:
+    """The threshold and the two paths' tiles, read from the CUDA source
+    (pure Python, so the CPU has them too)."""
+    text = (_build.CSRC / "tcec_matmul.cu").read_text()
+
+    def namespace(name):
+        m = re.search(rf"namespace {name} {{(.*?)}}  // namespace {name}",
+                      text, re.S)
+        return _int_constants(m.group(1))
+
+    w, sk = namespace("wide"), namespace("skinny")
+    return {"skinny_max": _int_constants(text)["SKINNY_MAX_M"],
+            "tiles": {"skinny": (sk["SLOTS"], sk["BN"], sk["BKS"]),
+                      "wgmma": (w["BM"], w["BN"], w["BK"])}}
+
+
 def skinny_max() -> int:
-    """The largest M that the kernel runs on its decode path (read from the
-    CUDA source, where the threshold lives)."""
-    fn = _build.library("tcec_matmul").tcec_matmul_skinny_max
-    fn.restype = ctypes.c_int
-    return fn()
+    """The largest M that the rule by M runs on path S (read from the CUDA
+    source, where the threshold lives)."""
+    return _source_constants()["skinny_max"]
+
+
+def tiles() -> dict[str, tuple[int, int, int]]:
+    """Each path's tile ``(rows of A, columns of B, depth of a stage)``, as
+    the CUDA source compiles them: path W ``(128, 64, 64)``, path S ``(8,
+    16, 128)`` (8 slots, 16 weight rows, 128-deep stages).  These are the
+    values of the numerics config's ``block``."""
+    return _source_constants()["tiles"]
+
+
+def block_path(block) -> int:
+    """The C entry's path index of a tile of :func:`tiles`; any other
+    triple raises ``ValueError``."""
+    block = tuple(block)
+    for i, name in enumerate(PATHS):
+        if tiles()[name] == block:
+            return i
+    raise ValueError(f"kernel 1 has two tiles, {tiles()['wgmma']} (path W) "
+                     f"and {tiles()['skinny']} (path S); got {block}")
 
 
 def path(M: int) -> str:
-    """Which of the kernel's paths a product with M rows takes."""
+    """Which of the kernel's paths the rule by M gives a product with M
+    rows."""
     return "skinny" if M <= skinny_max() else "wgmma"
 
 
 def grid(M: int, N: int, batch: int = 1, trans_b: bool = False,
-         policy="tcec_bf16x6"):
-    """``(blocks, blocks resident per SM)`` of a launch at these shapes."""
+         policy="tcec_bf16x6", path: int | None = None):
+    """``(blocks, blocks resident per SM)`` of a launch at these shapes, on
+    ``path`` (0 path S, 1 path W, None the rule by M)."""
     pol = get_policy(policy)
     check_policy(pol)
     fn = _build.library("tcec_matmul").tcec_matmul_grid
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 2)()
     _build.check("tcec_matmul", fn(M, N, batch, int(trans_b), pol.n_splits,
-                                   out))
+                                   -1 if path is None else path, out))
     return out[0], out[1]

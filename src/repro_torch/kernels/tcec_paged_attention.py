@@ -17,7 +17,11 @@ zeros.  Head dims up to 256 (the gemmas) and GQA ratios up to 8 (MQA at
 :func:`tcec_paged_attention` is the public entry (launch on CUDA, plain
 version on CPU); :func:`tcec_paged_attention_plain` is the same function in
 plain PyTorch, chunk for chunk.  ``launches`` counts calls of the entry
-that launched the kernel (one a call, whether or not the second pass runs).
+that launched the kernel (one a call, whether or not the second pass runs);
+the autotuner's measurements go through :func:`enqueue`, which counts
+nothing here.  :func:`takes_chunk` is the C entry's shared-memory rule for
+a C, computed from the same layout (``csrc/tcec_paged_attention.cu::
+Layout``), so that the autotuner launches no C the entry would refuse.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ HDMAX = 256
 KV_BUDGET = 32 * 1024   # bytes of K and V a chunk gathers into shared memory
 CHUNK_TOKENS = 128      # most tokens a chunk's scores and terms are kept for
 SMS = 132               # H100 SXM streaming multiprocessors
+SMEM_MAX = 232448       # bytes of shared memory a block may use (the C's)
 
 launches = 0
 # q, k_pages, v_pages, block_tables, lengths, out, workspace; B, Hkv, rep,
@@ -61,6 +66,38 @@ def chunk_pages(B: int, Hkv: int, maxp: int, ps: int, hd: int = HDMAX,
     while c > 1 and B * Hkv * -(-maxp // c) < 2 * SMS:
         c -= 1
     return c
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def smem_bytes(C: int, ps: int, rep: int, hd: int, hdv: int,
+               n_splits: int) -> int:
+    """Dynamic shared memory of a first-pass block at C pages a chunk: the
+    C source's ``Layout(C, ps, rep, hd, hdv, ns).total``."""
+    TP = _round_up(C * ps, 16)
+    hd16, hdv16 = _round_up(hd, 16), _round_up(hdv, 16)
+    NQ, MP = _round_up(rep * n_splits, 8), _round_up(rep * n_splits, 16)
+    kstride, vstride, pstride = hd16 * 2 + 16, hdv16 * 2 + 16, TP * 2 + 16
+    vs = max(TP * kstride, MP * hdv16 * 4)
+    qb = vs + TP * vstride
+    sg = qb + NQ * kstride
+    ss = sg + TP * NQ * 4
+    pa = ss + rep * TP * 4
+    rows = pa + MP * pstride
+    return rows + TP * 4
+
+
+def takes_chunk(C: int, maxp: int, ps: int, rep: int, hd: int, hdv: int,
+                n_splits: int) -> bool:
+    """Whether the C entry takes C pages a chunk: C within the block table,
+    the first pass's block and the combine's ``2 chunks rep`` floats within
+    ``SMEM_MAX`` (else it returns ``cudaErrorInvalidValue``)."""
+    nch = -(-maxp // C) if maxp > 0 else 1
+    return (1 <= C <= max(maxp, 1)
+            and smem_bytes(C, ps, rep, hd, hdv, n_splits) <= SMEM_MAX
+            and (nch == 1 or 2 * nch * rep * 4 <= SMEM_MAX))
 
 
 def live_chunks(lengths, maxp: int, ps: int, C: int, window: int = 0):
@@ -147,6 +184,14 @@ def _plain_core(qt, k_pages, v_pages, block_tables, lengths, pol, window,
 def _launch(qt, k_pages, v_pages, block_tables, lengths, pol, window,
             softcap, sm_denom, C):
     global launches
+    out = _enqueue(qt, k_pages, v_pages, block_tables, lengths, pol, window,
+                   softcap, sm_denom, C)
+    launches += 1
+    return out
+
+
+def _enqueue(qt, k_pages, v_pages, block_tables, lengths, pol, window,
+             softcap, sm_denom, C):
     B, Hkv, rep, hd = qt.shape
     NP, ps, Hkv2, hd2 = k_pages.shape
     hdv = v_pages.shape[3]
@@ -182,7 +227,6 @@ def _launch(qt, k_pages, v_pages, block_tables, lengths, pol, window,
                 float(softcap or 0.0), float(sm_denom), pol.n_splits,
                 pol.scale_bits, _build.stream(qt))
     _build.check("tcec_paged_attention", status)
-    launches += 1
     return out
 
 
@@ -206,6 +250,15 @@ def _run(core, q, k_pages, v_pages, block_tables, lengths, policy, window,
     out = core(qt, k_pages, v_pages, block_tables, lengths, pol, window,
                softcap, float(math.sqrt(hd)), C)
     return out.reshape(B, H, hdv)
+
+
+def enqueue(q, k_pages, v_pages, block_tables, lengths, *,
+            policy: str = "tcec_bf16x6", window=0,
+            softcap: float | None = None, pages_per_chunk: int | None = None):
+    """:func:`tcec_paged_attention` on CUDA operands, uncounted (the
+    autotuner's measurements)."""
+    return _run(_enqueue, q, k_pages, v_pages, block_tables, lengths, policy,
+                window, softcap, pages_per_chunk)
 
 
 def tcec_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,

@@ -1,7 +1,8 @@
 """Serving CLI and the batch ``generate`` API.
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b [--smoke] \\
-      --batch 4 --prompt-len 16 --gen 32 [--device cuda]
+      --batch 4 --prompt-len 16 --gen 32 [--device cuda] \\
+      [--numerics fuse_epilogue=1 ...]
 
 Two code paths, as in the JAX package:
 
@@ -19,6 +20,8 @@ Two code paths, as in the JAX package:
     then ``decode_step``), and the VLM loop is text only.
 
 Parameters are random, from ``--seed``; prompts are random tokens.
+``--numerics KEY=VALUE`` (repeatable) sets fields of the numerics config the
+run uses (``repro_torch.numerics.NumericsConfig``); the engine pins it.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import numerics, resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.models import get_model
 from repro_torch.models.modules import tree_map
@@ -118,8 +121,13 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    numerics.add_cli_overrides(ap)
     args = ap.parse_args(argv)
+    with numerics.cli_context(args):
+        _main(args)
 
+
+def _main(args):
     device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.policy:

@@ -1,7 +1,8 @@
 """Training CLI.
 
   python -m repro_torch.launch.train --arch qwen3-0.6b [--smoke] \\
-      --steps 100 --ckpt-dir DIR [--policy tcec_bf16x6] [--device cuda]
+      --steps 100 --ckpt-dir DIR [--policy tcec_bf16x6] [--device cuda] \\
+      [--numerics KEY=VALUE ...]
 
 Parameters start random, from ``--seed``; the data is the synthetic
 stream of ``data.pipeline``.  A run resumes from the newest checkpoint in
@@ -9,7 +10,9 @@ stream of ``data.pipeline``.  A run resumes from the newest checkpoint in
 directory); a checkpoint there whose leaf paths or shapes differ from the
 requested config's (another arch's run) is refused before any step, with
 a ``ValueError`` that names the first leaf that differs.  It runs on
-``cuda`` unless ``--device cpu`` is given.
+``cuda`` unless ``--device cpu`` is given.  ``--numerics KEY=VALUE``
+(repeatable) sets fields of the numerics config the run uses; the backward
+runs under it too.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import argparse
 import os
 import tempfile
 
-from repro_torch import resolve_device
+from repro_torch import numerics, resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.optim import adamw
@@ -40,8 +43,13 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    numerics.add_cli_overrides(ap)
     args = ap.parse_args(argv)
+    with numerics.cli_context(args):
+        _main(args)
 
+
+def _main(args):
     device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.policy:

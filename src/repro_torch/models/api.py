@@ -14,11 +14,17 @@ and ``generate`` check for that.
 plus ``"frames"`` (enc-dec) or ``"patches"`` (VLM).  The text-only
 families also take a bare tokens tensor, so a caller may treat every
 family alike by passing the dict.
+
+``get_model(cfg, numerics_config)`` pins every entry of the handle to that
+:class:`repro_torch.numerics.NumericsConfig`, as JAX's does: each call runs
+inside ``numerics.use(numerics_config)``, whatever the caller's context.
 """
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 
+from repro_torch import numerics
 from . import encdec_lm, hybrid_lm, lm, ssm_lm, vlm_lm
 
 _FAMILIES = {"dense": lm, "moe": lm, "ssm": ssm_lm, "hybrid": hybrid_lm,
@@ -27,8 +33,26 @@ _FAMILIES = {"dense": lm, "moe": lm, "ssm": ssm_lm, "hybrid": hybrid_lm,
 _BATCH_INPUT = ("audio", "vlm")
 
 
-def get_model(cfg) -> SimpleNamespace:
-    """Build the model handle for ``cfg``."""
+_ENTRIES = ("init", "loss_fn", "forward_logits", "init_cache", "decode_step",
+            "prefill", "init_paged_cache", "decode_step_paged")
+
+
+def _pinned(fn, cfg: numerics.NumericsConfig):
+    if fn is None:
+        return None
+
+    @functools.wraps(fn)
+    def wrapped(*a, **kw):
+        with numerics.use(cfg):
+            return fn(*a, **kw)
+
+    return wrapped
+
+
+def get_model(cfg, numerics_config: numerics.NumericsConfig | None = None
+              ) -> SimpleNamespace:
+    """Build the model handle for ``cfg``; with ``numerics_config``, every
+    entry runs under that config."""
     mod = _FAMILIES.get(cfg.family)
     if mod is None:
         raise NotImplementedError(
@@ -41,7 +65,7 @@ def get_model(cfg) -> SimpleNamespace:
         def forward_logits(params, batch):
             tokens = batch["tokens"] if isinstance(batch, dict) else batch
             return mod.forward_logits(params, tokens, cfg)
-    return SimpleNamespace(
+    handle = SimpleNamespace(
         init=lambda seed=0, device=None: mod.init(cfg, seed, device),
         loss_fn=lambda params, batch: mod.loss_fn(params, batch, cfg),
         forward_logits=forward_logits,
@@ -60,3 +84,8 @@ def get_model(cfg) -> SimpleNamespace:
                                tokens)) if paged else None,
         module=mod,
     )
+    if numerics_config is not None:
+        for name in _ENTRIES:
+            setattr(handle, name, _pinned(getattr(handle, name),
+                                          numerics_config))
+    return handle

@@ -24,14 +24,13 @@ from __future__ import annotations
 from types import SimpleNamespace
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import pdot
 from . import layers as L
 from .lm import _grad_needed, _positions, cross_entropy, embed, unembed_logits
-from .modules import (dense_init, embed_init, generator, layer, layer_views,
-                      stack_init, zeros)
+from .modules import (checkpointed, dense_init, embed_init, generator, layer,
+                      layer_views, stack_init, zeros)
 
 
 def _enc_layer_init(gen, cfg, device):
@@ -97,7 +96,7 @@ def _run_layers(body, x, layers, remat, *args):
     scan body)."""
     for lp in layers:
         if remat:
-            x = checkpoint(body, lp, x, *args, use_reentrant=False)
+            x = checkpointed(body, lp, x, *args)
         else:
             x = body(lp, x, *args)
     return x

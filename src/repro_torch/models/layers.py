@@ -21,8 +21,10 @@ from types import SimpleNamespace
 import torch
 import torch.nn.functional as F
 
+from repro_torch import numerics
 from repro_torch.core import get_policy, pdot
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.tcec_matmul import EPILOGUE_ACTIVATIONS
 from .modules import dense_init, zeros
 
 NEG_INF = -2.0e38
@@ -182,13 +184,14 @@ class _FusedSDPA(torch.autograd.Function):
     composition :func:`_sdpa_composition` on the saved q, k, v and
     differentiates it.  The composition's pdots carry
     ``core.policy._PolicyDot``, so the gradient GEMMs run kernel 1 under the
-    same policy."""
+    same policy, under the forward's numerics config."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, k_pos, policy, softcap, causal, window):
         ctx.save_for_backward(q, k, v, q_pos, k_pos)
         ctx.cfg = SimpleNamespace(mix_policy=policy, attn_softcap=softcap)
         ctx.causal, ctx.window = causal, window
+        ctx.numerics = numerics.active()
         return dispatch.attention(q, k, v, policy=policy, q_pos=q_pos,
                                   k_pos=k_pos, causal=causal, window=window,
                                   softcap=softcap)
@@ -197,7 +200,7 @@ class _FusedSDPA(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         q, k, v, q_pos, k_pos = ctx.saved_tensors
-        with torch.enable_grad():
+        with torch.enable_grad(), numerics.use(ctx.numerics):
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = _sdpa_composition(*qkv, ctx.cfg, q_pos, k_pos, ctx.causal,
                                     ctx.window)
@@ -206,12 +209,13 @@ class _FusedSDPA(torch.autograd.Function):
 
 
 def sdpa(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
-    """Scaled-dot-product attention router: kernel 2 for the split
-    policies (through :class:`_FusedSDPA` when autograd needs a gradient),
-    the pdot composition for the others."""
-    if dispatch.eligible_policy(get_policy(cfg.mix_policy)) and (
-            torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+    """Scaled-dot-product attention router: kernel 2 where the numerics
+    config allows (through :class:`_FusedSDPA` when autograd needs a
+    gradient), the pdot composition otherwise."""
+    if (torch.is_grad_enabled()
+            and (q.requires_grad or k.requires_grad or v.requires_grad)
+            and dispatch.attention_eligible(q, k, v,
+                                            policy=cfg.mix_policy)):
         return _FusedSDPA.apply(q, k, v, q_pos, k_pos, cfg.mix_policy,
                                 cfg.attn_softcap, causal, window)
     out = dispatch.attention(q, k, v, policy=cfg.mix_policy, q_pos=q_pos,
@@ -328,7 +332,92 @@ def _act(x, kind: str):
     return F.gelu(x, approximate="tanh") if kind == "gelu" else F.silu(x)
 
 
+# ------------------------------------------------- fused linear epilogue
+#
+# Under the numerics config's ``fuse_epilogue``, act(x @ W + b) is one
+# kernel 1 launch: the bias add and the activation are its epilogue, so the
+# pre-activation never reaches device memory.  The backward recomputes the
+# pre-activation under the same policy and routes dx and dW through pdot,
+# as the JAX package's ``_fused_linear_bwd`` does.
+
+def _epilogue_act(z, activation):
+    """The activations kernel 1's epilogue takes, from its own table (the
+    fused and unfused paths share it; ``_act``'s anything-but-gelu-is-silu
+    default would not be safe here)."""
+    return EPILOGUE_ACTIVATIONS[activation](z)
+
+
+def _linear_unfused(x, w, b, activation, policy):
+    z = pdot("bsd,df->bsf", x, w, policy)
+    if b is not None:
+        z = z + b
+    return _epilogue_act(z, activation)
+
+
+def _fused_linear_fwd(x, w, b, activation, policy, cfg):
+    pol = get_policy(policy)
+    B, S, D = x.shape
+    F_ = w.shape[-1]
+    if (dispatch.epilogue_eligible(pol, cfg)
+            and min(B * S, D, F_) >= cfg.min_dim):
+        out = dispatch.fused_matmul(x.reshape(B * S, D), w, pol, b,
+                                    activation, cfg)
+        return out.reshape(B, S, F_)
+    return _linear_unfused(x, w, b, activation, policy)
+
+
+class _FusedLinear(torch.autograd.Function):
+    """:func:`fused_linear` with the JAX package's backward: the
+    pre-activation recomputed under the same policy, the activation's
+    derivative taken there, dx and dW through pdot; all under the forward's
+    numerics config."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, activation, policy):
+        ctx.numerics = numerics.active()
+        ctx.save_for_backward(x, w, b)
+        ctx.activation, ctx.policy = activation, policy
+        return _fused_linear_fwd(x, w, b, activation, policy, ctx.numerics)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        policy = ctx.policy
+        with numerics.use(ctx.numerics):
+            dz = dy
+            if ctx.activation:
+                z = _linear_unfused(x, w, b, None, policy).detach()
+                with torch.enable_grad():
+                    z.requires_grad_()
+                    dz, = torch.autograd.grad(
+                        _epilogue_act(z, ctx.activation), z, dy)
+            dx = pdot("bsf,df->bsd", dz, w, policy).to(x.dtype)
+            dw = pdot("bsd,bsf->df", x, dz, policy).to(w.dtype)
+        db = dz.sum(dim=(0, 1)).to(b.dtype) if b is not None else None
+        return dx, dw, db, None, None
+
+
+def fused_linear(x, w, b, activation, policy):
+    """act(x @ w + b) with the bias and activation in kernel 1's epilogue
+    when the numerics config allows it (``fuse_epilogue``, a kernel policy,
+    ``min(B S, D, F) >= min_dim``); the pdot path otherwise.
+
+    x: (B, S, D); w: (D, F); b: (F,) or None; activation: a key of
+    ``tcec_matmul.EPILOGUE_ACTIVATIONS``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b)):
+        return _FusedLinear.apply(x, w, b, activation, policy)
+    return _fused_linear_fwd(x, w, b, activation, policy, numerics.active())
+
+
 def mlp(p, x, cfg):
+    """The gated MLP.  Under ``fuse_epilogue`` the gate's activation runs
+    in kernel 1's epilogue and the up projection is fused without one."""
+    if numerics.active().fuse_epilogue:
+        g = fused_linear(x, p["w_gate"], None, cfg.activation, cfg.policy)
+        u = fused_linear(x, p["w_up"], None, None, cfg.policy)
+        return pdot("bsf,fd->bsd", g * u, p["w_down"], cfg.policy)
     g = pdot("bsd,df->bsf", x, p["w_gate"], cfg.policy)
     u = pdot("bsd,df->bsf", x, p["w_up"], cfg.policy)
     h = _act(g, cfg.activation) * u

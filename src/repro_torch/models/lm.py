@@ -29,14 +29,13 @@ import math
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import pdot
 from . import layers as L
 from . import mla as M
-from .modules import (dense_init, embed_init, generator, layer, layer_views,
-                      stack_init, tree_leaves, zeros)
+from .modules import (checkpointed, dense_init, embed_init, generator, layer,
+                      layer_views, stack_init, tree_leaves, zeros)
 
 
 def _check_ported(cfg):
@@ -219,8 +218,7 @@ def apply_blocks(params, x, cfg, positions, kv_out=None):
     for name, moe, _, p, w in _stack_layers(
             cfg, lambda name, n: layer_views(params[name], n)):
         if remat:
-            x, a = checkpoint(_block_out, p, x, cfg, positions, w, moe,
-                              use_reentrant=False)
+            x, a = checkpointed(_block_out, p, x, cfg, positions, w, moe)
         else:
             x, a, kv = block_prefill(p, x, cfg, positions, w, moe=moe)
             if kv_out is not None:

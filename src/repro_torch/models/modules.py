@@ -8,10 +8,24 @@ carries JAX parameters over exactly.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch import numerics
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)``, recomputed in the backward (``jax.checkpoint``): the
+    recompute runs under the forward's numerics config, since autograd's
+    worker thread does not see the forward's ``numerics.use`` scope."""
+    cfg = numerics.active()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          numerics.use(cfg)))
 
 
 def generator(seed: int, device) -> torch.Generator | None:

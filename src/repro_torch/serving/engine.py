@@ -38,6 +38,12 @@ meshes and defragmentation.
 
 Numerics contract (tests/test_torch_serving.py): with parameters bridged
 from JAX, greedy output is token-identical to the JAX engine's.
+
+The engine pins its numerics config at construction (``numerics_config``,
+else the caller's ``numerics.active()``), as JAX's does: its model handle
+runs every prefill, eager decode step, the decode graph's warm-up and its
+capture under that config, so a ``numerics.use`` entered mid-serve changes
+none of them (and no replay re-runs Python).
 """
 from __future__ import annotations
 
@@ -47,7 +53,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import numerics, resolve_device
 from repro_torch.kernels import (tcec_attention, tcec_matmul,
                                  tcec_paged_attention)
 from repro_torch.models import get_model
@@ -105,14 +111,18 @@ class Engine:
     cache_dtype: page-pool element dtype (bf16; kernel 3 takes bf16 pools).
     device: where the pools live and the steps run (default ``cuda``); the
         parameters must already be there.
+    numerics_config: the :class:`repro_torch.numerics.NumericsConfig` every
+        step runs under (default: the one active at construction).
     """
 
     def __init__(self, cfg, params, *, max_slots: int = 4,
                  num_pages: int | None = None,
                  page_size: int = DEFAULT_PAGE_SIZE,
                  max_pages_per_slot: int | None = None,
-                 cache_dtype=torch.bfloat16, device=None):
-        self.model = get_model(cfg)
+                 cache_dtype=torch.bfloat16, device=None,
+                 numerics_config: numerics.NumericsConfig | None = None):
+        self.numerics_config = numerics_config or numerics.active()
+        self.model = get_model(cfg, self.numerics_config)
         if self.model.decode_step_paged is None:
             raise ValueError(
                 f"family {cfg.family!r} has no paged decode path; use "
@@ -421,8 +431,9 @@ class _DecodeGraph:
 
     The kernels' Python wrappers run only at capture, so their launch
     counters see nothing of a replay: the increase each counter showed
-    during capture is reset there (the capture launched nothing) and added
-    at every replay.  The warm-up's launches are real and stay counted.
+    during capture (``launches``, and kernel 1's ``epilogue_launches``) is
+    reset there (the capture launched nothing) and added at every replay.
+    The warm-up's launches are real and stay counted.
     """
 
     def __init__(self, engine):
@@ -458,6 +469,7 @@ class _DecodeGraph:
             sampler(main())
         torch.cuda.current_stream(dev).wait_stream(side)
         before = [m.launches for m in self._counters]
+        epilogues = dict(tcec_matmul.epilogue_launches)
         self.main = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.main):
             self.logits = main()
@@ -465,6 +477,10 @@ class _DecodeGraph:
                            for m, n in zip(self._counters, before)]
         for m, n in zip(self._counters, before):
             m.launches = n
+        self.epilogues_per_replay = {
+            k: n - epilogues[k]
+            for k, n in tcec_matmul.epilogue_launches.items()}
+        tcec_matmul.epilogue_launches.update(epilogues)
         self.sampler = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.sampler):
             sampler(self.logits)
@@ -487,4 +503,6 @@ class _DecodeGraph:
         self.replays += 1
         for m, n in zip(self._counters, self.per_replay):
             m.launches += n
+        for k, n in self.epilogues_per_replay.items():
+            tcec_matmul.epilogue_launches[k] += n
         return self.host_out, self.done

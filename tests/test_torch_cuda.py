@@ -14,8 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
+from repro_torch import numerics  # noqa: E402
 from repro_torch.kernels import (ops, tcec_attention,  # noqa: E402
-                                 tcec_matmul, tcec_paged_attention)
+                                 tcec_matmul, tcec_paged_attention, tuning)
 
 U24 = 2.0 ** -24
 pytestmark = pytest.mark.cuda
@@ -26,6 +27,20 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _tune_cache(tmp_path_factory):
+    """The autotuner (tune "auto": it measures on the card) writes to a
+    file of this run, never to the home directory; process-wide, since a
+    CUDA backward runs on autograd's worker thread."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("REPRO_TUNE_CACHE",
+              str(tmp_path_factory.mktemp("tune") / "tcec_autotune.json"))
+    numerics.reload_env_defaults()
+    yield
+    mp.undo()
+    numerics.reload_env_defaults()
 
 
 # M up to 64 takes the decode path, a block for each group of 8 slots (M
@@ -65,16 +80,64 @@ def test_matmul_matches_plain(dev, policy, M, N, K, trans_b, batch):
 
 
 def test_matmul_paths(dev):
-    # the threshold is read from the CUDA source; the M of
-    # test_matmul_matches_plain sit on both sides of it
+    # the threshold is read from the CUDA source (the library's own query
+    # agrees); the M of test_matmul_matches_plain sit on both sides of it
+    import ctypes
+    from repro_torch.kernels import _build
     m = tcec_matmul.skinny_max()
-    assert m == 64
+    fn = _build.library("tcec_matmul").tcec_matmul_skinny_max
+    fn.restype = ctypes.c_int
+    assert m == fn() == 64
     assert tcec_matmul.path(m) == "skinny"
     assert tcec_matmul.path(m + 1) == "wgmma"
     blocks, per_sm = tcec_matmul.grid(1024, 1024)
     assert blocks == 8 * 16 and per_sm >= 1
     # path S: a block for each 16 weight rows and each group of 8 slots
     assert tcec_matmul.grid(9, 1000)[0] == 2 * 63
+    # a forced path's grid is its tile's (tcec_matmul.tiles(), read from
+    # the source): path S past the threshold, path W below it
+    for M in (4, 65, 1024):
+        for name, p in (("skinny", 0), ("wgmma", 1)):
+            bm, bn, _ = tcec_matmul.tiles()[name]
+            assert tcec_matmul.grid(M, 1000, 2, path=p)[0] == \
+                -(-M // bm) * -(-1000 // bn) * 2
+
+
+# Forced paths at M the rule never gives them: path S past 64 (more groups
+# of 8 slots, more blocks a weight band) and path W below 65 (ragged rows
+# masked), at the shapes of test_matmul_matches_plain, both layouts.
+@pytest.mark.parametrize("policy", ["tcec_bf16x3", "tcec_bf16x6",
+                                    "tcec_bf16x10"])
+@pytest.mark.parametrize("M", [1, 4, 17, 64, 65, 130, 1024])
+@pytest.mark.parametrize("path", ["skinny", "wgmma"])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("batch", [None, 2])
+def test_matmul_forced_path_matches_plain(dev, policy, M, path, trans_b,
+                                          batch):
+    N, K = 72, 300
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    bsh = () if batch is None else (batch,)
+    a = torch.rand(*bsh, M, K, generator=g, device=dev) * 2 - 1
+    b = (torch.rand(*bsh, N, K, generator=g, device=dev) * 2 - 1).mT \
+        if trans_b else torch.rand(*bsh, K, N, generator=g, device=dev) * 2 - 1
+    bias = torch.rand(N, generator=g, device=dev)
+    tile = tcec_matmul.tiles()[path]
+    before = tcec_matmul.launches, tcec_matmul.epilogue_launches["gelu"]
+    out = ops.tcec_matmul(a, b, policy, bias=bias, activation="gelu",
+                          block=tile)
+    assert (tcec_matmul.launches, tcec_matmul.epilogue_launches["gelu"]) \
+        == (before[0] + 1, before[1] + 1)
+    ref = tcec_matmul.tcec_matmul_plain(a, b, policy, bias=bias,
+                                        activation="gelu")
+    tol = 1.2 * 8 * K * U24 * (a.abs() @ b.abs()) + 8 * U24 * ref.abs()
+    assert bool(((out - ref).abs() <= tol).all())
+    out = ops.tcec_matmul(a, b, policy, block=tile)
+    ref = tcec_matmul.tcec_matmul_plain(a, b, policy)
+    assert bool(((out - ref).abs() <= 8 * K * U24 * (a.abs() @ b.abs()))
+                .all())
+    # the path the rule by M gives is the launch without a tile, bitwise
+    if tcec_matmul.path(M) == path:
+        assert torch.equal(out, ops.tcec_matmul(a, b, policy))
 
 
 def test_matmul_wrapper_raises_instead_of_falling_back(dev):
@@ -964,3 +1027,100 @@ def test_init_peak_is_weights_and_one_layer(dev):
     assert weights <= peak <= weights + sum(t.nbytes for t in layer) + largest
     del params
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ the tuner
+
+def test_tuner_measures_outside_the_launch_counts(dev, tmp_path):
+    """A miss under "force" times both paths of kernel 1 on the call's own
+    operands (4 launches each, counted in ``tuning.measure_launches``, not
+    in ``launches``), persists the winner, and the call runs on it; the next
+    call of the bucket measures nothing."""
+    from repro_torch.core.policy import policy_mm
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn(48, 1024, generator=g, device=dev)
+    b = torch.randn(1024, 3072, generator=g, device=dev)
+    cache = tmp_path / "t.json"
+    with numerics.use(tune="force", tune_cache=str(cache)):
+        before = tcec_matmul.launches, tuning.measure_launches
+        out = policy_mm(a, b, "tcec_bf16x6")
+        assert tcec_matmul.launches == before[0] + 1
+        assert tuning.measure_launches == before[1] + 2 * (1 + tuning.REPS)
+        policy_mm(a[:40], b, "tcec_bf16x6")          # the same bucket
+        assert tuning.measure_launches == before[1] + 2 * (1 + tuning.REPS)
+    import json
+    [(key, entry)] = json.loads(cache.read_text())["entries"].items()
+    assert key == "cuda/tcec_bf16x6/b1_m64_n3072_k1024"
+    assert entry["source"] == "measured"
+    assert torch.equal(out, ops.tcec_matmul(a, b, "tcec_bf16x6",
+                                            block=entry["block"]))
+    # "off" is the rule by M, bit for bit, whatever the file holds
+    with numerics.use(tune="off", tune_cache=str(cache)):
+        assert torch.equal(policy_mm(a, b, "tcec_bf16x6"),
+                           ops.tcec_matmul(a, b, "tcec_bf16x6"))
+
+
+def test_tuner_never_measures_during_capture(dev, tmp_path):
+    """A miss while a CUDA graph is captured takes the rule by M, is not
+    persisted, and is counted; the replay equals the eager launch on that
+    path."""
+    from repro_torch.core.policy import policy_mm
+    g = torch.Generator(device=dev).manual_seed(6)
+    a = torch.randn(24, 512, generator=g, device=dev)
+    b = torch.randn(512, 1536, generator=g, device=dev)
+    cache = tmp_path / "t.json"
+    with numerics.use(tune="force", tune_cache=str(cache)):
+        policy_mm(a[:1], b[:, :8], "tcec_bf16x6")    # build, warm up
+        torch.cuda.synchronize()
+        before = tuning.measure_launches, tuning.capture_misses
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = policy_mm(a, b, "tcec_bf16x6")
+        graph.replay()
+        torch.cuda.synchronize()
+    assert tuning.measure_launches == before[0]
+    assert tuning.capture_misses == before[1] + 1
+    assert "m32_n1536_k512" not in (cache.read_text() if cache.exists()
+                                    else "")
+    assert torch.equal(out, ops.tcec_matmul(a, b, "tcec_bf16x6"))
+
+
+def test_paged_tuner_measures_outside_the_launch_counts(dev, tmp_path):
+    cfg = numerics.active().replace(tune="force",
+                                    tune_cache=str(tmp_path / "t.json"))
+    before = tcec_paged_attention.launches, tuning.measure_launches
+    c, meta = tuning.autotune_paged(4, 2, 2, 66, 4, 16, 16, "tcec_bf16x6",
+                                    cfg=cfg, device=dev)
+    cands = tuning.paged_candidate_blocks(66, 4, 2, 16, 16, "tcec_bf16x6")
+    assert meta["source"] == "measured" and c in cands
+    assert tcec_paged_attention.launches == before[0]
+    assert tuning.measure_launches == before[1] + len(cands) * (
+        1 + tuning.REPS)
+
+
+def test_engine_pin_holds_while_the_ambient_config_changes(dev):
+    """The smoke engine pinned to ``fuse_epilogue``: its prefills keep the
+    gate's silu in kernel 1's epilogue (L a forward) while an ambient
+    ``use(enabled=False)`` is entered mid-serve, and its replays keep
+    counting L; every request finishes."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, SamplingParams
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = get_model(cfg).init(seed=0, device=dev)
+    L = cfg.n_layers
+    eng = Engine(cfg, params, max_slots=2, num_pages=33, page_size=4,
+                 device=dev, numerics_config=numerics.NumericsConfig(
+                     fuse_epilogue=True))
+    eng.add_request(list(range(1, 8)), SamplingParams(max_tokens=6))
+    eng.step()                           # prefill, warm-up, capture, replay
+    with numerics.use(enabled=False):
+        eng.add_request(list(range(3, 9)), SamplingParams(max_tokens=4))
+        before = (tcec_matmul.launches,
+                  tcec_matmul.epilogue_launches["silu"])
+        eng.step()                       # a prefill and one replay
+        assert (tcec_matmul.launches - before[0],
+                tcec_matmul.epilogue_launches["silu"] - before[1]) == (
+            2 * (7 * L + 1), 2 * L)
+        out = eng.run()
+    assert all(v.finish_reason == "length" for v in out.values())
