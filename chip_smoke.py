@@ -261,7 +261,41 @@ Phases, each of which raises on a failed check (nothing is caught):
      phase 3's gate) and ``repro_torch.attention`` at 2 x 512 (kernel 2
      once, 1e-5 max|v| of plain); (f) reported, no gate: 13g's comparison
      under ``tune="auto"``, beside the plain side against itself with the
-     parameters scaled by 1 + 1e-7.
+     parameters scaled by 1 + 1e-7;
+  15. faults, telemetry and the guard: qwen3-0.6b at full width, random
+     weights from seed 0, phase 4's 8 requests on fresh engines (the
+     launch counts zeroed before each run and read after).  (a) the run
+     under ``obs.trace()`` (exported to ``chiprun_out/trace_phase15.json``)
+     against an untraced one: equal greedy tokens; every request's
+     ``request`` begin, ``admitted`` and ``request`` end (with its finish
+     reason) events; the queue-wait, TTFT and TPOT histograms non-empty
+     (count, p50, p90 printed); tok/s and the decode step's median of both,
+     and the host seconds of a 2 x 32 prefill with the explain table
+     recording and without (reported, no gate); (b) every explain decision
+     of the traced run for kernels 1-3 is ``fused``, each kernel has one,
+     and a forward under ``enabled=False`` records only ``hatch-disabled``
+     and launches nothing; (c) chaos under ``guard=True``, each plan on the
+     8 requests: ``pool.alloc@0:1`` and ``prefill@0`` (tokens equal the
+     fault-free run's), ``decode.nonfinite@3:arg=1`` (the slot-1 request
+     ends ``error``, no re-run, every other request's tokens equal),
+     ``kernel.matmul@0:1`` (2 failures counted, every request ends with its
+     tokens or ``error``; the outcome printed), ``decode.slow@every=4:
+     arg=3`` with deadline 12 (every request ends at the same clock, and
+     with the same reason, as the same run on the CPU at the smoke
+     config), ``kernel.paged`` at the decode graph's capture (that step's
+     requests end ``error``, the next step captures afresh, the later
+     requests' tokens equal), and the breaker's whole cycle at the MLP
+     gate's decode product (2 failures open it, the cooldown's 8 calls
+     raise ``KernelQuarantined`` without a launch, the probe launches,
+     bitwise, and closes it); the plain versions of kernels 1-3, wrapped,
+     are called 0 times across (c); (d) ``monitor=True``: the 64-token
+     prefill's logits bitwise those without it and no risk counted; a
+     product scaled out of the safe exponent range counts one; the decode
+     graph's capture skips its probes (counted); (e) ``max_waiting=2``
+     rejects the 3rd to 8th request with ``EngineOverloaded``, and
+     ``max_preemptions=1`` on a 92-page pool parks a request while every
+     request finishes with its fault-free tokens.  The phase prints its
+     own seconds.
 
 Phases 2-13 run under the default numerics config, whose tune mode is
 "off" (the rule by M, the parent's routing bit for bit); the tuner writes
@@ -1036,7 +1070,7 @@ def replay_equals_eager(dev, cfg, params, steps=8, numerics_config=None):
         done.synchronize()
         toks, finite, logits = em._decode_and_sample(
             params, pools, v["block_tables"], v["lengths"], v["next_tok"],
-            v["temps"], v["topks"], v["topps"], v["uniforms"],
+            v["temps"], v["topks"], v["topps"], v["uniforms"], v["poison"],
             model=engine.model, cfg=cfg)
         check(torch.equal(logits, graph.logits), "replayed logits == eager")
         check(out[0].tolist() == finite.long().tolist(),
@@ -3244,6 +3278,461 @@ def numerics_path(dev):
     return total
 
 
+# ------------------------------------------------------------ phase 15
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def resilient_run(dev, cfg, params, prompts, pin, plan=None, deadline=None,
+                  spy=None, **kw):
+    """The 8 greedy requests (16 tokens each) on a fresh engine pinned to
+    ``pin`` (phase 4's engine, ``kw`` overriding it; ``spy(engine)`` called
+    on it first), under the fault plan ``plan``; the launch counts zeroed
+    just before, read just after.
+    Returns the engine, ``{rid: (tokens, finish reason, clock at the
+    finish)}``, the launches and the host seconds of the run and of each
+    step without an admission (the decode steps after the capture)."""
+    from repro_torch import faults
+    from repro_torch.serving import Engine, SamplingParams
+    args = dict(max_slots=4, num_pages=1 + 4 * 40, page_size=16,
+                max_pages_per_slot=40)
+    args.update(kw)
+    eng = Engine(cfg, params, device=dev, numerics_config=pin, **args)
+    if spy is not None:
+        spy(eng)
+    prefill_s = timed_method(eng, "_admit_and_prefill")
+    step_s = timed_method(eng, "step")
+    _sync(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    for p in prompts:
+        eng.add_request(p, SamplingParams(max_tokens=16), deadline=deadline)
+    clocks = {}
+    with faults.use(plan):
+        while eng.sched.has_work:
+            eng.step()
+            for rid, req in eng._requests.items():
+                if req.finish_reason is not None:
+                    clocks.setdefault(rid, eng.clock)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    launches = (kernel_counts() if dev.type == "cuda" else
+                dict.fromkeys(PORT_KERNELS, 0))
+    out = {rid: (list(r.out), r.finish_reason, clocks[rid])
+           for rid, r in eng._requests.items()}
+    decode_s = [s - p for s, p in zip(step_s[1:], prefill_s[1:]) if p < 1e-3]
+    timing = {"seconds": dt,
+              "tokens_per_s": sum(len(v[0]) for v in out.values()) / dt,
+              "decode_step_median_ms": 1e3 * float(np.median(decode_s))
+              if decode_s else None,
+              "decode_steps_timed": len(decode_s)}
+    return eng, out, launches, timing
+
+
+def _tokens(out):
+    return {rid: v[0] for rid, v in out.items()}
+
+
+def explain_cost(dev, model, params, toks, reps=10):
+    """Host seconds of one prefill (ending in a sync) with the explain
+    table recording and with ``record`` replaced by a no-op, in turns
+    (with, without, without, with): medians."""
+    from repro_torch.kernels import dispatch
+    real = dispatch._explain
+    times = {"recording": [], "not_recording": []}
+
+    def once(key):
+        dispatch._explain = real if key == "recording" else (
+            lambda *a, **k: None)
+        try:
+            t0 = time.perf_counter()
+            model.prefill(params, toks)
+            _sync(dev)
+            times[key].append(time.perf_counter() - t0)
+        finally:
+            dispatch._explain = real
+
+    with torch.no_grad():
+        once("recording")                      # warm
+        for _ in range(reps):
+            for key in ("recording", "not_recording", "not_recording",
+                        "recording"):
+                once(key)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def counted_plain_versions():
+    """Wrap the plain versions of kernels 1-3 (the names dispatch calls and
+    the modules' own) so each call is counted; returns the count dict and
+    the undo function."""
+    from repro_torch.kernels import (dispatch, tcec_attention as ta,
+                                     tcec_matmul as tm,
+                                     tcec_paged_attention as tp)
+    counts = dict.fromkeys(("tcec_matmul_plain", "tcec_attention_plain",
+                            "tcec_paged_attention_plain"), 0)
+    undo = []
+    for mod in (dispatch, tm, ta, tp):
+        for name in counts:
+            fn = getattr(mod, name, None)
+            if fn is None:
+                continue
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                counts[_name] += 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+            undo.append((mod, name, fn))
+
+    def restore():
+        for mod, name, fn in undo:
+            setattr(mod, name, fn)
+    return counts, restore
+
+
+def deadline_reference(lens, plan_spec, deadline):
+    """The deadline run of 15c on the CPU at the smoke config (the same
+    engine shape, prompt lengths, plan and deadline): each request's
+    finish reason and the clock at its finish.  Scheduling alone decides
+    both, so the full-width run on the card must match."""
+    from repro_torch import faults, numerics
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = get_model(cfg).init(seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    _, out, _, _ = resilient_run(
+        torch.device("cpu"), cfg, params, prompts,
+        numerics.active().replace(guard=True),
+        faults.plan_from_spec(plan_spec), deadline=deadline)
+    return {rid: (v[1], v[2]) for rid, v in out.items()}
+
+
+def resilience_path(dev, arch="qwen3-0.6b"):
+    """Phase 15: faults, telemetry and the guard on qwen3-0.6b at full
+    width; returns the phase's launches (every engine run's, zeroed before
+    and read after).  It also runs on the CPU (with ``get_config`` giving
+    the smoke config) to rehearse it there; the checks that only a card can
+    make (launch counts, the decode graph, the plain versions' calls) then
+    pass by default."""
+    from repro_torch import faults, numerics, obs
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import policy_mm
+    from repro_torch.kernels import guard, tcec_matmul as tm
+    from repro_torch.models import get_model
+    from repro_torch.obs import metrics
+    from repro_torch.serving import Engine, EngineOverloaded, SamplingParams
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    rec = RECORD["phase15"] = {}
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    params = model.init(seed=0, device=dev)
+    L = cfg.n_layers
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SERVE_LENS]
+    probe = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).to(dev)
+    base = numerics.active()
+    guarded = base.replace(guard=True)
+    total = dict.fromkeys(PORT_KERNELS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # (a) the traced run between two untraced ones (the first also warms
+    # the kernels' libraries up)
+    _, plain_out, launches, t_first = resilient_run(dev, cfg, params,
+                                                    prompts, base)
+    add(launches)
+    ref = _tokens(plain_out)
+    obs.reset()
+    with obs.trace() as tr:
+        _, traced, launches, t_on = resilient_run(dev, cfg, params, prompts,
+                                                  base)
+    add(launches)
+    _, again, launches, t_off = resilient_run(dev, cfg, params, prompts,
+                                              base)
+    add(launches)
+    check(_tokens(again) == ref, "15a: two untraced runs, the same tokens")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    tr.export(str(out_dir / "trace_phase15.json"))
+    check(_tokens(traced) == ref, "15a: the traced run's greedy tokens equal "
+          "the untraced run's")
+    life = {}
+    for e in tr.events:
+        if e.get("cat") == "request":
+            life.setdefault(e["id"], []).append((e["name"], e["ph"],
+                                                 e["args"].get("finish")))
+    check(sorted(life) == sorted(ref) and all(
+        ev[0] == ("request", "b", None) and ("admitted", "n", None) in ev
+        and ev[-1] == ("request", "e", "length") for ev in life.values()),
+        "15a: every request has its begin, admitted and end (with its "
+        "finish reason) events")
+    hist = {}
+    for name in ("queue_wait_s", "ttft_s", "tpot_s"):
+        h = metrics.histogram(f"serving/latency/{name}")
+        hist[name] = {"count": h.count(), "p50": h.percentile(50),
+                      "p90": h.percentile(90)}
+    check(all(v["count"] > 0 for v in hist.values()),
+          "15a: the three latency histograms are non-empty")
+    spans = {}
+    for e in tr.events:
+        if e["ph"] == "X":
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    by = {}                           # the traced run's decisions, for (b)
+    for e in obs.explain().entries:
+        by.setdefault(e["kernel"], {}).setdefault(e["rule"], 0)
+        by[e["kernel"]][e["rule"]] += e["count"]
+    cost = explain_cost(dev, model, params, probe[:, :32].repeat(2, 1))
+    rec["a"] = {"untraced_first": t_first, "traced": t_on,
+                "untraced": t_off, "latency": hist,
+                "spans": spans, "events": len(tr.events),
+                "prefill_2x32_host_s": cost}
+    emit({"phase15a": rec["a"]})
+
+    # (b) explain: every decision of the traced run for kernels 1-3 fused
+    kernel_rules = {k: by.get(k, {}) for k in ("matmul", "attention",
+                                               "paged_attention")}
+    check(all(set(v) == {"fused"} for v in kernel_rules.values()),
+          "15b: every decision for kernels 1-3 in the traced run is fused, "
+          "and each kernel has one")
+    obs.reset()
+    zero_counts()
+    with torch.no_grad(), numerics.use(enabled=False):
+        get_model(cfg).prefill(params, probe)
+    _sync(dev)
+    off = {e["rule"] for e in obs.explain().entries}
+    off_launches = (kernel_counts() if dev.type == "cuda" else
+                    dict.fromkeys(PORT_KERNELS, 0))
+    check(off == {"hatch-disabled"} and not any(off_launches.values()),
+          "15b: a forward under enabled=False records only hatch-disabled "
+          "and launches nothing")
+    rec["b"] = {"traced_run_rules": by, "disabled_rules": sorted(off)}
+    emit({"phase15b": rec["b"]})
+
+    # (c) chaos under guard=True; the plain versions are counted (after
+    # the CPU reference of the deadline plan, whose route is theirs)
+    slow_spec = "decode.slow@every=4:arg=3"
+    cpu_clocks = deadline_reference(SERVE_LENS, slow_spec, 12)
+    plain, restore = counted_plain_versions()
+    try:
+        guard.reset()
+        _, free, launches, _ = resilient_run(dev, cfg, params, prompts,
+                                             guarded)
+        add(launches)
+        check(_tokens(free) == ref, "15c: the guarded fault-free run's "
+              "tokens equal the unguarded run's")
+        chaos = {}
+
+        def plan_run(spec, **kw):
+            guard.reset()
+            plan = faults.plan_from_spec(spec)
+            eng, out, launches, _ = resilient_run(dev, cfg, params, prompts,
+                                                  guarded, plan, **kw)
+            add(launches)
+            st = eng.stats()
+            row = {"log": plan.log, "breaker": guard.counters(),
+                   "finish": {r: v[1] for r, v in out.items()},
+                   **{k: st[k] for k in ("prefill_faults", "numerics_errors",
+                                         "guard_trips", "fallback_reruns",
+                                         "decode_faults", "timeouts",
+                                         "preemptions", "graph_replays")}}
+            chaos[spec] = row
+            emit({"phase15c": {spec: row}})
+            return eng, out, row
+
+        _, out, row = plan_run("pool.alloc@0:1")
+        check(len(row["log"]) == 2 and _tokens(out) == ref,
+              "15c pool.alloc@0:1: tokens equal the fault-free run's")
+        _, out, row = plan_run("prefill@0")
+        check(row["prefill_faults"] == 1 and _tokens(out) == ref,
+              "15c prefill@0: the group re-queued, tokens equal")
+        victims = []
+
+        def nonfinite_victims(eng):
+            real = eng._poison_mask
+
+            def spy():
+                mask = real()
+                victims.extend(r.rid for r in eng.sched.running.values()
+                               if mask[r.slot])
+                return mask
+            eng._poison_mask = spy
+        spec = "decode.nonfinite@3:arg=1"
+        guard.reset()
+        eng, out, launches, _ = resilient_run(
+            dev, cfg, params, prompts, guarded, faults.plan_from_spec(spec),
+            spy=nonfinite_victims)
+        add(launches)
+        chaos[spec] = {"victims": victims, "finish": {
+            r: v[1] for r, v in out.items()},
+            "guard_trips": eng.stats()["guard_trips"],
+            "fallback_reruns": eng.stats()["fallback_reruns"]}
+        check(len(victims) == 1 and out[victims[0]][1] == "error"
+              and all(out[r][0] == ref[r] and out[r][1] == "length"
+                      for r in ref if r != victims[0])
+              and chaos[spec]["guard_trips"] == 1
+              and chaos[spec]["fallback_reruns"] == 0,
+              "15c decode.nonfinite@3:arg=1: the slot-1 request ends error "
+              "(no re-run), every other request's tokens equal")
+        _, out, row = plan_run("kernel.matmul@0:1")
+        row["tokens_equal"] = sorted(r for r in ref if out[r][0] == ref[r])
+        check(row["breaker"]["failures"] == 2 and all(
+            (v[1] == "length" and v[0] == ref[r]) or v[1] == "error"
+            for r, v in out.items()),
+            "15c kernel.matmul@0:1: two failures counted, the engine "
+            "survives, every request ends with its tokens or error")
+        _, out, row = plan_run(slow_spec, deadline=12)
+        card = {r: (v[1], v[2]) for r, v in out.items()}
+        row["finish_clocks"] = card
+        check(card == cpu_clocks and row["timeouts"] > 0,
+              "15c decode.slow@every=4:arg=3, deadline 12: the requests end "
+              "(timeout) at the same clocks as on the CPU at the smoke "
+              "config")
+        if dev.type == "cuda":
+            spec = f"kernel.paged@{L}"
+            eng, out, row = plan_run(spec)
+            check(row["log"] == [("kernel.paged", L)]
+                  and row["decode_faults"] == 1
+                  and [out[r][1] for r in range(4)] == ["error"] * 4
+                  and all(out[r][0] == ref[r] for r in range(4, 8))
+                  and eng._graph is not None and row["graph_replays"] > 0,
+                  "15c kernel.paged during the decode graph's capture: that "
+                  "step's requests end error, the next step captures "
+                  "afresh, the later requests' tokens equal")
+        # the breaker's whole cycle at the MLP gate's decode product
+        guard.reset()
+        g = torch.Generator(device=dev).manual_seed(15)
+        a = torch.randn(4, cfg.d_model, generator=g, device=dev)
+        b = torch.randn(cfg.d_model, cfg.d_ff, generator=g, device=dev)
+        cycle = {}
+        with numerics.use(guard=True):
+            eager = policy_mm(a, b, cfg.policy)
+            with faults.use(faults.plan_from_spec("kernel.matmul@0:1")):
+                for _ in range(guard.THRESHOLD):
+                    try:
+                        policy_mm(a, b, cfg.policy)
+                    except faults.FaultInjected:
+                        cycle["failed"] = cycle.get("failed", 0) + 1
+                before = tm.launches
+                for _ in range(guard.COOLDOWN):
+                    try:
+                        policy_mm(a, b, cfg.policy)
+                    except guard.KernelQuarantined:
+                        cycle["quarantined"] = cycle.get("quarantined",
+                                                         0) + 1
+                cycle["cooldown_launches"] = tm.launches - before
+                probe_out = policy_mm(a, b, cfg.policy)
+                cycle["probe_launches"] = tm.launches - before
+        cycle["probe_bitwise"] = bool(torch.equal(probe_out, eager))
+        cycle["breaker"] = guard.counters()
+        chaos["breaker_cycle"] = cycle
+        br = cycle["breaker"]
+        check(cycle.get("failed") == 2
+              and cycle.get("quarantined") == guard.COOLDOWN
+              and cycle["cooldown_launches"] == 0
+              and (dev.type != "cuda" or cycle["probe_launches"] == 1)
+              and cycle["probe_bitwise"]
+              and (br["failures"], br["opens"], br["closes"]) == (2, 1, 1),
+              "15c breaker cycle: 2 failures open it, the cooldown raises "
+              "KernelQuarantined without a launch, the probe launches and "
+              "closes it")
+    finally:
+        restore()
+    chaos["plain_calls"] = dict(plain)
+    # (a CPU operand's route is the plain version: counted on the card)
+    check(dev.type != "cuda" or not any(plain.values()),
+          "15c: the plain versions of kernels 1-3 were called 0 times "
+          "across the chaos runs")
+    rec["c"] = chaos
+    emit({"phase15c": {k: chaos[k] for k in (
+        "decode.nonfinite@3:arg=1", "breaker_cycle", "plain_calls")}})
+
+    # (d) the monitor
+    before = {n: metrics.counter(f"numerics/monitor/{n}").total()
+              for n in ("probes", "underflow_risk", "product_underflow_risk",
+                        "skipped_capture")}
+    with torch.no_grad():
+        on, _ = get_model(cfg, base.replace(monitor=True)).prefill(params,
+                                                                   probe)
+        off_logits, _ = get_model(cfg, base).prefill(params, probe)
+    delta = {n: metrics.counter(f"numerics/monitor/{n}").total() - v
+             for n, v in before.items()}
+    check(torch.equal(on, off_logits) and delta["probes"] > 0
+          and delta["underflow_risk"] == 0
+          and delta["product_underflow_risk"] == 0,
+          "15d: monitor=True leaves the 64-token prefill's logits bitwise, "
+          "probes every contraction and counts no risk on these weights")
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(64, cfg.d_model, generator=g, device=dev) * 2.0 ** -115
+    w = torch.randn(cfg.d_model, 256, generator=g, device=dev)
+    risk = metrics.counter("numerics/monitor/underflow_risk")
+    r0 = risk.total()
+    with numerics.use(monitor=True):
+        policy_mm(x, w, cfg.policy)
+    scaled_risk = risk.total() - r0
+    check(scaled_risk == 1, "15d: operands scaled out of the safe exponent "
+          "range raise the underflow risk count")
+    skipped = metrics.counter("numerics/monitor/skipped_capture")
+    s0 = skipped.total()
+    eng = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
+                 page_size=16, max_pages_per_slot=40, device=dev,
+                 numerics_config=base.replace(monitor=True))
+    mon = eng.run(prompts[4:6], SamplingParams(max_tokens=16))
+    skipped_n = skipped.total() - s0
+    check(dev.type != "cuda" or skipped_n > 0,
+          "15d: the decode graph's capture skipped its probes (counted)")
+    check([list(v) for v in mon.values()] == [ref[4], ref[5]],
+          "15d: the monitored engine's tokens equal the unmonitored run's")
+    rec["d"] = {"prefill_64": delta, "scaled_underflow_risk": scaled_risk,
+                "skipped_capture": skipped_n}
+    emit({"phase15d": rec["d"]})
+
+    # (e) backpressure and parking
+    eng = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
+                 page_size=16, max_pages_per_slot=40, device=dev,
+                 max_waiting=2)
+    overloaded = []
+    for i, p in enumerate(prompts):
+        try:
+            eng.add_request(p, SamplingParams(max_tokens=16))
+        except EngineOverloaded:
+            overloaded.append(i)
+    kept = eng.run()
+    check(overloaded == list(range(2, 8))
+          and [list(v) for v in kept.values()] == [ref[0], ref[1]],
+          "15e: max_waiting=2 rejects the 3rd to 8th request with "
+          "EngineOverloaded; the two kept finish with their tokens")
+    # the first admission takes 33 + 33 + 13 + 13 pages: a 92-page pool
+    # runs dry when a 200-token request needs its 14th page
+    eng, out, launches, _ = resilient_run(dev, cfg, params, prompts, base,
+                                          num_pages=1 + 92,
+                                          max_preemptions=1)
+    add(launches)
+    st = eng.stats()
+    rec["e"] = {"overloaded": overloaded, "preemptions": st["preemptions"],
+                "parks": st["parks"],
+                "finish": {r: v[1] for r, v in out.items()},
+                "tokens_equal": sorted(r for r in ref if out[r][0] == ref[r])}
+    emit({"phase15e": rec["e"]})
+    check(st["parks"] >= 1 and all(v[1] == "length" and v[0] == ref[r]
+                                   for r, v in out.items()),
+          "15e: max_preemptions=1 on a 92-page pool parks, and every request "
+          "finishes with its fault-free tokens")
+    rec["launches"] = total
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase15_s": rec["seconds"], "phase15_launches": total})
+    del params, model, eng
+    gc.collect()
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3356,6 +3845,7 @@ def main():
     large_launches = large_dense(dev)              # phase 12
     deepseek_launches = deepseek_path(dev)         # phase 13
     config_launches = numerics_path(dev)           # phase 14
+    resilience_launches = resilience_path(dev)     # phase 15
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -3371,7 +3861,7 @@ def main():
             + moe_launches[name] + ssm_launches[name]
             + encdec_launches[name] + numerics_launches[name]
             + large_launches[name] + deepseek_launches[name]
-            + config_launches[name],
+            + config_launches[name] + resilience_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

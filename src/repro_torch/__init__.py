@@ -14,8 +14,10 @@ The public surface, as the JAX package's: the verbs
 :func:`repro_torch.matmul`, :func:`repro_torch.einsum` and
 :func:`repro_torch.attention`; :mod:`repro_torch.numerics` with
 :class:`NumericsConfig` (``with repro_torch.numerics.use(...)``: policy,
-kernel dispatch, tuning; the ``REPRO_*`` registry); and the autotuner
-:mod:`repro_torch.tuning` (loaded on first use).
+kernel dispatch, tuning; the ``REPRO_*`` registry); the autotuner
+:mod:`repro_torch.tuning` (loaded on first use); fault injection
+(:mod:`repro_torch.faults`) and telemetry (:mod:`repro_torch.obs`:
+metrics, traces, the dispatch explain table, numerics-health probes).
 
 TF32 stays off for every f32 product: otherwise the ``fp32`` policy and
 the f32-upcast term products would quietly round their operands to TF32.

@@ -322,14 +322,29 @@ def _core(at, bt, policy: PrecisionPolicy, nbatch, nm, nk, nn):
     return _dot_impl(at, bt, policy, _canonical_dims(nbatch, nm, nk))
 
 
+def _maybe_monitor(a, b, policy: PrecisionPolicy, site: str):
+    """Numerics-health probe hook (``obs/numerics_health.py``), gated on
+    ``NumericsConfig.monitor`` (default off: nothing runs).  Called from
+    the front-ends with the forward operands only, as in JAX; the gradient
+    products of :class:`_PolicyDot` are not probed."""
+    if policy.is_plain() or not numerics.active().monitor:
+        return
+    from repro_torch.obs import numerics_health
+    numerics_health.observe(a, b, policy, site=site)
+
+
 def policy_mm(a, b, policy=None):
     """(M, K) @ (K, N) -> (M, N) f32 under ``policy``."""
-    return _core(a, b, get_policy(policy), 0, 1, 1, 1)
+    pol = get_policy(policy)
+    _maybe_monitor(a, b, pol, "mm")
+    return _core(a, b, pol, 0, 1, 1, 1)
 
 
 def policy_bmm(a, b, policy=None):
     """(B, M, K) @ (B, K, N) -> (B, M, N) f32 under ``policy``."""
-    return _core(a, b, get_policy(policy), 1, 1, 1, 1)
+    pol = get_policy(policy)
+    _maybe_monitor(a, b, pol, "bmm")
+    return _core(a, b, pol, 1, 1, 1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -384,6 +399,7 @@ def pdot(subscripts: str, a, b, policy=None):
 
     at = a.permute(ax(a_sub, batch + m_dims + contract))
     bt = b.permute(ax(b_sub, batch + contract + n_dims))
+    _maybe_monitor(at, bt, policy, "pdot")
     o = _core(at, bt, policy, len(batch), len(m_dims), len(contract),
               len(n_dims))
     cur = batch + m_dims + n_dims

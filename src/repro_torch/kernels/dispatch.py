@@ -37,9 +37,23 @@ contractions with more than one free dim per operand (for GSPMD's sake);
 this port has no GSPMD, so :func:`_canonicalize` collapses the free dims
 by reshape and every model projection and the unembed run on kernel 1.
 The port has no "off-backend" rule (``force`` changes nothing), no mesh
-rule (``shard_map`` is item 16), no VMEM rule and no explain table (item
-15): the slug is returned, not recorded.  Kernel 1 takes the autotuner's
-tile (:func:`tuned_block`, a path); kernel 3 its C.
+rule (``shard_map`` is item 16) and no VMEM rule.  Kernel 1 takes the
+autotuner's tile (:func:`tuned_block`, a path); kernel 3 its C.
+
+Every rule walk records its slug in ``obs.explain``: declines where they
+are decided, acceptances inside :func:`_guarded`, which launches.  The
+calls that ``interpret`` / :func:`use_plain` send to a plain version record
+``fused`` too: the route is the kernel's.  The port runs this on every
+eager call; a CUDA graph replay runs no Python, so the engine's decode
+graph records (and consults the breaker) only while it is captured.
+
+:func:`_guarded` wraps the three launch sites (kernel 1 at fault site
+``kernel.matmul``, kernel 2 at ``kernel.attention``, kernel 3 at
+``kernel.paged``).  Under ``guard=True`` it runs the circuit breaker of
+``kernels/guard.py``: a failure is counted and re-raised
+(``kernel-failure``), an open breaker raises ``KernelQuarantined`` without
+launching (``breaker-open``).  Unlike JAX's, it never returns None for the
+caller to take the plain path instead.
 """
 from __future__ import annotations
 
@@ -47,9 +61,10 @@ import contextlib
 import math
 import threading
 
-from repro_torch import numerics
+from repro_torch import faults, numerics
 from repro_torch.core.policy import PrecisionPolicy, get_policy
-from . import ops, tuning
+from repro_torch.obs.explain import record as _explain
+from . import guard, ops, tuning
 from .tcec_attention import tcec_attention, tcec_attention_plain
 from .tcec_matmul import b_layout, takes_policy, tcec_matmul_plain
 from .tcec_paged_attention import (tcec_paged_attention,
@@ -89,6 +104,41 @@ def _plain(cfg) -> bool:
 def _policy_rule(policy: PrecisionPolicy) -> str:
     """Rule-2 decline slug: plain policies vs the others."""
     return "plain-policy" if policy.is_plain() else "policy-ineligible"
+
+
+def _guarded(kernel: str, ident: tuple, device, cfg, thunk, site: str):
+    """Run a kernel launch ``thunk`` behind the circuit breaker.
+
+    ``ident`` is ``(policy, *shape bucket)``, as in JAX; ``site`` is the
+    ``faults`` injection point, poked before the launch.  With ``guard``
+    off the fault (or the kernel's error) propagates and the breaker is not
+    consulted.  With it on, the key ``(device type, kernel, *ident)`` is
+    gated by ``guard.allow``: a closed (or half-open) breaker launches, and
+    a failure is counted (``guard.failure``) and re-raised; an open one
+    raises ``KernelQuarantined`` without launching.  Every outcome lands in
+    the explain table.  There is no fallback: nothing here returns None.
+    """
+    dev = getattr(device, "type", device)
+    pol, bucket = str(ident[0]), tuple(ident[1:])
+    if not cfg.guard:
+        faults.raise_if(site)
+        out = thunk()
+        _explain(dev, kernel, pol, bucket, "fused")
+        return out
+    key = guard.make_key(kernel, ident, dev)
+    if not guard.allow(key):
+        _explain(dev, kernel, pol, bucket, "breaker-open")
+        raise guard.quarantined(key)
+    try:
+        faults.raise_if(site)
+        out = thunk()
+    except Exception as exc:       # counted, then re-raised: no fallback
+        guard.failure(key, exc)
+        _explain(dev, kernel, pol, bucket, "kernel-failure")
+        raise
+    guard.success(key)
+    _explain(dev, kernel, pol, bucket, "fused")
+    return out
 
 
 def eligible_policy(policy: PrecisionPolicy) -> bool:
@@ -176,18 +226,24 @@ def tuned_block(M: int, N: int, K: int, policy_name: str, batch: int = 1,
 
 
 def _kernel_matmul(at, bt, policy_name, cfg, bias=None, activation=None):
-    """Kernel 1 on canonical operands: the plain version under
-    ``interpret`` / :func:`use_plain`, else the wrapper with the tuned tile
-    (a CPU operand runs the plain version there)."""
-    if _plain(cfg):
-        return tcec_matmul_plain(at, bt, policy_name, bias, activation)
-    block = None
-    if at.is_cuda:
-        batch = at.shape[0] if at.ndim == 3 else 1
-        block = tuned_block(at.shape[-2], bt.shape[-1], at.shape[-1],
-                            policy_name, batch, cfg, operands=(at, bt))
-    return ops.tcec_matmul(at, bt, policy_name, bias, activation,
-                           block=block)
+    """Kernel 1 on canonical operands, guarded at ``kernel.matmul``: the
+    plain version under ``interpret`` / :func:`use_plain`, else the wrapper
+    with the tuned tile (a CPU operand runs the plain version there)."""
+    batch = at.shape[0] if at.ndim == 3 else 1
+    M, K, N = at.shape[-2], at.shape[-1], bt.shape[-1]
+
+    def run():
+        if _plain(cfg):
+            return tcec_matmul_plain(at, bt, policy_name, bias, activation)
+        block = None
+        if at.is_cuda:
+            block = tuned_block(M, N, K, policy_name, batch, cfg,
+                                operands=(at, bt))
+        return ops.tcec_matmul(at, bt, policy_name, bias, activation,
+                               block=block)
+
+    ident = (policy_name,) + tuning.shape_bucket(batch, M, N, K)
+    return _guarded("matmul", ident, at.device, cfg, run, "kernel.matmul")
 
 
 def maybe_dispatch(a, b, policy: PrecisionPolicy, dims, cfg=None):
@@ -195,8 +251,10 @@ def maybe_dispatch(a, b, policy: PrecisionPolicy, dims, cfg=None):
     caller keeps the term expansion).  Called from ``core.policy._dot_impl``
     for every split-policy contraction, forward and backward."""
     cfg = _cfg(cfg)
-    shape, _ = _decide(a, b, policy, dims, cfg)
+    shape, rule = _decide(a, b, policy, dims, cfg)
     if shape is None:
+        _explain(a.device.type, "matmul", policy.name,
+                 (tuple(a.shape), tuple(b.shape)), rule)
         return None
     at, bt, out_shape = _canonicalize(a, b, dims)
     return _kernel_matmul(at, bt, policy.name, cfg).reshape(out_shape)
@@ -235,9 +293,15 @@ def _attention_reason(q, k, v, pol, cfg) -> str:
 def attention_eligible(q, k, v, *, policy, cfg=None) -> bool:
     """Whether kernel 2 takes these operands under the config: a split
     bf16 policy on the triangular schedule; model-layout 4-D shapes with
-    ``H % Hkv == 0``; ``min(S, T) >= min_dim``; both hatches open."""
-    return _attention_reason(q, k, v, get_policy(policy), _cfg(cfg)) \
-        == "fused"
+    ``H % Hkv == 0``; ``min(S, T) >= min_dim``; both hatches open.  A
+    decline is recorded here; an acceptance where the kernel launches."""
+    pol = get_policy(policy)
+    reason = _attention_reason(q, k, v, pol, _cfg(cfg))
+    if reason != "fused":
+        _explain(q.device.type, "attention", pol.name,
+                 (tuple(q.shape), tuple(k.shape)), reason)
+        return False
+    return True
 
 
 def attention(q, k, v, *, policy, q_pos=None, k_pos=None, causal: bool = True,
@@ -248,7 +312,7 @@ def attention(q, k, v, *, policy, q_pos=None, k_pos=None, causal: bool = True,
     instantiation the head dims pick (``tuning.attn_candidate_blocks``)."""
     cfg = _cfg(cfg)
     pol = get_policy(policy)
-    if _attention_reason(q, k, v, pol, cfg) != "fused":
+    if not attention_eligible(q, k, v, policy=pol, cfg=cfg):
         return None
     B, S, H, hd = q.shape
     T, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
@@ -259,8 +323,13 @@ def attention(q, k, v, *, policy, q_pos=None, k_pos=None, causal: bool = True,
                              f" under {pol.name}: {tile}; got "
                              f"attn_block={cfg.attn_block}")
     fn = tcec_attention_plain if _plain(cfg) else tcec_attention
-    return fn(q, k, v, q_pos, k_pos, policy=pol.name, causal=causal,
-              window=window, softcap=softcap)
+    ident = (pol.name, B, Hkv, H // Hkv, tuning._round_up(S, 128),
+             tuning._round_up(T, 128))
+    return _guarded(
+        "attention", ident, q.device, cfg,
+        lambda: fn(q, k, v, q_pos, k_pos, policy=pol.name, causal=causal,
+                   window=window, softcap=softcap),
+        "kernel.attention")
 
 
 # -------------------------------------------- paged decode-attention
@@ -286,9 +355,15 @@ def attention_decode_eligible(q, k_pages, v_pages, *, policy,
                               cfg=None) -> bool:
     """Whether kernel 3 takes these decode-layout operands (q (B, H, hd),
     pools (NP, ps, Hkv, hd[v])) under the config.  No ``min_dim`` rule, as
-    in JAX."""
-    return _paged_reason(q, k_pages, v_pages, get_policy(policy),
-                         _cfg(cfg)) == "fused"
+    in JAX.  A decline is recorded here; an acceptance where the kernel
+    launches."""
+    pol = get_policy(policy)
+    reason = _paged_reason(q, k_pages, v_pages, pol, _cfg(cfg))
+    if reason != "fused":
+        _explain(q.device.type, "paged_attention", pol.name,
+                 (tuple(q.shape), tuple(k_pages.shape)), reason)
+        return False
+    return True
 
 
 def attention_decode(q, k_pages, v_pages, block_tables, lengths, *, policy,
@@ -301,31 +376,46 @@ def attention_decode(q, k_pages, v_pages, block_tables, lengths, *, policy,
     version)."""
     cfg = _cfg(cfg)
     pol = get_policy(policy)
-    if _paged_reason(q, k_pages, v_pages, pol, cfg) != "fused":
+    if not attention_decode_eligible(q, k_pages, v_pages, policy=pol,
+                                     cfg=cfg):
         return None
-    C = cfg.paged_block
-    if _plain(cfg):
-        fn = tcec_paged_attention_plain
-    else:
-        fn = tcec_paged_attention
-        if C is None and q.is_cuda:
-            B, H, hd = q.shape
-            _, ps, Hkv, _ = k_pages.shape
-            C = tuning.get_paged_block(B, Hkv, H // Hkv,
-                                       block_tables.shape[1], ps, hd,
-                                       v_pages.shape[3], pol.name, cfg=cfg,
-                                       device=q.device)
-    return fn(q, k_pages, v_pages, block_tables, lengths, policy=pol.name,
-              window=window, softcap=softcap, pages_per_chunk=C)
+    B, H, hd = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    maxp = block_tables.shape[1]
+
+    def run():
+        C = cfg.paged_block
+        if _plain(cfg):
+            fn = tcec_paged_attention_plain
+        else:
+            fn = tcec_paged_attention
+            if C is None and q.is_cuda:
+                C = tuning.get_paged_block(B, Hkv, H // Hkv, maxp, ps, hd,
+                                           v_pages.shape[3], pol.name,
+                                           cfg=cfg, device=q.device)
+        return fn(q, k_pages, v_pages, block_tables, lengths,
+                  policy=pol.name, window=window, softcap=softcap,
+                  pages_per_chunk=C)
+
+    ident = (pol.name, B, Hkv, H // Hkv, maxp, ps)
+    return _guarded("paged_attention", ident, q.device, cfg, run,
+                    "kernel.paged")
 
 
 # ------------------------------------------------- epilogue-fusion hook
 
-def epilogue_eligible(policy: PrecisionPolicy, cfg=None) -> bool:
+def epilogue_eligible(policy: PrecisionPolicy, cfg=None,
+                      device="cuda") -> bool:
     """Whether ``models.layers.fused_linear`` may fold its bias and
     activation into kernel 1's epilogue under the config: ``enabled`` and
-    ``fuse_epilogue`` on, and a policy the kernel takes."""
-    return _epilogue_reason(policy, _cfg(cfg)) == "fused"
+    ``fuse_epilogue`` on, and a policy the kernel takes.  Records every
+    decision (shape-independent: the bucket is empty) under ``device``,
+    the caller's operand device; the product underneath records its own
+    matmul decision."""
+    rule = _epilogue_reason(policy, _cfg(cfg))
+    _explain(getattr(device, "type", device), "epilogue", policy.name, (),
+             rule)
+    return rule == "fused"
 
 
 def _epilogue_reason(policy: PrecisionPolicy, cfg) -> str:

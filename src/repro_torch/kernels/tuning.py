@@ -65,7 +65,7 @@ from collections import OrderedDict
 
 import torch
 
-from repro_torch import numerics
+from repro_torch import faults, numerics
 from repro_torch.core.policy import get_policy
 from . import tcec_attention as _ta
 from . import tcec_matmul as _tm
@@ -186,7 +186,11 @@ class BlockCache:
         else:
             entry = self._load_disk().get(key)
         if entry is not None:
+            if faults.poke("tuning.cache") is not None:
+                entry = {"block": "corrupt"}   # injected corruption
             if not valid_entry(entry):
+                # a corrupt entry is a miss: dropped from both views, so
+                # the tuner re-derives (and re-persists) it
                 self._mem.pop(key, None)
                 self._load_disk().pop(key, None)
                 return None

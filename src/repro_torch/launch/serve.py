@@ -2,7 +2,8 @@
 
   python -m repro_torch.launch.serve --arch qwen3-0.6b [--smoke] \\
       --batch 4 --prompt-len 16 --gen 32 [--device cuda] \\
-      [--numerics fuse_epilogue=1 ...]
+      [--numerics fuse_epilogue=1 ...] [--max-waiting N] [--deadline T] \\
+      [--trace t.json] [--metrics-out m.json]
 
 Two code paths, as in the JAX package:
 
@@ -22,6 +23,13 @@ Two code paths, as in the JAX package:
 Parameters are random, from ``--seed``; prompts are random tokens.
 ``--numerics KEY=VALUE`` (repeatable) sets fields of the numerics config the
 run uses (``repro_torch.numerics.NumericsConfig``); the engine pins it.
+``--max-waiting`` bounds the engine's waiting queue (requests past it are
+rejected with ``EngineOverloaded``), ``--deadline`` gives every request a
+deadline in engine steps.  ``--trace PATH`` runs under
+``repro_torch.obs.trace()`` and exports the spans (Chrome-trace JSON, or
+JSONL for ``.jsonl``); ``--metrics-out PATH`` writes the metrics snapshot;
+either prints the dispatch-explain summary.  ``REPRO_FAULTS`` runs the CLI
+under a fault plan (``repro_torch.faults``).
 """
 from __future__ import annotations
 
@@ -31,11 +39,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import numerics, resolve_device
+from repro_torch import numerics, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.models import get_model
 from repro_torch.models.modules import tree_map
-from repro_torch.serving import (DEFAULT_PAGE_SIZE, Engine, SamplingParams)
+from repro_torch.serving import (DEFAULT_PAGE_SIZE, Engine, EngineOverloaded,
+                                 SamplingParams)
 
 
 def fill_dense_cache(cache, kv):
@@ -119,11 +128,18 @@ def main(argv=None):
                     help="0 = greedy")
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--max-waiting", type=int, default=0,
+                    help="bound the waiting queue: requests past it are "
+                         "rejected with EngineOverloaded (0 = unbounded)")
+    ap.add_argument("--deadline", type=int, default=0,
+                    help="per-request deadline in engine steps; expired "
+                         "requests finish with reason=timeout (0 = none)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     numerics.add_cli_overrides(ap)
+    obs.add_cli_flags(ap)
     args = ap.parse_args(argv)
-    with numerics.cli_context(args):
+    with numerics.cli_context(args), obs.cli_session(args):
         _main(args)
 
 
@@ -154,11 +170,20 @@ def _main(args):
     slots = args.max_slots or args.batch
     engine = Engine(cfg, params, max_slots=slots,
                     num_pages=1 + max(slots, args.batch) * pages,
-                    page_size=ps, max_pages_per_slot=pages, device=device)
+                    page_size=ps, max_pages_per_slot=pages,
+                    max_waiting=args.max_waiting or None, device=device)
+    rids = []
     for i in range(args.batch):
-        engine.add_request(prompts[i], SamplingParams(
-            temperature=args.temperature, top_k=args.top_k,
-            top_p=args.top_p, max_tokens=args.gen, seed=args.seed + i))
+        try:
+            rids.append(engine.add_request(
+                prompts[i], SamplingParams(
+                    temperature=args.temperature, top_k=args.top_k,
+                    top_p=args.top_p, max_tokens=args.gen,
+                    seed=args.seed + i),
+                deadline=args.deadline or None))
+        except EngineOverloaded:
+            print(f"request {i}: rejected (overloaded: queue at "
+                  f"{args.max_waiting})")
     t0 = time.perf_counter()
     out = engine.run()
     if device.type == "cuda":
@@ -175,7 +200,8 @@ def _main(args):
           "included)")
     print(f"finish reasons: {reasons}")
     print(f"stats: {engine.stats()}")
-    print("sample:", list(out[0][:16]))
+    if rids:
+        print("sample:", list(out[rids[0]][:16]))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
   python -m repro_torch.launch.train --arch qwen3-0.6b [--smoke] \\
       --steps 100 --ckpt-dir DIR [--policy tcec_bf16x6] [--device cuda] \\
-      [--numerics KEY=VALUE ...]
+      [--numerics KEY=VALUE ...] [--trace t.json] [--metrics-out m.json]
 
 Parameters start random, from ``--seed``; the data is the synthetic
 stream of ``data.pipeline``.  A run resumes from the newest checkpoint in
@@ -12,7 +12,9 @@ requested config's (another arch's run) is refused before any step, with
 a ``ValueError`` that names the first leaf that differs.  It runs on
 ``cuda`` unless ``--device cpu`` is given.  ``--numerics KEY=VALUE``
 (repeatable) sets fields of the numerics config the run uses; the backward
-runs under it too.
+runs under it too.  ``--trace`` / ``--metrics-out`` export the run's spans
+and metrics snapshot (``repro_torch.obs``) and print the dispatch-explain
+summary.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import argparse
 import os
 import tempfile
 
-from repro_torch import numerics, resolve_device
+from repro_torch import numerics, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.optim import adamw
@@ -44,8 +46,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     numerics.add_cli_overrides(ap)
+    obs.add_cli_flags(ap)
     args = ap.parse_args(argv)
-    with numerics.cli_context(args):
+    with numerics.cli_context(args), obs.cli_session(args):
         _main(args)
 
 

@@ -213,14 +213,15 @@ def sdpa(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
     config allows (through :class:`_FusedSDPA` when autograd needs a
     gradient), the pdot composition otherwise."""
     if (torch.is_grad_enabled()
-            and (q.requires_grad or k.requires_grad or v.requires_grad)
-            and dispatch.attention_eligible(q, k, v,
-                                            policy=cfg.mix_policy)):
-        return _FusedSDPA.apply(q, k, v, q_pos, k_pos, cfg.mix_policy,
-                                cfg.attn_softcap, causal, window)
-    out = dispatch.attention(q, k, v, policy=cfg.mix_policy, q_pos=q_pos,
-                             k_pos=k_pos, causal=causal, window=window,
-                             softcap=cfg.attn_softcap)
+            and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        if dispatch.attention_eligible(q, k, v, policy=cfg.mix_policy):
+            return _FusedSDPA.apply(q, k, v, q_pos, k_pos, cfg.mix_policy,
+                                    cfg.attn_softcap, causal, window)
+        out = None
+    else:
+        out = dispatch.attention(q, k, v, policy=cfg.mix_policy, q_pos=q_pos,
+                                 k_pos=k_pos, causal=causal, window=window,
+                                 softcap=cfg.attn_softcap)
     if out is not None:
         return out
     return _sdpa_composition(q, k, v, cfg, q_pos, k_pos, causal, window)
@@ -358,7 +359,7 @@ def _fused_linear_fwd(x, w, b, activation, policy, cfg):
     pol = get_policy(policy)
     B, S, D = x.shape
     F_ = w.shape[-1]
-    if (dispatch.epilogue_eligible(pol, cfg)
+    if (dispatch.epilogue_eligible(pol, cfg, x.device)
             and min(B * S, D, F_) >= cfg.min_dim):
         out = dispatch.fused_matmul(x.reshape(B * S, D), w, pol, b,
                                     activation, cfg)

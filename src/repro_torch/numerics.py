@@ -65,13 +65,24 @@ What each field means in the port (each divergence from JAX is pinned by
   until that gate is settled (ROADMAP Queue 3).  The default cache is
   ``~/.cache/repro_torch/tcec_autotune.json``: its entries name the port's
   tiles, not the TPU's.
-* ``guard`` (``REPRO_GUARD``): **the port's default is False**: errors
-  propagate, which is what the port does; True raises
-  ``NotImplementedError`` until ROADMAP item 8 decides what it means.
+* ``guard`` (``REPRO_GUARD``): **the port's default is False**: kernel
+  errors propagate and the breaker is not consulted.  True runs
+  ``kernels/guard.py``'s circuit breaker around each launch: a failure is
+  counted and re-raised, a key with an open breaker raises
+  ``KernelQuarantined`` without launching, and the serving engine finishes
+  the affected requests with ``ERROR`` and goes on.  **It never reroutes**:
+  JAX's guard turns a failure into its XLA fallback, the port's counts,
+  quarantines and raises (a plain-path result would hide the kernel).
+* ``monitor`` (``REPRO_MONITOR``): True probes each split-policy
+  contraction's forward operands (``obs/numerics_health.py``): one host
+  read a contraction, skipped and counted while a CUDA graph is captured;
+  the outputs are bitwise those of ``monitor=False``.
 * ``shard_map``, ``prefix_cache``, ``chunked_prefill``, ``async_sched``,
-  ``monitor``, ``keep_bf16_dots``: accepted at JAX's default; any other
-  value raises ``NotImplementedError`` naming its ROADMAP item (16, 14,
-  14, 3, 15) or "XLA only".
+  ``keep_bf16_dots``: accepted at JAX's default; any other value raises
+  ``NotImplementedError`` naming its ROADMAP item (16, 14, 14, 3) or "XLA
+  only".
+* ``REPRO_FAULTS`` feeds no field: ``repro_torch.faults.env_plan()`` reads
+  it (through :func:`env_value`) as the process-default fault plan.
 
 JAX's deprecation shims (``dispatch.override/config/reload_config/
 env_flag/DispatchConfig``, ``ops.pick_block``, ``numerics._legacy_flag``)
@@ -191,8 +202,10 @@ ENV_VARS: dict[str, EnvVar] = {v.name: v for v in [
     EnvVar("REPRO_TUNE_CACHE", "path", _DEFAULT_TUNE_CACHE,
            "Autotuner cache file path.", field="tune_cache"),
     EnvVar("REPRO_GUARD", "bool", False,
-           "Guarded dispatch: 1 raises until ROADMAP item 8 (kernel errors "
-           "propagate; the port has no fallback).", field="guard"),
+           "Guarded dispatch: 1 runs the circuit breaker around each kernel "
+           "launch (failures counted and re-raised, an open breaker raises "
+           "KernelQuarantined without launching; never a fallback).",
+           field="guard"),
     EnvVar("REPRO_PREFIX_CACHE", "bool", False,
            "Serving engine prefix cache: 1 raises until ROADMAP item 14.",
            field="prefix_cache"),
@@ -203,11 +216,13 @@ ENV_VARS: dict[str, EnvVar] = {v.name: v for v in [
            "Serving engine async scheduling: 1 raises until ROADMAP item "
            "3.", field="async_sched"),
     EnvVar("REPRO_MONITOR", "bool", False,
-           "Numerics-health monitors: 1 raises until ROADMAP item 15.",
-           field="monitor"),
+           "Numerics-health monitors: 1 probes each split-policy "
+           "contraction's operands (numerics/monitor/* metrics; skipped "
+           "while a CUDA graph is captured).", field="monitor"),
     EnvVar("REPRO_FAULTS", "str", "",
-           "Fault-injection plan: the port reads it nowhere yet (ROADMAP "
-           "item 15)."),
+           "Fault-injection plan (repro_torch.faults syntax, e.g. "
+           "'pool.alloc@0:1;decode.slow@every=4'), the process default "
+           "under any faults.use scope."),
     EnvVar("REPRO_KEEP_BF16_DOTS", "bool", False,
            "XLA only (bf16 dots in lowered HLO): 1 raises.",
            field="keep_bf16_dots"),
@@ -261,7 +276,6 @@ _NOT_PORTED = {"shard_map": (True, "ROADMAP item 16"),
                "prefix_cache": (False, "ROADMAP item 14"),
                "chunked_prefill": (0, "ROADMAP item 14"),
                "async_sched": (False, "ROADMAP item 3"),
-               "monitor": (False, "ROADMAP item 15"),
                "keep_bf16_dots": (False, "XLA only")}
 
 
@@ -286,13 +300,13 @@ class NumericsConfig:
     paged_attention: bool = True    # kernel 3 routing
     paged_block: int | None = None  # kernel 3's pages per chunk
     shard_map: bool = True          # ROADMAP item 16
-    guard: bool = False             # ROADMAP item 8
+    guard: bool = False             # breaker; count and raise (JAX: True)
     # -- serving ------------------------------------------------------
     prefix_cache: bool = False      # ROADMAP item 14
     chunked_prefill: int = 0        # ROADMAP item 14
     async_sched: bool = False       # ROADMAP item 3
     # -- observability ------------------------------------------------
-    monitor: bool = False           # ROADMAP item 15
+    monitor: bool = False           # obs/numerics_health probes
     # -- autotuning ---------------------------------------------------
     tune: str = "off"               # "auto" | "force" | "off" (JAX: auto)
     tune_cache: str = _DEFAULT_TUNE_CACHE
@@ -310,10 +324,6 @@ class NumericsConfig:
         if self.policy not in POLICIES:
             raise ValueError(f"unknown policy {self.policy!r}; "
                              f"known: {sorted(POLICIES)}")
-        if self.guard:
-            raise NotImplementedError(
-                "guard=True: guarded dispatch is not ported yet (ROADMAP "
-                "item 8); kernel errors propagate")
         for name, (default, item) in _NOT_PORTED.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(

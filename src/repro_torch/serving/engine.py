@@ -22,18 +22,39 @@ The core of the JAX package's engine, in PyTorch:
     a request that outgrows its block-table row finishes with
     ``length_cap``; its slot and pages recycle into the next admission;
   * preemption: when the pool runs dry the youngest running request is
-    evicted (recompute-style) and re-admitted later.
+    evicted (recompute-style) and re-admitted later; a request evicted
+    ``max_preemptions`` times (8) is parked until the queue drains.
 
-Not ported yet: per-request deadlines, a bounded waiting queue, and the
-parking of a request after repeated preemptions (the JAX engine parks after
-8; here a request is always re-queued at the front).
+Resilience contract (the JAX engine's, ``tests/test_torch_faults.py``):
+requests finish with a :class:`~repro_torch.serving.errors.FinishReason`;
+admission is bounded (``max_waiting`` -> :class:`EngineOverloaded`) and
+validated (:class:`RequestRejected`); per-request deadlines are enforced
+against the engine's step clock (one tick a :meth:`step`, plus the
+``decode.slow`` fault's ticks); a failed prefill group is rolled back and
+retried, up to ``MAX_PREFILL_FAULTS``; a preemption storm parks its
+victims.  Every recovery path is injectable through
+:mod:`repro_torch.faults`.
 
+Where the port differs on purpose: no recovery reroutes to a plain path.
 A decode step whose logits are not finite finishes the affected slots with
-``FinishReason.ERROR``.  The JAX engine would first re-run the step on its
-XLA fallback path; here that re-run would be a fallback that hides the
-kernel, so it is left out.  Also not ported yet: the prefix cache, chunked
-prefill, async scheduling (the dispatch / consume split and the
-double-buffered staging are its seam), fault injection, tracing spans,
+``ERROR`` (the JAX engine first re-runs the step on its XLA fallback; here
+that would hide the kernel).  Under ``guard=True`` a decode step that
+raises (a kernel failure, ``KernelQuarantined``) finishes every request of
+that step with ``ERROR`` and the engine goes on serving; JAX never meets
+this case, because its fallback absorbs kernel failures while tracing.
+With ``guard=False`` the error propagates.  A failure while the decode
+graph is captured leaves it uncaptured, and the next step captures afresh.
+
+Telemetry (:mod:`repro_torch.obs`): while a tracer is active the engine
+emits JAX's spans (``engine.step``, ``prefill``, ``decode``,
+``decode.consume``), one async event track per request (``request``
+begin, ``admitted``, ``preempted``, ``request`` end with its finish
+reason), and the ``serving/latency/{queue_wait_s,ttft_s,tpot_s}``
+histograms; with none, it reads no clock.  Live engines' counters are the
+``serving/engine`` source of ``obs.snapshot()``.
+
+Not ported yet: the prefix cache, chunked prefill, async scheduling (the
+dispatch / consume split and the double-buffered staging are its seam),
 meshes and defragmentation.
 
 Numerics contract (tests/test_torch_serving.py): with parameters bridged
@@ -47,29 +68,56 @@ none of them (and no replay re-runs Python).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import time
+import weakref
 
 import numpy as np
 import torch
 
-from repro_torch import numerics, resolve_device
-from repro_torch.kernels import (tcec_attention, tcec_matmul,
+from repro_torch import faults, numerics, resolve_device
+from repro_torch.kernels import (guard, tcec_attention, tcec_matmul,
                                  tcec_paged_attention)
 from repro_torch.models import get_model
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs.trace import current as _current_tracer
 from . import sampling
-from .errors import FinishReason, RequestRejected, RequestResult
+from .errors import (EngineOverloaded, FinishReason, RequestRejected,
+                     RequestResult)
 from .kv_cache import DEFAULT_PAGE_SIZE, PagePool, write_prompt_pages
 from .sampling import SamplingParams, draw_uniform, new_generator, sample_one
 from .scheduler import Request, Scheduler
 
+# live engines, summed into repro_torch.obs snapshots at read time (weak
+# refs: registering never keeps a dropped engine's pools alive)
+_LIVE_ENGINES: "weakref.WeakSet[Engine]" = weakref.WeakSet()
+
+
+def _engines_source() -> dict:
+    out: dict[str, int] = {}
+    for eng in list(_LIVE_ENGINES):
+        stats = {**eng._stats, "clock": eng.clock,
+                 "prefills": eng.n_prefills,
+                 "decode_steps": eng.n_decode_steps,
+                 "preemptions": eng.sched.n_preemptions,
+                 "parks": eng.sched.n_parks}
+        for k, v in stats.items():
+            out[k] = out.get(k, 0) + int(v)
+    return out
+
+
+_obs_metrics.register_source("serving/engine", _engines_source)
+
 # The decode step's per-slot inputs, packed into one byte buffer that goes
 # to the device in one copy: name, dtype, columns (None: one a slot).  f64
-# comes first, so every field starts at a multiple of its item size.
+# comes first, so every field starts at a multiple of its item size;
+# ``poison`` is the ``decode.nonfinite`` fault mask.
 _INPUTS = (("uniforms", torch.float64, None), ("temps", torch.float32, None),
            ("topps", torch.float32, None), ("topks", torch.int32, None),
            ("lengths", torch.int32, None), ("next_tok", torch.int32, None),
-           ("block_tables", torch.int32, "maxp"))
+           ("block_tables", torch.int32, "maxp"),
+           ("poison", torch.bool, None))
 
 
 def _input_bytes(B: int, maxp: int) -> int:
@@ -108,6 +156,10 @@ class Engine:
     page_size: tokens per page.
     max_pages_per_slot: block-table width; a request that outgrows it
         finishes early (``length_cap``), like any server's max context.
+    max_waiting: waiting-queue bound; ``add_request`` past it raises
+        :class:`EngineOverloaded` (None = unbounded).
+    max_preemptions: evictions before a request is parked as a
+        preemption-storm victim (None = never park).
     cache_dtype: page-pool element dtype (bf16; kernel 3 takes bf16 pools).
     device: where the pools live and the steps run (default ``cuda``); the
         parameters must already be there.
@@ -119,6 +171,8 @@ class Engine:
                  num_pages: int | None = None,
                  page_size: int = DEFAULT_PAGE_SIZE,
                  max_pages_per_slot: int | None = None,
+                 max_waiting: int | None = None,
+                 max_preemptions: int | None = 8,
                  cache_dtype=torch.bfloat16, device=None,
                  numerics_config: numerics.NumericsConfig | None = None):
         self.numerics_config = numerics_config or numerics.active()
@@ -138,9 +192,14 @@ class Engine:
         self.cfg = cfg
         self.params = params
         self.pool = PagePool(num_pages, page_size)
-        self.sched = Scheduler(self.pool, max_slots)
+        self.sched = Scheduler(self.pool, max_slots,
+                               max_preemptions=max_preemptions)
         self.max_slots = max_slots
         self.max_pages_per_slot = max_pages_per_slot
+        self.max_waiting = max_waiting
+        # the deadline clock: one tick a step() (plus injected decode.slow
+        # ticks), no wall-clock reads
+        self.clock = 0
         self.pools = self.model.init_paged_cache(
             num_pages, page_size, dtype=cache_dtype, device=self.device)
         # host mirrors of the per-slot device state
@@ -152,6 +211,7 @@ class Engine:
         self.topks = np.zeros((max_slots,), np.int32)
         self.topps = np.ones((max_slots,), np.float32)
         self.uniforms = np.ones((max_slots,), np.float64)
+        self.poison = np.zeros((max_slots,), np.bool_)
         # double-buffered staging of those mirrors: the buffer of step N is
         # not written again before step N + 2, so an asynchronous scheduler
         # may fill the next one while a step is in flight
@@ -160,17 +220,56 @@ class Engine:
                          for _ in range(2)]
         self._graph: _DecodeGraph | None = None   # captured on first use
         self._requests: dict[int, Request] = {}
-        self._stats = {"numerics_errors": 0, "rejections": 0,
-                       "length_caps": 0}
+        # JAX's counters, without the prefix cache's (item 14); plus
+        # decode_faults, decode steps that raised under guard=True
+        self._stats = {"guard_trips": 0, "fallback_reruns": 0,
+                       "numerics_errors": 0, "rejections": 0, "overloads": 0,
+                       "timeouts": 0, "length_caps": 0, "prefill_faults": 0,
+                       "decode_faults": 0}
         self.n_decode_steps = 0
         self.n_prefills = 0
+        _LIVE_ENGINES.add(self)
+
+    # ------------------------------------------------------- observability
+    #
+    # Everything below is gated on an active repro_torch.obs tracer: with
+    # none there are no spans, no clock reads and no histogram writes.
+
+    def _span(self, name: str, **args):
+        """A tracer span around one engine phase, or a no-op context
+        yielding a throwaway args dict when tracing is off."""
+        tr = _current_tracer()
+        if tr is None:
+            return contextlib.nullcontext(dict(args))
+        return tr.span(name, cat="engine", **args)
+
+    @staticmethod
+    def _observe_latency(name: str, seconds: float):
+        _obs_metrics.observe(f"serving/latency/{name}", seconds)
+
+    def _trace_request_end(self, req: Request):
+        tr = _current_tracer()
+        if tr is not None:
+            tr.async_end("request", req.rid, finish=req.finish_reason,
+                         tokens=len(req.out))
+
+    def _trace_preempt(self, req: Request):
+        tr = _current_tracer()
+        if tr is not None:
+            tr.async_instant("preempted", req.rid,
+                             n_preemptions=req.n_preemptions)
 
     # ------------------------------------------------------------ intake
 
-    def add_request(self, prompt,
-                    params: SamplingParams | None = None) -> int:
-        """Enqueue a request; returns its rid.  Raises
-        :class:`RequestRejected` for requests that can never be served."""
+    def add_request(self, prompt, params: SamplingParams | None = None,
+                    deadline: int | None = None) -> int:
+        """Enqueue a request; returns its rid.
+
+        Raises :class:`RequestRejected` for requests that can never be
+        served and :class:`EngineOverloaded` when the waiting queue is at
+        ``max_waiting`` (backpressure: retry later).  ``deadline`` is a
+        step budget: the request must finish within that many engine clock
+        ticks or it is timed out (``finish_reason="timeout"``)."""
         params = params or SamplingParams()
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if params.max_tokens < 1:
@@ -183,9 +282,24 @@ class Engine:
             raise RequestRejected(
                 f"prompt needs {need} pages; engine caps at "
                 f"{self.max_pages_per_slot} per slot")
+        if deadline is not None and deadline < 1:
+            self._stats["rejections"] += 1
+            raise RequestRejected(f"deadline must be >= 1, got {deadline}")
+        if (self.max_waiting is not None
+                and len(self.sched.waiting) >= self.max_waiting):
+            self._stats["overloads"] += 1
+            raise EngineOverloaded(
+                f"waiting queue is at max_waiting={self.max_waiting}")
         req = self.sched.add(prompt, params)
         req.generator = new_generator(params)
+        if deadline is not None:
+            req.deadline = self.clock + deadline
         self._requests[req.rid] = req
+        tr = _current_tracer()
+        if tr is not None:
+            req.t_enqueue = tr.now()
+            tr.async_begin("request", req.rid, prompt_len=len(prompt),
+                           max_tokens=params.max_tokens)
         return req.rid
 
     # ----------------------------------------------------------- prefill
@@ -195,38 +309,83 @@ class Engine:
         # cap: finish it from the queue instead of re-admitting it
         cap = min(self.max_pages_per_slot, self.pool.num_pages - 1)
         for req in [r for r in list(self.sched.waiting)
+                    + list(self.sched.parked)
                     if self.pool.pages_for(len(r.full_sequence) + 1) > cap]:
             self._stats["length_caps"] += 1
             req.finish_reason = FinishReason.LENGTH_CAP.value
             self.sched.drop(req)
+            self._trace_request_end(req)
         admitted = self.sched.admit()
+        tr = _current_tracer()
+        if tr is not None:
+            now = tr.now()
+            for req in admitted:
+                tr.async_instant("admitted", req.rid, clock=self.clock)
+                if req.t_enqueue is not None and req.n_preemptions == 0:
+                    self._observe_latency("queue_wait_s",
+                                          now - req.t_enqueue)
         ps = self.pool.page_size
         groups: dict[int, list[Request]] = {}
         for req in admitted:
             padded = max(1, -(-len(req.full_sequence) // ps)) * ps
             groups.setdefault(padded, []).append(req)
         for padded, reqs in sorted(groups.items()):
-            toks = np.zeros((len(reqs), padded), np.int64)
-            for i, req in enumerate(reqs):
-                toks[i, :len(req.full_sequence)] = req.full_sequence
+            with self._span("prefill", batch=len(reqs), padded=padded):
+                self._prefill_group(padded, reqs)
+
+    def _prefill_group(self, padded: int, reqs: list[Request]):
+        ps = self.pool.page_size
+        toks = np.zeros((len(reqs), padded), np.int64)
+        for i, req in enumerate(reqs):
+            toks[i, :len(req.full_sequence)] = req.full_sequence
+        try:
+            faults.raise_if("prefill")
             logits, kv = self.model.prefill(
                 self.params, torch.from_numpy(toks).to(self.device))
-            self.n_prefills += 1
-            pages = np.asarray([req.pages[:padded // ps] for req in reqs],
-                               np.int64)
-            write_prompt_pages(self.pools, kv,
-                               torch.from_numpy(pages).to(self.device))
-            for i, req in enumerate(reqs):
-                plen = len(req.full_sequence)
-                self.lengths[req.slot] = plen
-                self._sync_slot(req)
-                row = logits[i, plen - 1, :self.cfg.vocab_size].float()
-                if not bool(torch.isfinite(row).all()):
-                    self._stats["numerics_errors"] += 1
-                    self._finish(req, FinishReason.ERROR)
-                    continue
-                self._accept_token(
-                    req, sample_one(row, req.params, req.generator))
+        except Exception as exc:   # rolled back (or re-raised) below
+            self._on_prefill_failure(reqs, exc)
+            return
+        self.n_prefills += 1
+        pages = np.asarray([req.pages[:padded // ps] for req in reqs],
+                           np.int64)
+        write_prompt_pages(self.pools, kv,
+                           torch.from_numpy(pages).to(self.device))
+        for i, req in enumerate(reqs):
+            plen = len(req.full_sequence)
+            self.lengths[req.slot] = plen
+            self._sync_slot(req)
+            row = logits[i, plen - 1, :self.cfg.vocab_size].float()
+            if not bool(torch.isfinite(row).all()):
+                self._stats["numerics_errors"] += 1
+                self._finish(req, FinishReason.ERROR)
+                continue
+            self._accept_token(
+                req, sample_one(row, req.params, req.generator))
+
+    # a request whose prefill fails this many times finishes with
+    # finish_reason="error" instead of retrying forever
+    MAX_PREFILL_FAULTS = 3
+
+    def _on_prefill_failure(self, reqs: list[Request], exc: Exception):
+        """Roll a failed prefill group back: nothing landed on the device
+        yet (the failure came before ``write_prompt_pages``), so each
+        request is un-admitted to the head of the queue and retried on the
+        same kernel path next step (a retry, not a fallback).  Persistent
+        failers finish with ``ERROR`` after :data:`MAX_PREFILL_FAULTS`
+        attempts.  An injected fault is always caught; any other error only
+        under ``guard=True``, and propagates otherwise."""
+        if (not isinstance(exc, faults.FaultInjected)
+                and not self.numerics_config.guard):
+            raise exc
+        self._stats["prefill_faults"] += 1
+        # reversed: appendleft-ing restores the group's FIFO order
+        for req in reversed(reqs):
+            req.n_prefill_faults += 1
+            if req.n_prefill_faults >= self.MAX_PREFILL_FAULTS:
+                self._stats["numerics_errors"] += 1
+                self._finish(req, FinishReason.ERROR)
+            else:
+                self.sched.unadmit(req)
 
     def _sync_slot(self, req: Request):
         s = req.slot
@@ -246,6 +405,14 @@ class Engine:
 
     def _accept_token(self, req: Request, tok: int) -> bool:
         """Host-side completion logic; True while still running."""
+        tr = _current_tracer()
+        if tr is not None and req.t_enqueue is not None:
+            now = tr.now()
+            if req.t_last_token is None:
+                self._observe_latency("ttft_s", now - req.t_enqueue)
+            else:
+                self._observe_latency("tpot_s", now - req.t_last_token)
+            req.t_last_token = now
         if tok in req.params.stop_tokens:
             self._finish(req, FinishReason.STOP)
             return False
@@ -261,6 +428,7 @@ class Engine:
         slot = req.slot
         self.sched.finish(req)
         self._clear_slot(slot)
+        self._trace_request_end(req)
 
     # ------------------------------------------------------------ decode
 
@@ -287,69 +455,138 @@ class Engine:
                     # the pool cannot hold even this one request
                     self._finish(req, FinishReason.ERROR)
                 else:
+                    # transient exhaustion (an injected alloc fault):
+                    # requeue and retry
                     self.sched.preempt(req)
                     self._clear_slot(slot)
+                    self._trace_preempt(req)
             for rid, slot in before.items():
                 r = self._requests[rid]
                 if r.slot is None and rid != req.rid:
                     self._clear_slot(slot)      # preempted: mask its slot
+                    self._trace_preempt(r)
             if grown:
                 self._sync_slot(req)
 
-    def _decode_dispatch(self):
-        """Launch one decode step for every running slot and return the
-        in-flight record (None when nothing runs).  Each sampled request
-        draws its uniform here; the mirrors are copied into this step's
-        staging buffer, so they are free to change once this returns."""
-        running = list(self.sched.running.values())
-        if not running:
-            return None
-        for req in running:
-            self.uniforms[req.slot] = draw_uniform(req.params, req.generator)
-        stage = self._staging[self.n_decode_steps % 2]
-        for name, host in stage.arrays.items():
-            np.copyto(host, getattr(self, name))
-        if self.device.type == "cuda":
-            if self._graph is None:
-                self._graph = _DecodeGraph(self)
-            out, done = self._graph.launch(
-                stage.buffer, any(not r.params.greedy for r in running))
-        else:
-            v = stage.tensors
-            toks, finite, _ = _decode_and_sample(
-                self.params, self.pools, v["block_tables"], v["lengths"],
-                v["next_tok"], v["temps"], v["topks"], v["topps"],
-                v["uniforms"], model=self.model, cfg=self.cfg)
-            out, done = torch.stack([finite.long(), toks]), None
-        self.n_decode_steps += 1
-        return {"running": running, "out": out, "done": done}
+    def _poison_mask(self) -> np.ndarray:
+        """Poll the ``decode.nonfinite`` fault site: the (max_slots,) mask
+        of slots whose logits this step poisons to NaN (all False leaves
+        the step's logits bitwise as they were)."""
+        poison = np.zeros((self.max_slots,), np.bool_)
+        spec = faults.poke("decode.nonfinite")
+        if spec is not None:
+            if spec.arg < 0:
+                poison[:] = True
+            else:
+                poison[spec.arg % self.max_slots] = True
+        return poison
+
+    def _decode_dispatch(self, running: list[Request]):
+        """Launch one decode step for the ``running`` slots and return the
+        in-flight record.  Each sampled request draws its uniform here; the
+        mirrors are copied into this step's staging buffer, so they are free
+        to change once this returns."""
+        with self._span("decode", batch=len(running)):
+            for req in running:
+                self.uniforms[req.slot] = draw_uniform(req.params,
+                                                       req.generator)
+            self.poison[:] = self._poison_mask()
+            stage = self._staging[self.n_decode_steps % 2]
+            for name, host in stage.arrays.items():
+                np.copyto(host, getattr(self, name))
+            if self.device.type == "cuda":
+                if self._graph is None:
+                    self._graph = _DecodeGraph(self)
+                out, done = self._graph.launch(
+                    stage.buffer, any(not r.params.greedy for r in running))
+            else:
+                v = stage.tensors
+                toks, finite, _ = _decode_and_sample(
+                    self.params, self.pools, v["block_tables"], v["lengths"],
+                    v["next_tok"], v["temps"], v["topks"], v["topps"],
+                    v["uniforms"], v["poison"], model=self.model,
+                    cfg=self.cfg)
+                out, done = torch.stack([finite.long(), toks]), None
+            self.n_decode_steps += 1
+            return {"running": running, "out": out, "done": done}
 
     def _decode_consume(self, inflight):
         """Wait for a dispatched step (the step's one sync) and apply it:
-        a slot whose logits are not finite fails with ``ERROR``; every other
+        a slot whose logits are not finite fails with ``ERROR`` (no re-run;
+        ``guard_trips`` counts the step under ``guard=True``); every other
         slot caches its input token and takes its new one."""
-        if inflight["done"] is not None:
-            inflight["done"].synchronize()
-        finite, toks = inflight["out"].tolist()
-        for req in inflight["running"]:
-            if not finite[req.slot]:
-                self._stats["numerics_errors"] += 1
+        with self._span("decode.consume", batch=len(inflight["running"])):
+            if inflight["done"] is not None:
+                inflight["done"].synchronize()
+            finite, toks = inflight["out"].tolist()
+            bad = [r for r in inflight["running"] if not finite[r.slot]]
+            if bad and self.numerics_config.guard:
+                self._stats["guard_trips"] += 1
+            for req in inflight["running"]:
+                if not finite[req.slot]:
+                    self._stats["numerics_errors"] += 1
+                    self._finish(req, FinishReason.ERROR)
+                    continue
+                self.lengths[req.slot] += 1  # its input token is now cached
+                self._accept_token(req, int(toks[req.slot]))
+
+    def _on_decode_failure(self, running: list[Request], exc: Exception):
+        """A decode step raised.  Under ``guard=True`` every request of the
+        step finishes with ``ERROR`` (counted in ``decode_faults``) and the
+        engine goes on serving the queue; otherwise the error propagates.
+        Nothing re-runs the step on another path."""
+        if not self.numerics_config.guard:
+            raise exc
+        self._stats["decode_faults"] += 1
+        tr = _current_tracer()
+        if tr is not None:
+            tr.instant("decode-fault", cat="engine", error=repr(exc),
+                       slots=[r.slot for r in running])
+        for req in running:
+            if req.slot is not None:
                 self._finish(req, FinishReason.ERROR)
-                continue
-            self.lengths[req.slot] += 1      # its input token is now cached
-            self._accept_token(req, int(toks[req.slot]))
 
     # ------------------------------------------------------------- drive
 
+    def _expire_deadlines(self):
+        """Time out requests (running or queued) whose deadline tick has
+        passed.  Runs at the top of every step, so a timed-out request
+        never takes another prefill or decode."""
+        for req in list(self.sched.running.values()):
+            if req.deadline is not None and self.clock > req.deadline:
+                self._stats["timeouts"] += 1
+                self._finish(req, FinishReason.TIMEOUT)
+        for req in [r for r in
+                    list(self.sched.waiting) + list(self.sched.parked)
+                    if r.deadline is not None and self.clock > r.deadline]:
+            self._stats["timeouts"] += 1
+            req.finish_reason = FinishReason.TIMEOUT.value
+            self.sched.drop(req)
+            self._trace_request_end(req)
+
     @torch.no_grad()
     def step(self):
-        """One engine iteration: admit and prefill, grow pages, then one
-        decode step for every running slot."""
-        self._admit_and_prefill()
-        self._ensure_pages()
-        inflight = self._decode_dispatch()
-        if inflight is not None:
-            self._decode_consume(inflight)
+        """One engine iteration: tick the deadline clock, expire deadlines,
+        admit and prefill, grow pages, then one decode step for every
+        running slot."""
+        with self._span("engine.step") as sp:
+            self.clock += 1
+            spec = faults.poke("decode.slow")
+            if spec is not None:         # injected slowdown: burn ticks
+                self.clock += max(1, spec.arg)
+            self._expire_deadlines()
+            self._admit_and_prefill()
+            self._ensure_pages()
+            running = list(self.sched.running.values())
+            if running:
+                try:
+                    self._decode_consume(self._decode_dispatch(running))
+                except Exception as exc:    # re-raised unless guard=True
+                    self._on_decode_failure(running, exc)
+            # annotated at exit: the span's args dict is live until then
+            sp["clock"] = self.clock
+            sp["occupancy"] = len(self.sched.running)
+            sp["waiting"] = len(self.sched.waiting)
 
     def run(self, prompts=None, params=None) -> dict[int, RequestResult]:
         """Optionally enqueue ``prompts`` (with one :class:`SamplingParams`
@@ -368,43 +605,59 @@ class Engine:
                 for rid, req in self._requests.items()}
 
     def stats(self) -> dict:
-        """Engine counters; on ``cuda`` also the decode program's: its
-        eager warm-up steps, its capture time and its replays (all of them,
-        and of the sampler graph)."""
+        """Resilience and throughput counters, JAX's keys but the prefix
+        cache's (item 14): guard trips (decode steps with a non-finite slot
+        under ``guard=True``), ``fallback_reruns`` (always 0: the port
+        never re-runs a step on a fallback path), numerics errors,
+        rejections, overloads, timeouts, length caps, prefill faults, the
+        clock, prefills, decode steps, preemptions, parks, and the circuit
+        breaker's global totals (``breaker``); the port's
+        ``decode_faults`` (decode steps that raised under ``guard=True``);
+        on ``cuda`` also the decode program's: its eager warm-up steps,
+        its capture time and its replays (all of them, and of the sampler
+        graph)."""
         g = self._graph
-        return {**self._stats, "prefills": self.n_prefills,
+        return {**self._stats,
+                "clock": self.clock,
+                "prefills": self.n_prefills,
                 "decode_steps": self.n_decode_steps,
                 "preemptions": self.sched.n_preemptions,
+                "parks": self.sched.n_parks,
+                "breaker": guard.counters(),
                 "decode_warmups": 0 if g is None else 1,
                 "capture_s": 0.0 if g is None else g.capture_s,
                 "graph_replays": 0 if g is None else g.replays,
                 "sampler_replays": 0 if g is None else g.sampler_replays}
 
 
-def _decode_step(params, pools, block_tables, lengths, toks, *, model, cfg):
+def _decode_step(params, pools, block_tables, lengths, toks, poison, *,
+                 model, cfg):
     """The model half of :func:`_decode_and_sample`: the paged decode
     (each slot's K/V written into its page in place), the logits sliced to
-    the vocabulary in f32, the per-slot ``isfinite`` guard bit and the
-    greedy argmax.  Returns ``(logits, finite, greedy)``."""
+    the vocabulary in f32 and NaN where ``poison`` is set (the
+    ``decode.nonfinite`` fault: ``torch.where(mask, nan, logits)``, bitwise
+    the logits where it is not), the per-slot ``isfinite`` guard bit and
+    the greedy argmax.  Returns ``(logits, finite, greedy)``."""
     logits = model.decode_step_paged(params, pools, block_tables, lengths,
                                      toks)
     logits = logits[:, :cfg.vocab_size].float()
+    logits = torch.where(poison[:, None], float("nan"), logits)
     return logits, torch.isfinite(logits).all(dim=-1), torch.argmax(logits,
                                                                      dim=-1)
 
 
 def _decode_and_sample(params, pools, block_tables, lengths, toks, temps,
-                       topks, topps, uniforms, *, model, cfg):
+                       topks, topps, uniforms, poison, *, model, cfg):
     """The engine step: paged model decode and vectorized sampling for
-    the whole slot array (the JAX engine's jitted step, without its fault
-    mask; the pools are updated in place rather than returned).
+    the whole slot array (the JAX engine's jitted step; the pools are
+    updated in place rather than returned).
 
     Returns ``(tokens, finite, logits)``: ``finite`` is the per-slot guard
     bit; False means the slot's logits hold a non-finite value and its
     token must not be trusted.  The CPU engine runs this eagerly; on
     ``cuda`` :class:`_DecodeGraph` replays it."""
     logits, finite, _ = _decode_step(params, pools, block_tables, lengths,
-                                     toks, model=model, cfg=cfg)
+                                     toks, poison, model=model, cfg=cfg)
     tokens = sampling.sample(logits, temps, topks, topps, uniforms)
     return tokens, finite, logits
 
@@ -427,7 +680,11 @@ class _DecodeGraph:
     each kernel's library and makes every kernel-side setup call, so the
     capture holds nothing but launches.  The engine's parameters and pools
     must keep their storage from then on.  A failed capture or replay
-    raises; there is no eager fallback.
+    raises; there is no eager fallback.  An error raised while capturing
+    (a kernel failure, an injected ``kernel.*`` fault) leaves the graph
+    object unfinished: the engine keeps no reference to it, so the next
+    decode step warms up and captures afresh and a half-captured graph is
+    never replayed.
 
     The kernels' Python wrappers run only at capture, so their launch
     counters see nothing of a replay: the increase each counter showed
@@ -452,8 +709,8 @@ class _DecodeGraph:
         def main():
             logits, finite, greedy = _decode_step(
                 engine.params, engine.pools, v["block_tables"],
-                v["lengths"], v["next_tok"], model=engine.model,
-                cfg=engine.cfg)
+                v["lengths"], v["next_tok"], v["poison"],
+                model=engine.model, cfg=engine.cfg)
             self.out[0].copy_(finite)
             self.out[1].copy_(greedy)
             return logits
@@ -471,16 +728,19 @@ class _DecodeGraph:
         before = [m.launches for m in self._counters]
         epilogues = dict(tcec_matmul.epilogue_launches)
         self.main = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.main):
-            self.logits = main()
-        self.per_replay = [m.launches - n
-                           for m, n in zip(self._counters, before)]
-        for m, n in zip(self._counters, before):
-            m.launches = n
-        self.epilogues_per_replay = {
-            k: n - epilogues[k]
-            for k, n in tcec_matmul.epilogue_launches.items()}
-        tcec_matmul.epilogue_launches.update(epilogues)
+        try:
+            with torch.cuda.graph(self.main):
+                self.logits = main()
+        finally:
+            # the capture launched nothing, whether it ended or raised
+            self.per_replay = [m.launches - n
+                               for m, n in zip(self._counters, before)]
+            for m, n in zip(self._counters, before):
+                m.launches = n
+            self.epilogues_per_replay = {
+                k: n - epilogues[k]
+                for k, n in tcec_matmul.epilogue_launches.items()}
+            tcec_matmul.epilogue_launches.update(epilogues)
         self.sampler = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.sampler):
             sampler(self.logits)

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import faults
 from .errors import PagePoolError
 
 DEFAULT_PAGE_SIZE = 16
@@ -54,7 +55,13 @@ class PagePool:
         return max(1, -(-n_tokens // self.page_size))
 
     def alloc(self, n: int) -> list[int] | None:
-        """Pop ``n`` pages, or None (and no change) if they don't fit."""
+        """Pop ``n`` pages, or None (and no change) if they don't fit.
+
+        The ``pool.alloc`` fault site injects transient exhaustion here
+        (None with pages available): the signal every caller handles
+        already."""
+        if faults.poke("pool.alloc") is not None:
+            return None
         if n > len(self._free):
             return None
         taken = self._free[-n:][::-1]

@@ -11,7 +11,13 @@ arrays and calls in here.  The rules are the JAX package's:
   * preemption evicts the most recently admitted running request: its
     pages are freed and it goes back to the front of the queue with its
     generated tokens intact, to be re-prefilled on re-admission
-    (recompute-style; no page swapping).
+    (recompute-style; no page swapping);
+  * preemption-storm parking: a request evicted ``max_preemptions`` times
+    is parked instead of requeued — it sits out until the waiting queue
+    drains, then rejoins at the front.  Recompute-style preemption
+    re-prefills the victim's whole sequence, so a thrashing mix can burn
+    most of its steps re-prefilling; parking turns that storm into
+    queueing delay.
 """
 from __future__ import annotations
 
@@ -44,6 +50,10 @@ class Request:
     n_preemptions: int = 0
     generator: object = None           # per-request torch.Generator
     finish_reason: str | None = None   # serving.errors.FinishReason value
+    deadline: int | None = None        # engine-clock tick to finish by
+    n_prefill_faults: int = 0          # failed prefill attempts (engine)
+    t_enqueue: float | None = None     # tracer clock at add (repro_torch.obs)
+    t_last_token: float | None = None  # tracer clock at last accept
 
     @property
     def full_sequence(self) -> list[int]:
@@ -59,15 +69,19 @@ class Request:
 class Scheduler:
     """FIFO admission + LIFO preemption over a :class:`PagePool`."""
 
-    def __init__(self, pool: PagePool, max_slots: int):
+    def __init__(self, pool: PagePool, max_slots: int,
+                 max_preemptions: int | None = None):
         self.pool = pool
         self.max_slots = max_slots
+        self.max_preemptions = max_preemptions         # None = never park
         self.waiting: deque[Request] = deque()
+        self.parked: deque[Request] = deque()          # storm victims
         self.running: dict[int, Request] = {}          # slot -> request
         self._ids = itertools.count()
         self._admit_seq = itertools.count()
         self._admitted_at: dict[int, int] = {}         # rid -> seq
-        self.n_preemptions = 0
+        self.n_preemptions = 0                         # total evictions
+        self.n_parks = 0                               # storm detections
 
     def add(self, prompt, params: SamplingParams | None = None) -> Request:
         req = Request(rid=next(self._ids), prompt=[int(t) for t in prompt],
@@ -77,7 +91,7 @@ class Scheduler:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.waiting or self.running)
+        return bool(self.waiting or self.parked or self.running)
 
     def free_slots(self) -> list[int]:
         return [s for s in range(self.max_slots) if s not in self.running]
@@ -87,7 +101,11 @@ class Scheduler:
 
     def admit(self) -> list[Request]:
         """Admit waiting requests FIFO while a slot and pages are available
-        (prompt pages plus one page of headroom each)."""
+        (prompt pages plus one page of headroom each).  Parked requests
+        rejoin at the head once the waiting queue has drained."""
+        if self.parked and not self.waiting:
+            self.waiting.extendleft(reversed(self.parked))
+            self.parked.clear()
         admitted = []
         slots = self.free_slots()
         while self.waiting and slots:
@@ -135,11 +153,25 @@ class Scheduler:
         req.slot = None
 
     def preempt(self, req: Request) -> None:
-        """Evict a running request back to the front of the queue."""
+        """Evict a running request back to the front of the queue, or park
+        it once it has been evicted ``max_preemptions`` times."""
         self._release(req, "preempt")
         req.state = RequestState.WAITING
         req.n_preemptions += 1
         self.n_preemptions += 1
+        if (self.max_preemptions is not None
+                and req.n_preemptions >= self.max_preemptions):
+            self.n_parks += 1
+            self.parked.append(req)
+        else:
+            self.waiting.appendleft(req)
+
+    def unadmit(self, req: Request) -> None:
+        """Roll an admission back (its prefill failed before any state
+        landed): free pages and slot, requeue at the front.  Not an
+        eviction: it does not count toward parking."""
+        self._release(req, "unadmit")
+        req.state = RequestState.WAITING
         self.waiting.appendleft(req)
 
     def finish(self, req: Request) -> None:
@@ -148,9 +180,12 @@ class Scheduler:
         req.state = RequestState.FINISHED
 
     def drop(self, req: Request) -> None:
-        """Finish a request that is still queued (length cap)."""
+        """Finish a request that is still queued (waiting or parked):
+        deadline expiry, length cap."""
         if req in self.waiting:
             self.waiting.remove(req)
+        elif req in self.parked:
+            self.parked.remove(req)
         else:
             raise SchedulerInvariantError(
                 f"drop of request {req.rid} which is not queued")

@@ -381,7 +381,7 @@ def test_paged_wrapper_raises_instead_of_falling_back(dev):
 
 # ----------------------------------------------------- the decode program
 
-def _smoke_engine(dev, maxp=66):
+def _smoke_engine(dev, maxp=66, **kw):
     """The engine at the smoke config (2 layers, 2 kv heads, head dim 16)
     on the card, pages of 4 tokens.  66 table columns make kernel 3 take
     chunks of 2 pages (8 tokens), so the combine pass runs too."""
@@ -393,7 +393,7 @@ def _smoke_engine(dev, maxp=66):
     assert tcec_paged_attention.chunk_pages(4, cfg.n_kv_heads, maxp, 4,
                                             cfg.head_dim) == 2
     return Engine(cfg, params, max_slots=4, num_pages=65, page_size=4,
-                  max_pages_per_slot=maxp, device=dev)
+                  max_pages_per_slot=maxp, device=dev, **kw)
 
 
 def _check_replays(eng, monkeypatch) -> list:
@@ -416,7 +416,7 @@ def _check_replays(eng, monkeypatch) -> list:
         toks, finite, logits = em._decode_and_sample(
             eng.params, pools, v["block_tables"], v["lengths"],
             v["next_tok"], v["temps"], v["topks"], v["topps"],
-            v["uniforms"], model=eng.model, cfg=eng.cfg)
+            v["uniforms"], v["poison"], model=eng.model, cfg=eng.cfg)
         assert torch.equal(logits, self.logits)
         assert out[0].tolist() == finite.long().tolist()
         assert out[1].tolist() == toks.tolist()
@@ -1124,3 +1124,192 @@ def test_engine_pin_holds_while_the_ambient_config_changes(dev):
             2 * (7 * L + 1), 2 * L)
         out = eng.run()
     assert all(v.finish_reason == "length" for v in out.values())
+
+
+# ---------------------------------------- faults, the guard and the monitor
+
+@pytest.fixture
+def _clean_guard():
+    from repro_torch.kernels import guard
+    guard.reset()
+    guard.configure(threshold=2, cooldown=3)
+    yield guard
+    guard.reset()
+    guard.configure(threshold=2, cooldown=8)
+
+
+def _open_breaker_on_kernel_1(dev, guard):
+    """Under ``guard=True``, fail kernel 1's first two launches at one
+    shape: returns the call, its operands' reference and the fault plan."""
+    from repro_torch import faults
+    from repro_torch.core.policy import policy_mm
+    g = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn(4, 1024, generator=g, device=dev)
+    b = torch.randn(1024, 3072, generator=g, device=dev)
+
+    def call():
+        return policy_mm(a, b, "tcec_bf16x6")
+    ref = call()
+    plan = faults.plan_from_spec("kernel.matmul@0:1")
+    for _ in range(guard.THRESHOLD):
+        with faults.use(plan, reset=False):
+            with pytest.raises(faults.FaultInjected):
+                call()
+    return call, ref, plan
+
+
+def test_guard_quarantines_kernel_1_without_a_launch(dev, _clean_guard):
+    """After ``THRESHOLD`` failures the key's breaker is open: each call of
+    the cooldown raises ``KernelQuarantined`` and launches nothing (kernel
+    1's count stands still), and no plain version answers it."""
+    from repro_torch.kernels import dispatch
+    guard = _clean_guard
+    plain_calls = []
+    real_plain = dispatch.tcec_matmul_plain
+    dispatch.tcec_matmul_plain = lambda *a, **k: plain_calls.append(1) or \
+        real_plain(*a, **k)
+    try:
+        with numerics.use(guard=True):
+            call, _, plan = _open_breaker_on_kernel_1(dev, guard)
+            assert plan.log == [("kernel.matmul", 0), ("kernel.matmul", 1)]
+            before = tcec_matmul.launches
+            for _ in range(guard.COOLDOWN):
+                with pytest.raises(guard.KernelQuarantined,
+                                   match="FaultInjected"):
+                    call()
+            assert tcec_matmul.launches == before
+    finally:
+        dispatch.tcec_matmul_plain = real_plain
+    assert plain_calls == []
+    totals = guard.counters()
+    assert (totals["failures"], totals["opens"], totals["declined"]) == (
+        2, 1, guard.COOLDOWN)
+
+
+def test_guard_half_open_probe_launches_and_closes(dev, _clean_guard):
+    """After the cooldown the half-open probe launches kernel 1 again; its
+    success closes the breaker and the result is the kernel's, bitwise."""
+    guard = _clean_guard
+    with numerics.use(guard=True):
+        call, ref, _ = _open_breaker_on_kernel_1(dev, guard)
+        for _ in range(guard.COOLDOWN):
+            with pytest.raises(guard.KernelQuarantined):
+                call()
+        before = tcec_matmul.launches
+        out = call()
+        assert tcec_matmul.launches == before + 1
+        assert torch.equal(out, ref)
+        out = call()
+    totals = guard.counters()
+    assert (totals["half_opens"], totals["closes"]) == (1, 1)
+    assert all(row["state"] == "closed"
+               for row in guard.stats()["keys"].values())
+
+
+def test_decode_graph_fault_during_capture_then_clean_capture(
+        dev, _clean_guard):
+    """A ``kernel.paged`` fault raised while the decode graph is captured
+    (the warm-up's L kernel-3 calls come first): under ``guard=True`` the
+    step's requests end ``error``, the half-captured graph is dropped and
+    its launches are not counted; the next step warms up and captures
+    afresh, and its requests' tokens equal a fault-free engine's."""
+    from repro_torch import faults
+    from repro_torch.serving import SamplingParams
+    prompts = [list(range(1, n + 1)) for n in (5, 7, 6, 9)]
+    ref = _smoke_engine(dev)
+    expect = ref.run(prompts[2:], SamplingParams(max_tokens=5))
+    eng = _smoke_engine(dev, numerics_config=numerics.active().replace(
+        guard=True))
+    L = eng.cfg.n_layers
+    for p in prompts[:2]:
+        eng.add_request(p, SamplingParams(max_tokens=5))
+    plan = faults.plan_from_spec(f"kernel.paged@{L}")
+    with faults.use(plan):
+        before = tcec_paged_attention.launches
+        eng.step()
+        assert plan.log == [("kernel.paged", L)]
+        assert eng._graph is None and eng.stats()["decode_faults"] == 1
+        assert tcec_paged_attention.launches - before == L   # the warm-up
+        rids = [eng.add_request(p, SamplingParams(max_tokens=5))
+                for p in prompts[2:]]
+        out = eng.run()
+    assert [out[r].finish_reason for r in (0, 1)] == ["error", "error"]
+    assert eng._graph is not None and eng.stats()["graph_replays"] > 0
+    assert [list(out[r]) for r in rids] == [list(v) for v in
+                                             expect.values()]
+
+
+def test_decode_graph_poison_mask_all_false_is_bitwise_the_model(
+        dev, monkeypatch):
+    """With no ``decode.nonfinite`` fault the packed poison mask is all
+    False, and every replayed step's logits are bitwise the model's own
+    (``decode_step_paged`` run eagerly on a copy of the state, without the
+    mask)."""
+    from repro_torch.models.modules import tree_map
+    from repro_torch.serving import SamplingParams
+    from repro_torch.serving import engine as em
+    eng = _smoke_engine(dev)
+    B, maxp = eng.max_slots, eng.max_pages_per_slot
+    launch, compared = em._DecodeGraph.launch, []
+
+    def checked(self, staged, sample):
+        pools = tree_map(torch.clone, eng.pools)
+        v = em._input_views(staged.to(dev), B, maxp)
+        assert not bool(v["poison"].any())
+        out, done = launch(self, staged, sample)
+        done.synchronize()
+        logits = eng.model.decode_step_paged(
+            eng.params, pools, v["block_tables"], v["lengths"],
+            v["next_tok"])[:, :eng.cfg.vocab_size].float()
+        assert torch.equal(logits, self.logits)
+        compared.append(1)
+        return out, done
+
+    monkeypatch.setattr(em._DecodeGraph, "launch", checked)
+    for n in (5, 9, 12):
+        eng.add_request(list(range(1, n + 1)), SamplingParams(max_tokens=6))
+    eng.run()
+    assert len(compared) == eng.stats()["graph_replays"] > 0
+
+
+def test_decode_graph_poisoned_slot_fails_alone(dev):
+    """``decode.nonfinite`` through the graph: the poison mask rides in the
+    packed inputs, the poisoned slot ends ``error``, the others keep their
+    fault-free tokens."""
+    from repro_torch import faults
+    from repro_torch.serving import SamplingParams
+    prompts = [list(range(1, n + 1)) for n in (5, 9, 12)]
+    expect = _smoke_engine(dev).run(prompts, SamplingParams(max_tokens=6))
+    eng = _smoke_engine(dev)
+    with faults.use(faults.plan_from_spec("decode.nonfinite@2:arg=1")):
+        out = eng.run(prompts, SamplingParams(max_tokens=6))
+    assert out[1].finish_reason == "error" and len(out[1]) == 3
+    for r in (0, 2):
+        assert list(out[r]) == list(expect[r])
+    assert eng.stats()["numerics_errors"] == 1
+
+
+def test_monitor_skips_probes_while_capturing(dev):
+    """Under ``monitor=True`` an eager contraction is probed (one host
+    read); the same contraction captured in a CUDA graph is skipped and
+    counted, and the replay is bitwise the eager result."""
+    from repro_torch.core.policy import policy_mm
+    from repro_torch.obs import metrics
+    g = torch.Generator(device=dev).manual_seed(12)
+    a = torch.randn(16, 256, generator=g, device=dev)
+    b = torch.randn(256, 128, generator=g, device=dev)
+    probes = metrics.counter("numerics/monitor/probes")
+    skipped = metrics.counter("numerics/monitor/skipped_capture")
+    with numerics.use(monitor=True):
+        before = probes.total(), skipped.total()
+        eager = policy_mm(a, b, "tcec_bf16x6")
+        assert probes.total() == before[0] + 1
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = policy_mm(a, b, "tcec_bf16x6")
+        graph.replay()
+        torch.cuda.synchronize()
+    assert probes.total() == before[0] + 1
+    assert skipped.total() == before[1] + 1
+    assert torch.equal(out, eager)

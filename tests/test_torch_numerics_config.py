@@ -134,12 +134,10 @@ def test_from_env_equals_jax(env):
 
 
 @pytest.mark.parametrize("var,field,item", [
-    ("REPRO_GUARD", "guard", "item 8"),
     ("REPRO_SHARD_MAP", "shard_map", "item 16"),
     ("REPRO_PREFIX_CACHE", "prefix_cache", "item 14"),
     ("REPRO_CHUNKED_PREFILL", "chunked_prefill", "item 14"),
     ("REPRO_ASYNC_SCHED", "async_sched", "item 3"),
-    ("REPRO_MONITOR", "monitor", "item 15"),
     ("REPRO_KEEP_BF16_DOTS", "keep_bf16_dots", "XLA only"),
 ])
 def test_fields_not_ported_raise_away_from_their_default(var, field, item):
@@ -152,6 +150,20 @@ def test_fields_not_ported_raise_away_from_their_default(var, field, item):
         NumericsConfig(**{field: value})
     with pytest.raises(NotImplementedError):
         numerics.use(**{field: value})
+
+
+@pytest.mark.parametrize("var,field", [("REPRO_GUARD", "guard"),
+                                       ("REPRO_MONITOR", "monitor")])
+def test_guard_and_monitor_are_accepted_away_from_their_default(var, field):
+    """Ported (``kernels/guard.py``, ``obs/numerics_health.py``): True
+    parses from the environment and builds a config, as in JAX."""
+    assert getattr(NumericsConfig.from_env({var: "1"}), field) is True
+    assert getattr(jnumerics.NumericsConfig.from_env({var: "1"}), field) \
+        is True
+    assert getattr(NumericsConfig(**{field: True}), field) is True
+    with numerics.use(**{field: True}) as cfg:
+        assert getattr(numerics.active(), field) is True is getattr(cfg,
+                                                                    field)
 
 
 def test_cli_override_parsing_equals_jax():

@@ -205,7 +205,13 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:\.|\s|$)", re.M)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    pkg = ROOT / "src" / "repro_torch"
+    files = sorted(pkg.rglob("*.py"))
+    # the JAX-free modules of the JAX package have copies of their own here
+    assert {"faults.py", "kernels/guard.py", "obs/__init__.py",
+            "obs/metrics.py", "obs/trace.py", "obs/explain.py",
+            "obs/numerics_health.py"} <= {
+                f.relative_to(pkg).as_posix() for f in files}
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     for f in files:
