@@ -71,10 +71,14 @@ Phases, each of which raises on a failed check (nothing is caught):
      a ragged one with a window, 32 slots of 1024 tokens (bound by
      bytes), gemma-2b's decode (8/1 heads of 256) and gemma2-9b's at 4
      slots of 5000/5000/4200/300 tokens (window 4096, which binds, softcap
-     50; the f32 gate takes both); copies of its page pools are rotated so
-     that each timed call reads K/V cold, and each row names the chunk size ``chunk_pages``, the
-     blocks and live blocks of the first pass and the share of the bound
-     reached on the device (``bound_share``);
+     50; the f32 gate takes both), and its f32 instantiation (f32 pools,
+     phase 16's) at qwen3-0.6b's and gemma2-9b's decode; copies of its page
+     pools are rotated so that each timed call reads K/V cold, and each row
+     names the chunk size ``chunk_pages``, the blocks and live blocks of
+     the first pass and the share of the bound reached on the device
+     (``bound_share``).  Kernel 2 also runs at a chunk of phase 16's
+     chunked prefill: 256 queries at positions 256-511 against a scratch of
+     768 keys (SDPA with a boolean mask beside it);
   3. the paper's check: at 2048^3, kernel 1's x6 residual against an f64
      product is at most twice that of an f32 ``torch.matmul``;
   4. the main path: the serving engine at the full width of qwen3-0.6b with
@@ -295,7 +299,26 @@ Phases, each of which raises on a failed check (nothing is caught):
      rejects the 3rd to 8th request with ``EngineOverloaded``, and
      ``max_preemptions=1`` on a 92-page pool parks a request while every
      request finishes with its fault-free tokens.  The phase prints its
-     own seconds.
+     own seconds;
+  16. the prefix cache, chunked prefill, async scheduling and defragment:
+     qwen3-0.6b at full width, random weights from seed 0, f32 pools, 4
+     slots, 8 greedy requests of one shared 512-token prefix and tails of
+     128, 128, 64, 64, 32, 32, 17 and 17 tokens (16 tokens each), on fresh
+     engines: knobs off (the reference), ``prefix_cache``,
+     ``chunked_prefill=256``, ``async_sched``, all three (with one
+     ``defragment()`` once the first request has finished), and knobs off
+     again (the warm times).  Gates: every run's tokens equal the
+     reference's; the prefix runs' hits and reused tokens at least those of
+     the same plan on the CPU at the smoke config; the 32 pages a hit maps
+     bitwise those the reference's prefill of that request writes; a hit's
+     first-token logits bitwise the reference's where the tail's kernel-1
+     products take the monolithic prefill's path, else within 1e-3 (which,
+     printed); each chunk 7L + 1 / L launches of kernels 1 / 2; every
+     kernel-3 launch on the f32 instantiation; 0 plain-version calls; the
+     decode graph over f32 pools replayed bitwise as the eager step (4b).
+     Printed: each run's tok/s, decode-step median and TTFT of requests 5-8
+     (p50, p90 of the host-clock samples), and the profiled device busy
+     time of requests 5-8's prefill with and without the prefix cache.
 
 Phases 2-13 run under the default numerics config, whose tune mode is
 "off" (the rule by M, the parent's routing bit for bit); the tuner writes
@@ -603,11 +626,13 @@ def f32_gate(row, ref64, out, plain_f32):
 
 # ------------------------------------------------------------- kernel 2
 
-def attention_direct(q, k, v, dtype, causal=True, window=0, softcap=None):
+def attention_direct(q, k, v, dtype, causal=True, window=0, softcap=None,
+                     q0=0):
     """GQA attention computed directly in ``dtype`` (no split); causal
-    masks keys after the query's position (queries and keys from 0), a
-    window keys ``window`` or more positions before it, and a softcap caps
-    the scores.  1024 queries at a time, so that long sequences fit."""
+    masks keys after the query's position (queries from ``q0``, keys from
+    0), a window keys ``window`` or more positions before it, and a
+    softcap caps the scores.  1024 queries at a time, so that long
+    sequences fit."""
     rows = 1024
     B, S, H, hd = q.shape
     T, rep = k.shape[1], H // k.shape[2]
@@ -619,7 +644,8 @@ def attention_direct(q, k, v, dtype, causal=True, window=0, softcap=None):
         sc = qs @ ks.transpose(-1, -2) / math.sqrt(hd)
         if softcap:
             sc = softcap * torch.tanh(sc / softcap)
-        d = (torch.arange(r0, r0 + qs.shape[2], device=q.device)[:, None]
+        d = (torch.arange(q0 + r0, q0 + r0 + qs.shape[2],
+                          device=q.device)[:, None]
              - torch.arange(T, device=q.device)[None])
         keep = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
         if window:
@@ -632,45 +658,59 @@ def attention_direct(q, k, v, dtype, causal=True, window=0, softcap=None):
 
 
 def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
-                   window=0, softcap=None, causal=True, T=None, hdv=None):
-    """Kernel 2 at (B, S) queries against T keys (default S; positions
-    from 0), value head dim ``hdv`` (default hd): against its plain version
-    (1e-5 max|v|) and, for plain x6 attention, against f64 (the f32 gate);
-    timed beside f32 SDPA where SDPA computes the same function."""
+                   window=0, softcap=None, causal=True, T=None, hdv=None,
+                   q0=0):
+    """Kernel 2 at (B, S) queries against T keys (default S; key positions
+    from 0, query positions from ``q0``: a chunk of a chunked prefill),
+    value head dim ``hdv`` (default hd): against its plain version (1e-5
+    max|v|) and, for plain x6 attention, against f64 (the f32 gate); timed
+    beside f32 SDPA where SDPA computes the same function (with a boolean
+    mask for a chunk)."""
     from repro_torch.core import get_policy
     from repro_torch.kernels import tcec_attention as ta
     T = S if T is None else T
     hdv = hd if hdv is None else hdv
-    g = torch.Generator(device=dev).manual_seed(S + B + T)
+    g = torch.Generator(device=dev).manual_seed(S + B + T + q0)
     q = torch.randn(B, S, H, hd, generator=g, device=dev)
     k = torch.randn(B, T, Hkv, hd, generator=g, device=dev)
     v = torch.randn(B, T, Hkv, hdv, generator=g, device=dev)
+    qp, kp = (torch.arange(n, dtype=torch.int32, device=dev) for n in (S, T))
+    qp = qp + q0
     kw = dict(policy=policy, window=window, softcap=softcap, causal=causal)
-    out = ta.tcec_attention(q, k, v, **kw)
-    ref = ta.tcec_attention_plain(q, k, v, **kw)
+    pos = (qp, kp) if q0 else (None, None)
+    out = ta.tcec_attention(q, k, v, *pos, **kw)
+    ref = ta.tcec_attention_plain(q, k, v, *pos, **kw)
     err = float((out - ref).abs().max())
     tol = 1e-5 * float(v.abs().max())
     check(err <= tol, f"{name}: kernel 2 vs plain beyond 1e-5 max|v|")
-    ms = time_ms(rotating(lambda i: ta.tcec_attention(q, k, v, **kw)), reps)
-    dev_ms = device_only_ms(lambda i: ta.tcec_attention(q, k, v, **kw), reps)
+    ms = time_ms(rotating(lambda i: ta.tcec_attention(q, k, v, *pos, **kw)),
+                 reps)
+    dev_ms = device_only_ms(lambda i: ta.tcec_attention(q, k, v, *pos, **kw),
+                            reps)
     # the launch alone, without the entry's policy lookup and checks
     pol = get_policy(policy)
-    qp, kp = (torch.arange(n, dtype=torch.int32, device=dev) for n in (S, T))
     kernel_ms = time_ms(rotating(lambda i: ta._launch(
         q, k, v, qp, kp, pol, causal, window, softcap, math.sqrt(hd))), reps)
-    plain_ms = time_ms(rotating(lambda i: ta.tcec_attention_plain(q, k, v,
-                                                                  **kw)), 2)
+    plain_ms = time_ms(rotating(lambda i: ta.tcec_attention_plain(
+        q, k, v, *pos, **kw)), 2)
     lib_ms = None
-    if not window and not softcap and (S == T or not causal):
+    if not window and not softcap and (S == T or not causal or q0):
         rep = H // Hkv
         qs, ks, vs = (q.transpose(1, 2), k.repeat_interleave(rep, 2)
                       .transpose(1, 2), v.repeat_interleave(rep, 2)
                       .transpose(1, 2))
-        lib_ms = time_ms(rotating(lambda i: torch.nn.functional
-                                  .scaled_dot_product_attention(
-                                      qs, ks, vs, is_causal=causal)), reps)
+        if q0:        # the chunk's causal mask at its real positions
+            mask = qp.long()[:, None] >= kp.long()[None, :]
+            lib_ms = time_ms(rotating(lambda i: torch.nn.functional
+                                      .scaled_dot_product_attention(
+                                          qs, ks, vs, attn_mask=mask)), reps)
+        else:
+            lib_ms = time_ms(rotating(lambda i: torch.nn.functional
+                                      .scaled_dot_product_attention(
+                                          qs, ks, vs, is_causal=causal)),
+                             reps)
     # (q, k) pairs the mask keeps: causal, and within the window if any
-    d = (torch.arange(S, device=dev)[:, None]
+    d = (torch.arange(q0, q0 + S, device=dev)[:, None]
          - torch.arange(T, device=dev)[None, :])
     kept = d >= 0 if causal else torch.ones_like(d, dtype=torch.bool)
     if window:
@@ -681,7 +721,8 @@ def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
         S + T)
     b_ms, by = bound(nbytes, ops, H100_BF16_OPS)
     row = {"kernel": "tcec_attention", "shape": name, "B": B, "S": S,
-           "T": T, "H": H, "Hkv": Hkv, "hd": hd, "hdv": hdv, "policy": policy,
+           "T": T, "q0": q0, "H": H, "Hkv": Hkv, "hd": hd, "hdv": hdv,
+           "policy": policy,
            "causal": causal, "window": window,
            "window_binds": bool(window) and S > window, "softcap": softcap,
            "max_abs_err": err, "tolerance": "1e-5*max|v|", "tol": tol,
@@ -690,9 +731,11 @@ def attention_case(name, B, S, H, Hkv, hd, dev, reps=20, policy="tcec_bf16x6",
            "library_ms": lib_ms,
            "library": (f"scaled_dot_product_attention f32 "
                        f"{'causal' if causal else 'non-causal'}"
+                       f"{', boolean mask' if q0 else ''}"
                        if lib_ms is not None else None)}
     if policy == "tcec_bf16x6":
-        ref64, ref32 = (attention_direct(q, k, v, dt, causal, window, softcap)
+        ref64, ref32 = (attention_direct(q, k, v, dt, causal, window, softcap,
+                                         q0)
                         for dt in (torch.float64, torch.float32))
         f32_gate(row, ref64, out, ref32)
         del ref64, ref32
@@ -726,25 +769,28 @@ def paged_direct(q, kp, vp, bt, ln, dtype, window=0, softcap=None):
 
 
 def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
-               copies=16, plain_reps=2, softcap=None):
-    """Kernel 3 at one decode step: against its plain version at the same
-    chunk size C (1e-5 max|v|) and against f64 (the f32 gate; every slot
-    here holds a token).  ``copies`` copies of the pools are rotated so
-    that a timed call reads its K/V cold, as the engine finds them after a
-    layer's weights."""
+               copies=16, plain_reps=2, softcap=None, dtype=torch.bfloat16):
+    """Kernel 3 at one decode step over ``dtype`` pools (bf16, or f32: its
+    f32 instantiation): against its plain version at the same chunk size C
+    (1e-5 max|v|) and against f64 (the f32 gate; every slot here holds a
+    token).  ``copies`` copies of the pools are rotated so that a timed
+    call reads its K/V cold, as the engine finds them after a layer's
+    weights."""
+    from repro_torch.core import get_policy
     from repro_torch.kernels import tcec_paged_attention as tp
     B = len(lengths)
     NP = 1 + B * maxp
     g = torch.Generator(device=dev).manual_seed(sum(lengths) + maxp)
-    pools = [(torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16(),
-              torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).bfloat16())
+    pools = [(torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).to(dtype),
+              torch.randn(NP, ps, Hkv, hd, generator=g, device=dev).to(dtype))
              for _ in range(copies)]
     kp, vp = pools[0]
     q = torch.randn(B, H, hd, generator=g, device=dev)
     perm = torch.randperm(NP - 1, generator=g, device=dev) + 1
     bt = perm.reshape(B, maxp).to(torch.int32).contiguous()
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    C = tp.chunk_pages(B, Hkv, maxp, ps, hd, hd)
+    elem = kp.element_size()
+    C = tp.chunk_pages(B, Hkv, maxp, ps, hd, hd, elem)
     kw = dict(window=window, softcap=softcap)
     out = tp.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
     ref = tp.tcec_paged_attention_plain(q, kp, vp, bt, ln, pages_per_chunk=C,
@@ -764,12 +810,16 @@ def paged_case(name, lengths, H, Hkv, hd, ps, maxp, dev, window=0, reps=20,
     plain_ms = time_ms(rotating(lambda i: tp.tcec_paged_attention_plain(
         q, kp, vp, bt, ln, **kw)), plain_reps)
     valid = sum(min(n, window) if window else max(n, 0) for n in lengths)
-    kv_bytes = 2 * valid * Hkv * 2 * hd
+    kv_bytes = 2 * valid * Hkv * elem * hd
     nbytes = 4 * B * H * hd * 2 + kv_bytes + 4 * B * (maxp + 1)
-    ops = 3 * 2 * 2 * hd * valid * H            # 3 (i, 0) passes, QK and PV
+    # QK and PV products: the 3 (i, 0) passes over bf16 pages, every kept
+    # pass (6 at x6) over f32 pages, whose terms are not zero
+    passes = 3 if elem == 2 else get_policy("tcec_bf16x6").passes
+    ops = passes * 2 * 2 * hd * valid * H
     b_ms, by = bound(nbytes, ops, H100_F32_OPS)
     live = tp.live_chunks(ln.cpu(), maxp, ps, C, window)
     row = {"kernel": "tcec_paged_attention", "shape": name,
+           "pools": str(dtype).replace("torch.", ""),
            "lengths": lengths if B <= 8 else f"{B} x {lengths[0]}",
            "window": window, "softcap": softcap,
            "window_binds": bool(window) and max(lengths) > window, "H": H,
@@ -1040,18 +1090,20 @@ def timed_method(obj, name):
     return spent
 
 
-def replay_equals_eager(dev, cfg, params, steps=8, numerics_config=None):
+def replay_equals_eager(dev, cfg, params, steps=8, numerics_config=None,
+                        cache_dtype=torch.bfloat16):
     """Phase 4b: each of ``steps`` decode steps of a full-width engine is
     replayed and also run eagerly through ``_decode_and_sample`` on copies
     of the same pools and inputs; everything must be bitwise equal.  With
     ``numerics_config`` the engine is pinned to it (its model handle runs
-    the eager step under it too)."""
+    the eager step under it too); ``cache_dtype`` is the pools' (phase 16
+    replays over f32 pools)."""
     from repro_torch.models.modules import tree_leaves, tree_map
     from repro_torch.serving import Engine, SamplingParams
     from repro_torch.serving import engine as em
     engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
                     page_size=16, max_pages_per_slot=40, device=dev,
-                    numerics_config=numerics_config)
+                    numerics_config=numerics_config, cache_dtype=cache_dtype)
     rng = np.random.default_rng(2)
     knobs = [dict(), dict(temperature=0.8, top_k=50, top_p=0.9, seed=1),
              dict(), dict(temperature=1.0, seed=2)]
@@ -1088,7 +1140,9 @@ def replay_equals_eager(dev, cfg, params, steps=8, numerics_config=None):
         engine.step()
     del graph.launch
     row = {"replay_vs_eager": f"{cfg.name} full width, 4 slots (512, 200, "
-           "64, 17 tokens; 2 greedy, 2 sampled)", "steps": len(compared),
+           "64, 17 tokens; 2 greedy, 2 sampled)",
+           "pools": str(cache_dtype).replace("torch.", ""),
+           "steps": len(compared),
            "sampler_replays": sum(compared), "bitwise_equal": True,
            "capture_s": graph.capture_s}
     emit(row)
@@ -2831,6 +2885,7 @@ def zero_counts():
                                      tcec_paged_attention as tp)
     for m in (tm, ta, tp):
         m.launches = 0
+    tp.f32_launches = 0
     for k in tm.epilogue_launches:
         tm.epilogue_launches[k] = 0
 
@@ -3733,6 +3788,298 @@ def resilience_path(dev, arch="qwen3-0.6b"):
     return total
 
 
+# ------------------------------------------------------------ phase 16
+
+PREFIX_LEN = 512
+PREFIX_TAILS = [128, 128, 64, 64, 32, 32, 17, 17]
+PREFIX_KNOBS = {"off": {}, "prefix": dict(prefix_cache=True),
+                "chunked": dict(chunked_prefill=256),
+                "async": dict(async_sched=True),
+                "all": dict(prefix_cache=True, chunked_prefill=256,
+                            async_sched=True)}
+# the runs in order: the knob-off run first (the reference; the first f32
+# engine of the process, so also its warm-up), again last (its times)
+PREFIX_RUNS = ("off", "prefix", "chunked", "async", "all", "off again")
+
+
+def prefix_prompts(vocab, seed=16):
+    """Phase 16's prompts: one shared 512-token prefix, then a distinct
+    tail each."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, PREFIX_LEN)
+    return [np.concatenate([shared, rng.integers(0, vocab, n)])
+            for n in PREFIX_TAILS]
+
+
+def prefix_run(dev, cfg, params, prompts, knob, defrag=False, keep=()):
+    """One of phase 16's runs: the 8 greedy requests (16 tokens each) on a
+    fresh engine with f32 pools (4 slots, pages of 16, room for every
+    request's pages twice over), the serving knobs of ``knob``; the launch
+    counts zeroed just before, read just after.  A one-token request runs
+    first, before the clock starts, so that the decode graph's capture
+    (about 0.2 s) falls outside the times.  With ``defrag`` the engine is
+    defragmented once the first request has finished.  Recorded for each
+    request, by its index in ``prompts``: its first token's logits row and
+    host seconds from the start (TTFT), and for the requests in ``keep``
+    the K/V of the shared prefix's pages when that token is drawn; for
+    each chunk its launches.  Returns the engine, the tokens (a list, in
+    the order of ``prompts``) and the record."""
+    from repro_torch import numerics
+    from repro_torch.kernels import tcec_paged_attention as tp
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.serving import Engine, SamplingParams
+    ps = 16
+    pages = -(-(PREFIX_LEN + max(PREFIX_TAILS) + 17) // ps)
+    eng = Engine(cfg, params, device=dev, max_slots=4,
+                 num_pages=1 + 2 * len(prompts) * pages, page_size=ps,
+                 max_pages_per_slot=pages, cache_dtype=torch.float32,
+                 numerics_config=numerics.active().replace(
+                     **PREFIX_KNOBS[knob]))
+    rec = {"first": {}, "prefix_kv": {}, "chunks": [], "defragged": False}
+    first = eng._first_token
+
+    def spy_first(req, row):
+        if req.rid not in rids:                     # the warm-up request
+            return first(req, row)
+        i = rids.index(req.rid)
+        if i in keep:
+            idx = torch.tensor(req.pages[:PREFIX_LEN // ps], device=dev)
+            rec["prefix_kv"][i] = [p[:, idx] for p in tree_leaves(eng.pools)]
+        rec["first"][i] = row.clone()
+        first(req, row)
+        _sync(dev)
+        rec.setdefault("ttft", {})[i] = time.perf_counter() - t0
+
+    chunk = eng.model.prefill_chunk
+
+    def spy_chunk(*a, **k):
+        before = {m: n for m, n in counts().items()}
+        out = chunk(*a, **k)
+        rec["chunks"].append({m: n - before[m] for m, n in counts().items()})
+        return out
+
+    def counts():
+        from repro_torch.kernels import (tcec_attention as ta,
+                                         tcec_matmul as tm)
+        return {"tcec_matmul": tm.launches, "tcec_attention": ta.launches,
+                "tcec_paged_attention": tp.launches}
+
+    rids = []
+    eng._first_token = spy_first
+    eng.run([prompts[0][:1]], SamplingParams(max_tokens=2))   # the capture
+    eng.model.prefill_chunk = spy_chunk
+    prefill_s = timed_method(eng, "_admit_and_prefill")
+    chunk_s = timed_method(eng, "_prefill_chunk_step")
+    step_s = timed_method(eng, "step")
+    _sync(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    rids += [eng.add_request(p, SamplingParams(max_tokens=16))
+             for p in prompts]
+    while eng.sched.has_work or eng._inflight is not None:
+        eng.step()
+        if (defrag and not rec["defragged"]
+                and any(eng._requests[r].finished for r in rids)):
+            eng.defragment()
+            rec["defragged"] = True
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    rec["launches"] = counts() if dev.type == "cuda" else dict.fromkeys(
+        PORT_KERNELS, 0)
+    rec["f32_launches"] = tp.f32_launches
+    out = eng.results()
+    toks = [list(out[r]) for r in rids]
+    rec["seconds"] = dt
+    rec["tokens_per_s"] = sum(len(v) for v in toks) / dt
+    # decode-only steps: no admission and no chunk work in the step
+    decode = [s for s, p, c in zip(step_s, prefill_s, chunk_s)
+              if p + c < 1e-3]
+    rec["decode_step_median_ms"] = (1e3 * float(np.median(decode))
+                                    if decode else None)
+    rec["decode_steps_timed"] = len(decode)
+    rec["finish"] = sorted({out[r].finish_reason for r in rids})
+    return eng, toks, rec
+
+
+def prefill_busy(dev, cfg, params, prompts, knob):
+    """The device busy time of the admission that prefills requests 5-8
+    (their 4 x 544 prefill with the knobs off; their 32- and 17-token tails
+    on the cached prefix with the prefix cache): requests 1-4 run to the
+    end first, then 5-8 are added and the admission is profiled alone."""
+    from repro_torch.serving import SamplingParams
+    RECORD.setdefault("profile", [])
+    eng, _, _ = prefix_run(dev, cfg, params, prompts[:4], knob)
+    for p in prompts[4:]:
+        eng.add_request(p, SamplingParams(max_tokens=16))
+
+    def admit():
+        with torch.no_grad():
+            eng._admit_and_prefill()
+            eng._prefill_chunk_step()
+
+    row = profile_window(f"phase 16: prefill of requests 5-8, {knob}", admit)
+    eng.run()
+    return row
+
+
+def prefix_reference_counts(knobs=("prefix", "all")):
+    """Phase 16's plan at the smoke config on the CPU: the prefix
+    counters each knob's run gives there (the prediction the card's run
+    must reach)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    cfg = get_smoke_config("qwen3-0.6b")
+    params = get_model(cfg).init(seed=0, device="cpu")
+    prompts = prefix_prompts(cfg.vocab_size)
+    out = {}
+    for knob in knobs:
+        eng, _, _ = prefix_run(torch.device("cpu"), cfg, params, prompts,
+                               knob)
+        st = eng.stats()
+        out[knob] = {k: st[k] for k in ("prefix_hits", "prefix_tokens_reused",
+                                        "cow_splits", "prefill_chunks",
+                                        "prefills")}
+    return out
+
+
+def prefix_path(dev, arch="qwen3-0.6b"):
+    """Phase 16: the prefix cache, chunked prefill, async scheduling and
+    defragment on qwen3-0.6b at full width (28 layers), random weights
+    from seed 0, f32 pools; returns the phase's launches (kernel 3's are
+    its f32 instantiation's).  Also runs on the CPU at the smoke config
+    (``get_config`` patched) to rehearse it; the checks only a card can
+    make then pass by default."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import tcec_matmul as tm
+    from repro_torch.models import get_model
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    on_card = dev.type == "cuda"
+    rec = RECORD["phase16"] = {"card": RECORD.get("nvidia_smi")}
+    cfg = get_config(arch)
+    params = get_model(cfg).init(seed=0, device=dev)
+    L = cfg.n_layers
+    prompts = prefix_prompts(cfg.vocab_size)
+    hits = list(range(4, 8))                  # requests 5-8 find the prefix
+    predicted = prefix_reference_counts()
+    rec["predicted"] = predicted
+    counted, restore = counted_plain_versions()
+    total = dict.fromkeys(PORT_KERNELS, 0)
+    f32 = 0
+    runs = {}
+    try:
+        for name in PREFIX_RUNS:
+            knob = name.split()[0]
+            eng, toks, r = prefix_run(
+                dev, cfg, params, prompts, knob, defrag=knob == "all",
+                keep=hits if name in ("off", "prefix", "all") else ())
+            st = eng.stats()
+            r["stats"] = {k: st[k] for k in (
+                "prefix_hits", "prefix_tokens_reused", "cow_splits",
+                "prefix_evictions", "prefill_chunks", "prefills",
+                "decode_steps", "graph_replays")}
+            runs[name] = (toks, r)
+            for k in total:
+                total[k] += r["launches"][k]
+            f32 += r["f32_launches"]
+            del eng
+    finally:
+        restore()
+    ref, ref_rec = runs["off"]
+    rows = {}
+    for knob, (toks, r) in runs.items():
+        row = {"run": knob, "knobs": PREFIX_KNOBS[knob.split()[0]],
+               "tokens_equal_reference": toks == ref,
+               "seconds": r["seconds"], "tokens_per_s": r["tokens_per_s"],
+               "decode_step_median_ms": r["decode_step_median_ms"],
+               "decode_steps_timed": r["decode_steps_timed"],
+               "stats": r["stats"], "launches": r["launches"],
+               "f32_launches": r["f32_launches"], "finish": r["finish"],
+               "chunks": len(r["chunks"]), "defragged": r["defragged"],
+               "ttft_s": [r["ttft"][i] for i in sorted(r["ttft"])],
+               "card": rec["card"]}
+        ttft = [r["ttft"][i] for i in hits]
+        row["ttft_requests_5_8_p50_s"] = float(np.percentile(ttft, 50))
+        row["ttft_requests_5_8_p90_s"] = float(np.percentile(ttft, 90))
+        # first-token logits of the hits against the reference: bitwise
+        # where the tail's kernel-1 products take the monolithic path
+        firsts = {}
+        for i in hits:
+            a, b = r["first"][i], ref_rec["first"][i]
+            firsts[i] = {"bitwise": bool(torch.equal(a, b)),
+                         "max_rel_diff": float((a - b).abs().max()
+                                               / b.abs().max())}
+        row["first_token_logits"] = firsts
+        rows[knob] = row
+        emit({"phase16": row})
+        check(toks == ref, f"16 {knob}: the tokens equal the knob-off run's")
+        check(r["finish"] == ["length"], f"16 {knob}: every request ends "
+              "with its 16 tokens")
+        check(not on_card or counted == dict.fromkeys(counted, 0),
+              f"16 {knob}: no call of a plain version")
+        if on_card:
+            check(r["f32_launches"] > 0 and r["f32_launches"]
+                  == r["launches"]["tcec_paged_attention"],
+                  f"16 {knob}: every kernel-3 launch on the f32 pools")
+        for c in r["chunks"]:
+            check(not on_card or c == {"tcec_matmul": 7 * L + 1,
+                                       "tcec_attention": L,
+                                       "tcec_paged_attention": 0},
+                  f"16 {knob}: a chunk launches kernel 1 7L + 1 and "
+                  "kernel 2 L times")
+    # the counters against the CPU's prediction, and the reuse contract
+    for knob in ("prefix", "all"):
+        st, pred = runs[knob][1]["stats"], predicted[knob]
+        check(st["prefix_hits"] >= pred["prefix_hits"] >= 4
+              and st["prefix_tokens_reused"]
+              >= pred["prefix_tokens_reused"] >= 4 * PREFIX_LEN,
+              f"16 {knob}: hits and reused tokens at least the CPU run's")
+        kv, ref_kv = runs[knob][1]["prefix_kv"], ref_rec["prefix_kv"]
+        same = {i: all(torch.equal(a, b) for a, b in zip(kv[i], ref_kv[i]))
+                for i in hits}
+        rows[knob]["reuse_bitwise"] = same
+        check(all(same.values()), f"16 {knob}: the pages a hit maps are "
+              "bitwise the pages a fresh knob-off prefill writes")
+    check(runs["chunked"][1]["stats"]["prefill_chunks"] == 3 * 8
+          and runs["all"][1]["defragged"],
+          "16: 3 chunks a prompt at chunk 256; the all-three run "
+          "defragmented")
+    # first-token logits of a hit: the tail's rows (C) against the
+    # monolithic 4 x 544 prefill's
+    mono = tm.path(4 * (PREFIX_LEN + 32))
+    paths = {}
+    for knob in ("prefix", "all"):
+        tail = 32 if knob == "prefix" else 256
+        same_path = tm.path(tail) == mono
+        paths[knob] = {"tail_rows": tail, "tail_path": tm.path(tail),
+                       "monolithic_path": mono, "same_path": same_path}
+        for i, f in rows[knob]["first_token_logits"].items():
+            if same_path:
+                check(f["bitwise"], f"16 {knob}: request {i + 1}'s first "
+                      "logits bitwise the reference's (same kernel-1 path)")
+            else:
+                check(f["max_rel_diff"] <= 1e-3, f"16 {knob}: request "
+                      f"{i + 1}'s first logits within 1e-3 of the reference")
+    rec["first_token_paths"] = paths
+    emit({"phase16_first_token_paths": paths})
+    rec["runs"] = rows
+    if on_card:
+        rec["replay_vs_eager"] = replay_equals_eager(
+            dev, cfg, params, cache_dtype=torch.float32)
+        rec["prefill_busy"] = {k: prefill_busy(dev, cfg, params, prompts, k)
+                               for k in ("off", "prefix")}
+    rec["launches"] = total
+    rec["f32_launches"] = f32
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase16_s": rec["seconds"], "phase16_launches": total,
+          "phase16_f32_launches": f32, "card": rec["card"]})
+    del params
+    gc.collect()
+    return total, f32
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3816,6 +4163,10 @@ def main():
     # rope 64: the 256 instantiation) beside a v head dim of 128
     attention_case("deepseek MLA prefill 2x512, 128/128 heads, hd 192, "
                    "hdv 128", 2, 512, 128, 128, 192, dev, hdv=128)
+    # phase 16: a chunk of qwen3-0.6b's chunked prefill, 256 queries at
+    # positions 256-511 against the f32 scratch of 768 keys
+    attention_case("qwen3 chunk: C 256 at start 256, scratch 768", 1, 256,
+                   16, 8, 128, dev, T=768, q0=256)
     k3 = paged_case("decode 4 slots", [520, 520, 208, 208], 16, 8, 128, 16,
                     40, dev)
     paged_case("decode 4 slots, hd 64", [520, 520, 208, 208], 16, 8, 64, 16,
@@ -3832,6 +4183,13 @@ def main():
     paged_case("gemma2-9b decode 4 slots, hd 256, window 4096, softcap 50",
                [5000, 5000, 4200, 300], 16, 8, 256, 16, 320, dev,
                window=4096, softcap=50.0, copies=2)
+    # phase 16's f32 pools: the f32 instantiation at qwen3-0.6b's decode and
+    # at gemma2-9b's (the window binds, softcap 50)
+    k3f = paged_case("f32 pools: decode 4 slots", [520, 520, 208, 208], 16, 8,
+                     128, 16, 40, dev, dtype=torch.float32)
+    paged_case("f32 pools: gemma2-9b decode 4 slots, hd 256, window 4096, "
+               "softcap 50", [5000, 5000, 4200, 300], 16, 8, 256, 16, 320,
+               dev, window=4096, softcap=50.0, copies=2, dtype=torch.float32)
 
     paper_check(dev)                               # phase 3
     launches, model = main_path(dev)               # phases 4 and 5
@@ -3846,6 +4204,7 @@ def main():
     deepseek_launches = deepseek_path(dev)         # phase 13
     config_launches = numerics_path(dev)           # phase 14
     resilience_launches = resilience_path(dev)     # phase 15
+    prefix_launches, prefix_f32 = prefix_path(dev)  # phase 16
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -3853,15 +4212,24 @@ def main():
     for name, row, replaces in (
             ("tcec_matmul", k1, "tcec_matmul.py:69"),
             ("tcec_attention", k2, "tcec_attention.py:102"),
-            ("tcec_paged_attention", k3, "tcec_paged_attention.py:61")):
+            ("tcec_paged_attention", k3, "tcec_paged_attention.py:61"),
+            ("tcec_paged_attention_f32", k3f, "tcec_paged_attention.py:61")):
+        if name == "tcec_paged_attention_f32":      # phase 16's f32 pools
+            count = prefix_f32
+        else:
+            count = (launches[name] + train_launches.get(name, 0)
+                     + moe_launches[name] + ssm_launches[name]
+                     + encdec_launches[name] + numerics_launches[name]
+                     + large_launches[name] + deepseek_launches[name]
+                     + config_launches[name] + resilience_launches[name])
+            if name != "tcec_paged_attention":
+                count += prefix_launches[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src.format(name),
+            "name": name, "route": "cuda",
+            "source": src.format("tcec_paged_attention"
+                                 if name.endswith("_f32") else name),
             "replaces": rep.format(replaces),
-            "launches": launches[name] + train_launches.get(name, 0)
-            + moe_launches[name] + ssm_launches[name]
-            + encdec_launches[name] + numerics_launches[name]
-            + large_launches[name] + deepseek_launches[name]
-            + config_launches[name] + resilience_launches[name],
+            "launches": count,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

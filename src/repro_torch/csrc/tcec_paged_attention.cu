@@ -1,5 +1,5 @@
 // TCEC paged decode attention: one query token per sequence slot against
-// a bf16 KV cache kept in fixed-size pages of a shared pool.
+// a bf16 or f32 KV cache kept in fixed-size pages of a shared pool.
 //
 // Replaces the TPU kernel
 // src/repro/kernels/tcec_paged_attention.py::_paged_kernel, launched there
@@ -57,6 +57,19 @@
 // and x6 a block then takes 68 KB: K 17 KB, whose space then holds P.V's
 // 32 KB of sums, V 17, query terms 13, scores and P terms 7; 3 blocks an
 // SM.
+//
+// f32 pools (the prefix cache's bitwise contract runs on them) have an
+// instantiation of their own, the page type a template parameter: a block
+// loads its K and V rows as f32 (float4 loads, no cp.async) and splits
+// each element into NS bf16 terms as it lands, the query's split, into NS
+// term tiles in shared memory.  The scores and P.V then run one pass for
+// each K or V term j: every k16 step into a zeroed fragment, added in f32
+// into the fragment's partial sum, which is added into scale group i + j
+// (query or probability term i) where i + j < NS, the policy's triangular
+// keep.  The wrapper's rule sizes C by the bytes of K and V as pooled (32
+// KB: 2 pages of 16 at hd 128, 1 at hd 256), so at x6 and hd 128 a block
+// takes 56 KB, 4 blocks an SM.  A simple kernel: the load does not overlap
+// the query's split, and the term passes reload their fragments.
 #include <cstdint>
 
 #include "tcec_sm90.cuh"
@@ -80,11 +93,15 @@ __host__ __device__ constexpr int round_up(int x, int m) {
 // One block's dynamic shared memory: tiles of TP = C ps tokens rounded up
 // to 16, head dims rounded up to 16; K, V and the bf16 term rows are padded
 // by 16 bytes, so that the 8 rows an ldmatrix reads hit distinct banks.
+// With f32 pools K and V hold kt = NS bf16 term tiles each (kt = 1 for
+// bf16 pools), tile j at j ktile (j vtile) bytes.
 struct Layout {
   int TP, hd16, hdv16, NQ, MP;    // tokens, head dims, score / P.V rows
   int kstride, vstride, pstride;  // bytes of a K (or q term) row, V row, p row
+  int ktile, vtile;               // bytes of one K, one V term tile
   int ks, red, vs, qb, sg, ss, pa, rows, total;
-  __host__ __device__ Layout(int C, int ps, int rep, int hd, int hdv, int ns) {
+  __host__ __device__ Layout(int C, int ps, int rep, int hd, int hdv, int ns,
+                             int kt) {
     TP = round_up(C * ps, 16);
     hd16 = round_up(hd, 16);
     hdv16 = round_up(hdv, 16);
@@ -93,11 +110,13 @@ struct Layout {
     kstride = hd16 * 2 + 16;
     vstride = hdv16 * 2 + 16;
     pstride = TP * 2 + 16;
-    ks = 0;                       // K: TP x kstride
+    ktile = TP * kstride;
+    vtile = TP * vstride;
+    ks = 0;                       // K: kt x TP x kstride
     red = 0;                      // P.V's f32 sums, once K is read: MP x hdv16
-    const int kbytes = TP * kstride, rbytes = MP * hdv16 * 4;
-    vs = kbytes > rbytes ? kbytes : rbytes;  // V: TP x vstride
-    qb = vs + TP * vstride;       // bf16 query terms: NQ x kstride
+    const int kbytes = kt * ktile, rbytes = MP * hdv16 * 4;
+    vs = kbytes > rbytes ? kbytes : rbytes;  // V: kt x TP x vstride
+    qb = vs + kt * vtile;         // bf16 query terms: NQ x kstride
     sg = qb + NQ * kstride;       // f32 scores by group: TP x NQ
     ss = sg + TP * NQ * 4;        // f32 scores, then probabilities: rep x TP
     pa = ss + rep * TP * 4;       // bf16 probability terms: MP x pstride
@@ -157,20 +176,75 @@ __device__ inline void gather(unsigned char* dst, int stride,
   }
 }
 
-template <int NS, int QREG>
-__global__ void __launch_bounds__(THREADS, 5)
+// f32 rows of `cols` values (the first `valid` from the pool, the rest
+// zero) split into NS bf16 terms as they land: term g of token t goes to
+// dst + g tile + t stride.  A row < 0 is zero-filled.  With `vec` a thread
+// takes 4 values (one float4 load) at a time, else one.
+template <int NS>
+__device__ inline void gather_split(unsigned char* dst, int stride, int tile,
+                                    const float* src, long long rowlen,
+                                    int valid, int cols, const int* rows,
+                                    int TP, int tid, float scale, bool vec) {
+  if (vec) {
+    const int segs = cols / 4;
+    for (int i = tid; i < TP * segs; i += THREADS) {
+      const int t = i / segs, s = i - t * segs, row = rows[t];
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (row >= 0 && s * 4 < valid)
+        x = *reinterpret_cast<const float4*>(src + row * rowlen + s * 4);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      __nv_bfloat16 t4[4][NS];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tcec::split_bf16<NS>(xs[e], scale, t4[e]);
+#pragma unroll
+      for (int g = 0; g < NS; ++g) {
+        __nv_bfloat162 lo = __halves2bfloat162(t4[0][g], t4[1][g]);
+        __nv_bfloat162 hi = __halves2bfloat162(t4[2][g], t4[3][g]);
+        uint2 u;
+        u.x = *reinterpret_cast<uint32_t*>(&lo);
+        u.y = *reinterpret_cast<uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(dst + g * tile + t * stride + s * 8) = u;
+      }
+    }
+  } else {
+    for (int i = tid; i < TP * cols; i += THREADS) {
+      const int t = i / cols, d = i - t * cols, row = rows[t];
+      const float x = row >= 0 && d < valid ? src[row * rowlen + d] : 0.0f;
+      __nv_bfloat16 terms[NS];
+      tcec::split_bf16<NS>(x, scale, terms);
+#pragma unroll
+      for (int g = 0; g < NS; ++g)
+        reinterpret_cast<__nv_bfloat16*>(dst + g * tile + t * stride)[d] = terms[g];
+    }
+  }
+}
+
+// The page element type's instantiation: bf16 pages are the products'
+// terms as they lie (one tile, 5 blocks an SM), f32 pages NS tiles of terms.
+template <typename PT, int NS>
+struct PageType {
+  static constexpr int kt = 1, blocks = 5;
+};
+template <int NS>
+struct PageType<float, NS> {
+  static constexpr int kt = NS, blocks = 4;
+};
+
+template <typename PT, int NS, int QREG>
+__global__ void __launch_bounds__(THREADS, (PageType<PT, NS>::blocks))
 paged_chunk_kernel(const float* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k_pages,
-                   const __nv_bfloat16* __restrict__ v_pages,
+                   const PT* __restrict__ k_pages,
+                   const PT* __restrict__ v_pages,
                    const int* __restrict__ block_tables,
                    const int* __restrict__ lengths, float* __restrict__ out,
                    float* __restrict__ part, int Hkv, int rep, int hd,
                    int hdv, int ps, int maxp, int C, int window,
                    float softcap, float sm_denom, float scale, float inv,
                    bool vec) {
+  constexpr int KT = PageType<PT, NS>::kt;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float m_s[MAX_REP], l_s[MAX_REP];
-  const Layout L(C, ps, rep, hd, hdv, NS);
+  const Layout L(C, ps, rep, hd, hdv, NS, KT);
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int nch = gridDim.x;
   const long long bh = (long long)b * Hkv + h;
@@ -227,7 +301,12 @@ paged_chunk_kernel(const float* __restrict__ q,
   unsigned char* ks = smem + L.ks;
   unsigned char* vs = smem + L.vs;
   const long long rowk = (long long)Hkv * hd, rowv = (long long)Hkv * hdv;
-  if (vec) {
+  if constexpr (KT > 1) {   // f32 pages: loaded and split into NS terms
+    gather_split<NS>(ks, L.kstride, L.ktile, k_pages + h * hd, rowk, hd,
+                     L.hd16, rows, L.TP, tid, scale, vec);
+    gather_split<NS>(vs, L.vstride, L.vtile, v_pages + h * hdv, rowv, hdv,
+                     L.hdv16, rows, L.TP, tid, scale, vec);
+  } else if (vec) {
     gather(ks, L.kstride, k_pages + h * hd, rowk, hd / 8, L.hd16 / 8, rows, L.TP, tid);
     sm90::cp_async_commit();
     gather(vs, L.vstride, v_pages + h * hdv, rowv, hdv / 8, L.hdv16 / 8, rows, L.TP, tid);
@@ -275,38 +354,59 @@ paged_chunk_kernel(const float* __restrict__ q,
 
   // scores, a warp for each 16 tokens: every k16 step of every term
   // product into a zeroed fragment, added in f32 into its column (one scale
-  // group of one query row)
+  // group of one query row).  With f32 pages, K term j's pass adds its
+  // column i rep + r into group i + j's column (i + j) rep + r, for i + j <
+  // NS; a warp's passes touch only its own rows
   float* sg = reinterpret_cast<float*>(smem + L.sg);
   const int nq8 = L.NQ / 8;
   for (int t0 = warp * 16; t0 < T; t0 += WARPS * 16) {
-    float acc[4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int kt = 0; kt < KT; ++kt) {
+      float acc[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-    const unsigned char* arow = ks + (t0 + ld_row(lane)) * L.kstride + ld_col(lane) * 2;
-    for (int k0 = 0; k0 < L.hd16; k0 += 16) {
-      uint32_t a[4];
-      sm90::ldmatrix_x4(a, arow + k0 * 2);
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j < nq8) {
-          const unsigned char* brow = smem + L.qb + (j * 8 + g8) * L.kstride + (k0 + 2 * t4) * 2;
-          const uint32_t bb[2] = {*reinterpret_cast<const uint32_t*>(brow),
-                                  *reinterpret_cast<const uint32_t*>(brow + 16)};
-          float d[4];
-          sm90::mma16816(d, a, bb);
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+      const unsigned char* arow = ks + kt * L.ktile + (t0 + ld_row(lane)) * L.kstride + ld_col(lane) * 2;
+      for (int k0 = 0; k0 < L.hd16; k0 += 16) {
+        uint32_t a[4];
+        sm90::ldmatrix_x4(a, arow + k0 * 2);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][e] += d[e];
+        for (int j = 0; j < 4; ++j) {
+          if (j < nq8) {
+            const unsigned char* brow = smem + L.qb + (j * 8 + g8) * L.kstride + (k0 + 2 * t4) * 2;
+            const uint32_t bb[2] = {*reinterpret_cast<const uint32_t*>(brow),
+                                    *reinterpret_cast<const uint32_t*>(brow + 16)};
+            float d[4];
+            sm90::mma16816(d, a, bb);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] += d[e];
+          }
         }
       }
-    }
+      if (kt == 0) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (j < nq8) {
-        float* r0 = sg + (t0 + g8) * L.NQ + j * 8 + 2 * t4;
-        *reinterpret_cast<float2*>(r0) = make_float2(acc[j][0], acc[j][1]);
-        *reinterpret_cast<float2*>(r0 + 8 * L.NQ) = make_float2(acc[j][2], acc[j][3]);
+        for (int j = 0; j < 4; ++j) {
+          if (j < nq8) {
+            float* r0 = sg + (t0 + g8) * L.NQ + j * 8 + 2 * t4;
+            *reinterpret_cast<float2*>(r0) = make_float2(acc[j][0], acc[j][1]);
+            *reinterpret_cast<float2*>(r0 + 8 * L.NQ) = make_float2(acc[j][2], acc[j][3]);
+          }
+        }
+      } else {
+        __syncwarp();   // the previous pass's columns are in
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = j * 8 + 2 * t4 + e + kt * rep;
+            if (j < nq8 && col < RN) {
+              float* r0 = sg + (t0 + g8) * L.NQ + col;
+              r0[0] += acc[j][e];
+              r0[8 * L.NQ] += acc[j][2 + e];
+            }
+          }
+        }
       }
     }
   }
@@ -358,44 +458,70 @@ paged_chunk_kernel(const float* __restrict__ q,
   __syncthreads();
 
   // P.V, a warp for each 16 output columns: rows i rep + r of the p terms
-  // against V, every k16 step into a zeroed fragment added in f32
+  // against V, every k16 step into a zeroed fragment added in f32.  With
+  // f32 pages, V term j's pass adds its row i rep + r into group i + j's
+  // row (i + j) rep + r, for i + j < NS; a warp's passes touch only its
+  // own columns
   float* red = reinterpret_cast<float*>(smem + L.red);  // K is read: reuse
   const int mtiles = L.MP / 16;                         // 1 or 2
   for (int n0 = warp * 16; n0 < L.hdv16; n0 += WARPS * 16) {
-    float acc[2][2][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int kt = 0; kt < KT; ++kt) {
+      float acc[2][2][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
-    for (int k0 = 0; k0 < T; k0 += 16) {
-      uint32_t bv[4];
-      sm90::ldmatrix_x4_trans(bv, vs + (k0 + ld_row(lane)) * L.vstride + (n0 + ld_col(lane)) * 2);
-      const uint32_t b0[2] = {bv[0], bv[1]}, b1[2] = {bv[2], bv[3]};
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        if (mt < mtiles) {
-          uint32_t a[4];
-          sm90::ldmatrix_x4(a, smem + L.pa + (mt * 16 + ld_row(lane)) * L.pstride + (k0 + ld_col(lane)) * 2);
-          float d[4];
-          sm90::mma16816(d, a, b0);
+          for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+      const unsigned char* vt = vs + kt * L.vtile;
+      for (int k0 = 0; k0 < T; k0 += 16) {
+        uint32_t bv[4];
+        sm90::ldmatrix_x4_trans(bv, vt + (k0 + ld_row(lane)) * L.vstride + (n0 + ld_col(lane)) * 2);
+        const uint32_t b0[2] = {bv[0], bv[1]}, b1[2] = {bv[2], bv[3]};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][0][e] += d[e];
-          sm90::mma16816(d, a, b1);
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt < mtiles) {
+            uint32_t a[4];
+            sm90::ldmatrix_x4(a, smem + L.pa + (mt * 16 + ld_row(lane)) * L.pstride + (k0 + ld_col(lane)) * 2);
+            float d[4];
+            sm90::mma16816(d, a, b0);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][1][e] += d[e];
+            for (int e = 0; e < 4; ++e) acc[mt][0][e] += d[e];
+            sm90::mma16816(d, a, b1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][1][e] += d[e];
+          }
         }
       }
-    }
+      if (kt == 0) {
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      if (mt < mtiles) {
+        for (int mt = 0; mt < 2; ++mt) {
+          if (mt < mtiles) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          float* r0 = red + (mt * 16 + g8) * L.hdv16 + n0 + j * 8 + 2 * t4;
-          *reinterpret_cast<float2*>(r0) = make_float2(acc[mt][j][0], acc[mt][j][1]);
-          *reinterpret_cast<float2*>(r0 + 8 * L.hdv16) = make_float2(acc[mt][j][2], acc[mt][j][3]);
+            for (int j = 0; j < 2; ++j) {
+              float* r0 = red + (mt * 16 + g8) * L.hdv16 + n0 + j * 8 + 2 * t4;
+              *reinterpret_cast<float2*>(r0) = make_float2(acc[mt][j][0], acc[mt][j][1]);
+              *reinterpret_cast<float2*>(r0 + 8 * L.hdv16) = make_float2(acc[mt][j][2], acc[mt][j][3]);
+            }
+          }
+        }
+      } else {
+        __syncwarp();   // the previous pass's rows are in
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+          for (int h8 = 0; h8 < 2; ++h8) {
+            const int row = mt * 16 + g8 + 8 * h8 + kt * rep;
+            if (mt < mtiles && row < RN) {
+#pragma unroll
+              for (int j = 0; j < 2; ++j) {
+                float* r0 = red + row * L.hdv16 + n0 + j * 8 + 2 * t4;
+                r0[0] += acc[mt][j][2 * h8];
+                r0[1] += acc[mt][j][2 * h8 + 1];
+              }
+            }
+          }
         }
       }
     }
@@ -499,9 +625,9 @@ paged_combine_kernel(const int* __restrict__ lengths,
 
 // The first pass, its instantiation for query values of head dims up to
 // 128 (QREG 8) or 256 (QREG 16).
-template <int NS, int QREG>
+template <typename PT, int NS, int QREG>
 cudaError_t launch_chunks(const Layout& L, int nch, const float* q,
-                          const __nv_bfloat16* kp, const __nv_bfloat16* vp,
+                          const PT* kp, const PT* vp,
                           const int* bt, const int* lens, float* out,
                           float* work, int B, int Hkv, int rep, int hd,
                           int hdv, int ps, int maxp, int C, int window,
@@ -509,35 +635,34 @@ cudaError_t launch_chunks(const Layout& L, int nch, const float* q,
                           float inv, bool vec, cudaStream_t stream) {
   if (L.total > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        paged_chunk_kernel<NS, QREG>,
+        paged_chunk_kernel<PT, NS, QREG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
     if (err != cudaSuccess) return err;
   }
-  paged_chunk_kernel<NS, QREG>
+  paged_chunk_kernel<PT, NS, QREG>
       <<<dim3(nch, Hkv, B), THREADS, L.total, stream>>>(
           q, kp, vp, bt, lens, out, work, Hkv, rep, hd, hdv, ps, maxp, C,
           window, softcap, sm_denom, scale, inv, vec);
   return cudaGetLastError();
 }
 
-template <int NS>
-cudaError_t launch(const float* q, const __nv_bfloat16* kp,
-                   const __nv_bfloat16* vp, const int* bt, const int* lens,
-                   float* out, float* work, int B, int Hkv, int rep, int hd,
-                   int hdv, int ps, int maxp, int C, int window,
-                   float softcap, float sm_denom, float scale, float inv,
-                   bool vec, cudaStream_t stream) {
-  const Layout L(C, ps, rep, hd, hdv, NS);
+template <typename PT, int NS>
+cudaError_t launch(const float* q, const PT* kp, const PT* vp, const int* bt,
+                   const int* lens, float* out, float* work, int B, int Hkv,
+                   int rep, int hd, int hdv, int ps, int maxp, int C,
+                   int window, float softcap, float sm_denom, float scale,
+                   float inv, bool vec, cudaStream_t stream) {
+  const Layout L(C, ps, rep, hd, hdv, NS, PageType<PT, NS>::kt);
   if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
   const int nch = maxp > 0 ? (maxp + C - 1) / C : 1;
   if (nch > 1 && work == nullptr) return cudaErrorInvalidValue;
   cudaError_t err =
       hd <= 128
-          ? launch_chunks<NS, qreg(128)>(L, nch, q, kp, vp, bt, lens, out,
+          ? launch_chunks<PT, NS, qreg(128)>(L, nch, q, kp, vp, bt, lens, out,
                                          work, B, Hkv, rep, hd, hdv, ps, maxp,
                                          C, window, softcap, sm_denom, scale,
                                          inv, vec, stream)
-          : launch_chunks<NS, qreg(HDMAX)>(L, nch, q, kp, vp, bt, lens, out,
+          : launch_chunks<PT, NS, qreg(HDMAX)>(L, nch, q, kp, vp, bt, lens, out,
                                            work, B, Hkv, rep, hd, hdv, ps,
                                            maxp, C, window, softcap, sm_denom,
                                            scale, inv, vec, stream);
@@ -556,14 +681,37 @@ cudaError_t launch(const float* q, const __nv_bfloat16* kp,
   return cudaGetLastError();
 }
 
+// The policy's term count, then the page type.
+template <typename PT>
+cudaError_t launch_pages(const float* q, const void* kp, const void* vp,
+                         const int* bt, const int* lens, float* out,
+                         float* work, int B, int Hkv, int rep, int hd, int hdv,
+                         int ps, int maxp, int C, int window, float softcap,
+                         float sm_denom, int n_splits, float scale, float inv,
+                         bool vec, cudaStream_t s) {
+  const PT* K = static_cast<const PT*>(kp);
+  const PT* V = static_cast<const PT*>(vp);
+  switch (n_splits) {
+    case 2:
+      return launch<PT, 2>(q, K, V, bt, lens, out, work, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
+    case 3:
+      return launch<PT, 3>(q, K, V, bt, lens, out, work, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
+    case 4:
+      return launch<PT, 4>(q, K, V, bt, lens, out, work, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// page_bytes: 2 for bf16 pools, 4 for f32 pools; anything else is refused.
 extern "C" int tcec_paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* block_tables, const void* lengths, void* out, void* work,
     int B, int Hkv, int rep, int hd, int hdv, int ps, int maxp, int C,
     int window, float softcap, float sm_denom, int n_splits, int scale_bits,
-    void* stream) {
+    int page_bytes, void* stream) {
   if (hd < 1 || hd > HDMAX || hdv < 1 || hdv > HDMAX || rep < 1 ||
       rep > MAX_REP || ps < 1 || ps > MAX_PS || maxp < 0 || C < 1 ||
       C > (maxp > 0 ? maxp : 1))
@@ -574,20 +722,16 @@ extern "C" int tcec_paged_attention_launch(
                    reinterpret_cast<uintptr_t>(k_pages) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v_pages) % 16 == 0;
   const float* Q = static_cast<const float*>(q);
-  const __nv_bfloat16* KP = static_cast<const __nv_bfloat16*>(k_pages);
-  const __nv_bfloat16* VP = static_cast<const __nv_bfloat16*>(v_pages);
   const int* BT = static_cast<const int*>(block_tables);
   const int* LN = static_cast<const int*>(lengths);
   float* O = static_cast<float*>(out);
   float* W = static_cast<float*>(work);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_splits) {
+  switch (page_bytes) {
     case 2:
-      return launch<2>(Q, KP, VP, BT, LN, O, W, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
-    case 3:
-      return launch<3>(Q, KP, VP, BT, LN, O, W, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
+      return launch_pages<__nv_bfloat16>(Q, k_pages, v_pages, BT, LN, O, W, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, n_splits, scale, inv, vec, s);
     case 4:
-      return launch<4>(Q, KP, VP, BT, LN, O, W, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, scale, inv, vec, s);
+      return launch_pages<float>(Q, k_pages, v_pages, BT, LN, O, W, B, Hkv, rep, hd, hdv, ps, maxp, C, window, softcap, sm_denom, n_splits, scale, inv, vec, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -18,10 +18,11 @@ site                   effect at the instrumented callsite in the port
                        step on a fallback path
 ``decode.slow``        an engine step burns extra deadline ticks
 ``prefill``            an engine prefill raises (the group is re-queued)
-``prefill.chunk``      registered; nothing pokes it until chunked prefill
-                       is ported (ROADMAP item 14)
-``prefix.lookup``      registered; nothing pokes it until the prefix cache
-                       is ported (ROADMAP item 14)
+``prefill.chunk``      one chunk of a chunked prefill raises (the request
+                       is re-queued; three failures finish it with
+                       ``ERROR``)
+``prefix.lookup``      a prefix-cache lookup reports a miss (a full
+                       prefill, with the same tokens)
 ``tuning.cache``       an autotuner cache read returns a corrupt entry,
                        which reads as a miss
 =====================  ====================================================
@@ -75,10 +76,9 @@ SITES: dict[str, str] = {
                         "fails with ERROR",
     "decode.slow": "engine step burns extra deadline ticks (arg = ticks)",
     "prefill": "engine prefill raises FaultInjected (group re-queued)",
-    "prefill.chunk": "one prefill chunk raises FaultInjected (not poked "
-                     "until chunked prefill is ported)",
-    "prefix.lookup": "prefix-cache lookup reports a miss (not poked until "
-                     "the prefix cache is ported)",
+    "prefill.chunk": "one prefill chunk raises FaultInjected (request "
+                     "re-queued)",
+    "prefix.lookup": "prefix-cache lookup reports a miss (full prefill)",
     "tuning.cache": "autotuner cache read returns a corrupt entry",
 }
 

@@ -15,7 +15,11 @@ function takes the frozen ``NumericsConfig`` as ``cfg`` (None means
      their TwoSum K loop (``core.policy._compensated_dot``) in plain
      PyTorch on any device;
   3. ``shape-unsupported``: attention operands that are not the model
-     layout;
+     layout; and paged decode operands beyond kernel 3's limits on a
+     device other than the CPU (:func:`tcec_paged_attention.kernel_limits`:
+     rep, page size, head dims, pool dtype), which **raises** in the walk,
+     naming the limit, before any launch and outside the breaker: the
+     kernel cannot take them, and no plain path stands in;
   4. ``below-min-dim``: a dimension below ``min_dim`` (0 by default);
   5. ``fused``: the call goes to the kernel's public wrapper, which
      launches the CUDA kernel for a CUDA tensor and runs the plain PyTorch
@@ -61,13 +65,15 @@ import contextlib
 import math
 import threading
 
+import torch
+
 from repro_torch import faults, numerics
 from repro_torch.core.policy import PrecisionPolicy, get_policy
 from repro_torch.obs.explain import record as _explain
 from . import guard, ops, tuning
 from .tcec_attention import tcec_attention, tcec_attention_plain
 from .tcec_matmul import b_layout, takes_policy, tcec_matmul_plain
-from .tcec_paged_attention import (tcec_paged_attention,
+from .tcec_paged_attention import (kernel_limits, tcec_paged_attention,
                                    tcec_paged_attention_plain)
 
 _lock = threading.Lock()
@@ -372,8 +378,10 @@ def attention_decode(q, k_pages, v_pages, block_tables, lengths, *, policy,
     pools (NP, ps, Hkv, hd[v]), lengths including the current token), or
     None when it declines: the caller then gathers the pages and attends
     densely.  C is the config's ``paged_block``, else the autotuner's on
-    the card (``chunk_pages`` where it does not measure, and for the plain
-    version)."""
+    the card for bf16 pools (``chunk_pages`` where it does not measure, for
+    f32 pools, and for the plain version).  Operands beyond the kernel's
+    limits raise ``ValueError`` here (slug ``shape-unsupported``) when the
+    kernel would run them, off the CPU; the breaker never sees them."""
     cfg = _cfg(cfg)
     pol = get_policy(policy)
     if not attention_decode_eligible(q, k_pages, v_pages, policy=pol,
@@ -382,6 +390,14 @@ def attention_decode(q, k_pages, v_pages, block_tables, lengths, *, policy,
     B, H, hd = q.shape
     _, ps, Hkv, _ = k_pages.shape
     maxp = block_tables.shape[1]
+    if q.device.type != "cpu" and not _plain(cfg):
+        limit = kernel_limits(q, k_pages, v_pages)
+        if limit is not None:
+            _explain(q.device.type, "paged_attention", pol.name,
+                     (tuple(q.shape), tuple(k_pages.shape)),
+                     "shape-unsupported")
+            raise ValueError(f"kernel 3 does not take these operands: "
+                             f"{limit}")
 
     def run():
         C = cfg.paged_block
@@ -389,7 +405,8 @@ def attention_decode(q, k_pages, v_pages, block_tables, lengths, *, policy,
             fn = tcec_paged_attention_plain
         else:
             fn = tcec_paged_attention
-            if C is None and q.is_cuda:
+            if (C is None and q.is_cuda
+                    and k_pages.dtype == torch.bfloat16):
                 C = tuning.get_paged_block(B, Hkv, H // Hkv, maxp, ps, hd,
                                            v_pages.shape[3], pol.name,
                                            cfg=cfg, device=q.device)

@@ -3,23 +3,27 @@
 Counterpart of ``repro/kernels/tcec_paged_attention.py::_paged_kernel``.
 The CUDA kernel (``csrc/tcec_paged_attention.cu``) splits each slot's
 block table into chunks of ``C`` pages (:func:`chunk_pages`) and runs one
-block per (chunk, kv head, slot): the block gathers its chunk's bf16 pages
-by index and computes the chunk's softmax partial (row max ``m``, sum
-``l`` and one accumulator per scale group).  A second pass combines the
+block per (chunk, kv head, slot): the block gathers its chunk's pages by
+index and computes the chunk's softmax partial (row max ``m``, sum ``l``
+and one accumulator per scale group).  A second pass combines the
 partials of each (slot, kv head) in chunk order; with one chunk the first
 pass writes the output itself.  The f32 query and probabilities are split
 into bf16 terms, so the decode attend keeps the precision a plain bf16
-product would drop.  Masking is a select: stale, possibly non-finite data
-in recycled pages never reaches a sum.  Rows with ``length <= 0`` return
-zeros.  Head dims up to 256 (the gemmas) and GQA ratios up to 8 (MQA at
-8 query heads) are taken; above them the wrapper raises.
+product would drop.  The pools are bf16 or f32 (the prefix cache's
+bitwise contract runs on f32 pools), one instantiation each: f32 pages are
+split into bf16 terms like the query as they land, and every kept term
+product is formed (with bf16 pages only the (i, 0) ones are non-zero).
+Masking is a select: stale, possibly non-finite data in recycled pages
+never reaches a sum.  Rows with ``length <= 0`` return zeros.  Head dims
+up to 256 (the gemmas) and GQA ratios up to 8 (MQA at 8 query heads) are
+taken; above them the wrapper raises (:func:`kernel_limits`).
 
 :func:`tcec_paged_attention` is the public entry (launch on CUDA, plain
 version on CPU); :func:`tcec_paged_attention_plain` is the same function in
 plain PyTorch, chunk for chunk.  ``launches`` counts calls of the entry
-that launched the kernel (one a call, whether or not the second pass runs);
-the autotuner's measurements go through :func:`enqueue`, which counts
-nothing here.  :func:`takes_chunk` is the C entry's shared-memory rule for
+that launched the kernel (one a call, whether or not the second pass runs),
+``f32_launches`` those of them on f32 pools; the autotuner's measurements
+go through :func:`enqueue`, which counts nothing here.  :func:`takes_chunk` is the C entry's shared-memory rule for
 a C, computed from the same layout (``csrc/tcec_paged_attention.cu::
 Layout``), so that the autotuner launches no C the entry would refuse.
 """
@@ -38,30 +42,54 @@ from .tcec_matmul import check_policy, fold
 MAX_REP = 8
 MAX_PAGE = 64
 HDMAX = 256
-KV_BUDGET = 32 * 1024   # bytes of K and V a chunk gathers into shared memory
+KV_BUDGET = 32 * 1024   # bytes of K and V (as pooled) a chunk gathers
 CHUNK_TOKENS = 128      # most tokens a chunk's scores and terms are kept for
 SMS = 132               # H100 SXM streaming multiprocessors
 SMEM_MAX = 232448       # bytes of shared memory a block may use (the C's)
 
 launches = 0
+f32_launches = 0
+POOL_DTYPES = (torch.bfloat16, torch.float32)
 # q, k_pages, v_pages, block_tables, lengths, out, workspace; B, Hkv, rep,
-# hd, hdv, ps, maxp, C, window; softcap, sm_denom; n_splits, scale_bits;
-# stream
+# hd, hdv, ps, maxp, C, window; softcap, sm_denom; n_splits, scale_bits,
+# page_bytes; stream
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 
 
+def kernel_limits(q, k_pages, v_pages) -> str | None:
+    """The CUDA kernel's limit these decode-layout operands break (q (B,
+    H, hd), pools (NP, ps, Hkv, hd[v])), named, or None: rep ``H / Hkv``
+    <= ``MAX_REP``, pages of <= ``MAX_PAGE`` tokens, head dims <= ``HDMAX``
+    and bf16 or f32 pools of one dtype.  ``kernels.dispatch`` checks them
+    in its rule walk before a launch; the plain version takes any."""
+    H, hd = q.shape[1], q.shape[2]
+    ps, Hkv, hdv = k_pages.shape[1], k_pages.shape[2], v_pages.shape[3]
+    if Hkv and H // Hkv > MAX_REP:
+        return f"rep {H // Hkv} > {MAX_REP} query heads a kv head"
+    if ps > MAX_PAGE:
+        return f"page size {ps} > {MAX_PAGE} tokens"
+    if max(hd, hdv) > HDMAX:
+        return f"head dims {hd}/{hdv} > {HDMAX}"
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in POOL_DTYPES:
+        return (f"pools {k_pages.dtype}/{v_pages.dtype}: bf16 or f32 pools "
+                "of one dtype")
+    return None
+
+
 def chunk_pages(B: int, Hkv: int, maxp: int, ps: int, hd: int = HDMAX,
-                hdv: int = HDMAX) -> int:
+                hdv: int = HDMAX, elem: int = 2) -> int:
     """Pages per chunk of a slot's block table: as many as fit
-    ``KV_BUDGET`` bytes of bf16 K and V and ``CHUNK_TOKENS`` tokens, fewer
-    while the table's chunks would give the card fewer than two blocks an
-    SM.  At qwen3-0.6b's decode (4 slots, 8 kv heads, 40 pages of 16, hd
-    128) that is 4 pages: 64 tokens, 32 KB a block, 320 blocks; at hd 256
-    it is at most 2 pages (gemma2-9b: 8 kv heads), and 1 for gemma-2b's
-    single kv head at 4 slots (160 blocks)."""
-    c = min(maxp, KV_BUDGET // (2 * ps * (hd + hdv)), CHUNK_TOKENS // ps)
+    ``KV_BUDGET`` bytes of K and V as the pool holds them (``elem`` bytes
+    an element: 2 for bf16 pools, 4 for f32) and ``CHUNK_TOKENS`` tokens,
+    fewer while the table's chunks would give the card fewer than two
+    blocks an SM.  At qwen3-0.6b's decode (4 slots, 8 kv heads, 40 pages
+    of 16, hd 128) that is 4 pages of bf16: 64 tokens, 32 KB a block, 320
+    blocks, or 2 pages of f32 (640 blocks); at hd 256 it is at most 2
+    pages of bf16 (gemma2-9b: 8 kv heads) and 1 of f32, and 1 for
+    gemma-2b's single kv head at 4 slots (160 blocks)."""
+    c = min(maxp, KV_BUDGET // (elem * ps * (hd + hdv)), CHUNK_TOKENS // ps)
     c = max(1, c)
     while c > 1 and B * Hkv * -(-maxp // c) < 2 * SMS:
         c -= 1
@@ -73,15 +101,17 @@ def _round_up(x: int, m: int) -> int:
 
 
 def smem_bytes(C: int, ps: int, rep: int, hd: int, hdv: int,
-               n_splits: int) -> int:
+               n_splits: int, k_terms: int = 1) -> int:
     """Dynamic shared memory of a first-pass block at C pages a chunk: the
-    C source's ``Layout(C, ps, rep, hd, hdv, ns).total``."""
+    C source's ``Layout(C, ps, rep, hd, hdv, ns, kt).total``.  ``k_terms``
+    is the bf16 rows a K or V element takes there: 1 for bf16 pools,
+    ``n_splits`` for f32 pools (their terms)."""
     TP = _round_up(C * ps, 16)
     hd16, hdv16 = _round_up(hd, 16), _round_up(hdv, 16)
     NQ, MP = _round_up(rep * n_splits, 8), _round_up(rep * n_splits, 16)
     kstride, vstride, pstride = hd16 * 2 + 16, hdv16 * 2 + 16, TP * 2 + 16
-    vs = max(TP * kstride, MP * hdv16 * 4)
-    qb = vs + TP * vstride
+    vs = max(k_terms * TP * kstride, MP * hdv16 * 4)
+    qb = vs + k_terms * TP * vstride
     sg = qb + NQ * kstride
     ss = sg + TP * NQ * 4
     pa = ss + rep * TP * 4
@@ -90,13 +120,14 @@ def smem_bytes(C: int, ps: int, rep: int, hd: int, hdv: int,
 
 
 def takes_chunk(C: int, maxp: int, ps: int, rep: int, hd: int, hdv: int,
-                n_splits: int) -> bool:
+                n_splits: int, k_terms: int = 1) -> bool:
     """Whether the C entry takes C pages a chunk: C within the block table,
     the first pass's block and the combine's ``2 chunks rep`` floats within
     ``SMEM_MAX`` (else it returns ``cudaErrorInvalidValue``)."""
     nch = -(-maxp // C) if maxp > 0 else 1
     return (1 <= C <= max(maxp, 1)
-            and smem_bytes(C, ps, rep, hd, hdv, n_splits) <= SMEM_MAX
+            and smem_bytes(C, ps, rep, hd, hdv, n_splits, k_terms)
+            <= SMEM_MAX
             and (nch == 1 or 2 * nch * rep * 4 <= SMEM_MAX))
 
 
@@ -183,10 +214,12 @@ def _plain_core(qt, k_pages, v_pages, block_tables, lengths, pol, window,
 
 def _launch(qt, k_pages, v_pages, block_tables, lengths, pol, window,
             softcap, sm_denom, C):
-    global launches
+    global launches, f32_launches
     out = _enqueue(qt, k_pages, v_pages, block_tables, lengths, pol, window,
                    softcap, sm_denom, C)
     launches += 1
+    if k_pages.dtype == torch.float32:
+        f32_launches += 1
     return out
 
 
@@ -201,8 +234,9 @@ def _enqueue(qt, k_pages, v_pages, block_tables, lengths, pol, window,
         raise ValueError(f"CUDA paged attention takes rep <= {MAX_REP}, page "
                          f"size <= {MAX_PAGE}, head dims <= {HDMAX}; got "
                          f"q {tuple(qt.shape)}, pages {tuple(k_pages.shape)}")
-    if k_pages.dtype != torch.bfloat16 or v_pages.dtype != torch.bfloat16:
-        raise TypeError("CUDA paged attention takes bf16 page pools")
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in POOL_DTYPES:
+        raise TypeError("CUDA paged attention takes bf16 or f32 page pools "
+                        f"of one dtype; got {k_pages.dtype}/{v_pages.dtype}")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("block_tables and lengths must be int32")
     if block_tables.shape[0] != B or lengths.shape != (B,):
@@ -225,7 +259,7 @@ def _enqueue(qt, k_pages, v_pages, block_tables, lengths, pol, window,
                 _build.ptr(out), None if work is None else _build.ptr(work),
                 B, Hkv, rep, hd, hdv, ps, maxp, C, int(window),
                 float(softcap or 0.0), float(sm_denom), pol.n_splits,
-                pol.scale_bits, _build.stream(qt))
+                pol.scale_bits, k_pages.element_size(), _build.stream(qt))
     _build.check("tcec_paged_attention", status)
     return out
 
@@ -241,7 +275,8 @@ def _run(core, q, k_pages, v_pages, block_tables, lengths, policy, window,
                          f"pages {tuple(k_pages.shape)}")
     maxp = block_tables.shape[1]
     if pages_per_chunk is None:
-        C = chunk_pages(B, Hkv, maxp, k_pages.shape[1], hd, hdv)
+        C = chunk_pages(B, Hkv, maxp, k_pages.shape[1], hd, hdv,
+                        k_pages.element_size())
     else:
         C = max(1, min(int(pages_per_chunk), maxp))
     qt = q.float().reshape(B, Hkv, H // Hkv, hd).contiguous()
@@ -268,7 +303,7 @@ def tcec_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     """Fused paged decode attention on model-layout operands.
 
     q: (B, H, hd) — one query token per slot; k_pages/v_pages: (NP, ps,
-    Hkv, hd[v]) bf16 page pools; block_tables: (B, maxp) i32; lengths: (B,)
+    Hkv, hd[v]) page pools (bf16 or f32 on the card); block_tables: (B, maxp) i32; lengths: (B,)
     i32 valid tokens including the current one (whose K/V is already in its
     page).  ``pages_per_chunk`` overrides :func:`chunk_pages` (clamped to
     1..maxp).  Returns (B, H, hdv) f32.  A CUDA tensor launches the kernel;

@@ -3,7 +3,8 @@
   python -m repro_torch.launch.serve --arch qwen3-0.6b [--smoke] \\
       --batch 4 --prompt-len 16 --gen 32 [--device cuda] \\
       [--numerics fuse_epilogue=1 ...] [--max-waiting N] [--deadline T] \\
-      [--trace t.json] [--metrics-out m.json]
+      [--prefix-cache] [--chunked-prefill C] [--async-sched] \\
+      [--shared-prefix N] [--trace t.json] [--metrics-out m.json]
 
 Two code paths, as in the JAX package:
 
@@ -25,7 +26,12 @@ Parameters are random, from ``--seed``; prompts are random tokens.
 run uses (``repro_torch.numerics.NumericsConfig``); the engine pins it.
 ``--max-waiting`` bounds the engine's waiting queue (requests past it are
 rejected with ``EngineOverloaded``), ``--deadline`` gives every request a
-deadline in engine steps.  ``--trace PATH`` runs under
+deadline in engine steps.  ``--prefix-cache``, ``--chunked-prefill C`` and
+``--async-sched`` turn the engine's serving knobs on (the numerics config's
+``prefix_cache``, ``chunked_prefill``, ``async_sched``), and
+``--shared-prefix N`` makes the first N prompt tokens the same in every
+request, so the prefix cache has something to share.  The CLI's pools are
+bf16, as JAX's are.  ``--trace PATH`` runs under
 ``repro_torch.obs.trace()`` and exports the spans (Chrome-trace JSON, or
 JSONL for ``.jsonl``); ``--metrics-out PATH`` writes the metrics snapshot;
 either prints the dispatch-explain summary.  ``REPRO_FAULTS`` runs the CLI
@@ -134,6 +140,18 @@ def main(argv=None):
     ap.add_argument("--deadline", type=int, default=0,
                     help="per-request deadline in engine steps; expired "
                          "requests finish with reason=timeout (0 = none)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share prompt-prefix KV pages copy-on-write across "
+                         "requests")
+    ap.add_argument("--chunked-prefill", type=int, default=0, metavar="C",
+                    help="prefill prompts in C-token chunks interleaved "
+                         "with decode steps (0 = single-shot)")
+    ap.add_argument("--async-sched", action="store_true",
+                    help="overlap host scheduling with the in-flight "
+                         "decode step (block only at consume)")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="make the first N prompt tokens identical across "
+                         "the batch (exercises the prefix cache)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     numerics.add_cli_overrides(ap)
@@ -154,6 +172,9 @@ def _main(args):
     params = model.init(args.seed, device=device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    if args.shared_prefix:
+        n = min(args.shared_prefix, args.prompt_len)
+        prompts[:, :n] = prompts[0, :n]
     if model.decode_step_paged is None:
         t0 = time.perf_counter()
         out = generate_dense(cfg, params, prompts, args.gen,
@@ -168,10 +189,17 @@ def _main(args):
     ps = DEFAULT_PAGE_SIZE
     pages = -(-(args.prompt_len + args.gen + 1) // ps)
     slots = args.max_slots or args.batch
+    nc = numerics.active()
+    if args.prefix_cache or args.chunked_prefill or args.async_sched:
+        nc = nc.replace(
+            prefix_cache=bool(args.prefix_cache) or nc.prefix_cache,
+            chunked_prefill=args.chunked_prefill or nc.chunked_prefill,
+            async_sched=bool(args.async_sched) or nc.async_sched)
     engine = Engine(cfg, params, max_slots=slots,
                     num_pages=1 + max(slots, args.batch) * pages,
                     page_size=ps, max_pages_per_slot=pages,
-                    max_waiting=args.max_waiting or None, device=device)
+                    max_waiting=args.max_waiting or None, device=device,
+                    numerics_config=nc)
     rids = []
     for i in range(args.batch):
         try:
@@ -199,7 +227,11 @@ def _main(args):
           "kernel builds on a first run and the decode graph's capture "
           "included)")
     print(f"finish reasons: {reasons}")
-    print(f"stats: {engine.stats()}")
+    stats = engine.stats()
+    print(f"stats: {stats}")
+    print("prefix: " + str({k: stats[k] for k in (
+        "prefix_hits", "prefix_tokens_reused", "cow_splits",
+        "prefix_evictions", "prefill_chunks")}))
     if rids:
         print("sample:", list(out[rids[0]][:16]))
 

@@ -6,7 +6,8 @@ family (``audio``) ``models.encdec_lm`` and the VLM family
 ``models.vlm_lm``, as in the JAX package.  Every handle has ``init``,
 ``loss_fn``, ``forward_logits``, ``init_cache`` and ``decode_step`` (the
 dense-cache loop of ``launch.serve.generate_dense``); the paged serving
-entries (``prefill``, ``init_paged_cache``, ``decode_step_paged``) are None
+entries (``prefill``, ``prefill_chunk``, ``init_paged_cache``,
+``decode_step_paged``) are None
 for the families without them (SSM, hybrid, enc-dec, VLM), and the engine
 and ``generate`` check for that.
 
@@ -34,7 +35,8 @@ _BATCH_INPUT = ("audio", "vlm")
 
 
 _ENTRIES = ("init", "loss_fn", "forward_logits", "init_cache", "decode_step",
-            "prefill", "init_paged_cache", "decode_step_paged")
+            "prefill", "prefill_chunk", "init_paged_cache",
+            "decode_step_paged")
 
 
 def _pinned(fn, cfg: numerics.NumericsConfig):
@@ -75,6 +77,9 @@ def get_model(cfg, numerics_config: numerics.NumericsConfig | None = None
             params, cfg, cache, tokens, idx),
         prefill=(lambda params, tokens, positions=None: mod.prefill(
             params, cfg, tokens, positions)) if paged else None,
+        prefill_chunk=(lambda params, cache, tokens, start:
+                       mod.prefill_chunk(params, cfg, cache, tokens, start)
+                       ) if paged else None,
         init_paged_cache=(lambda num_pages, page_size, **kw:
                           mod.init_paged_cache(cfg, num_pages, page_size,
                                                **kw)) if paged else None,

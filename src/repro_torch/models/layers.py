@@ -236,6 +236,30 @@ def attention_prefill(p, x, cfg, positions, window=0, causal=True):
     return out, {"k": k, "v": v}
 
 
+def attention_chunk(p, x, cfg, cache, start: int, window=0):
+    """One prefill chunk against a dense scratch cache (chunked prefill).
+
+    x: (B, C, d_model), the chunk's tokens at positions ``start .. start +
+    C``; cache: ``{"k", "v"}`` leaves (B, T, Hkv, d) holding every earlier
+    chunk's K/V (and, after a prefix-cache hit, the shared pages').  The
+    chunk's K/V is written in at ``start`` (in place), then the chunk
+    attends over all of ``[0, T)`` through :func:`sdpa` (kernel 2 with S =
+    C and the real positions): the causal mask hides the positions from
+    ``start + C`` on, so with an f32 scratch each row is the monolithic
+    prefill's row.  Returns ``(out, cache)``."""
+    B, C = x.shape[:2]
+    positions = (start + torch.arange(C, dtype=torch.int32, device=x.device)
+                 )[None].expand(B, C)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    cache["k"][:, start:start + C] = k.to(cache["k"].dtype)
+    cache["v"][:, start:start + C] = v.to(cache["v"].dtype)
+    T = cache["k"].shape[1]
+    k_pos = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(
+        B, T)
+    o = sdpa(q, cache["k"], cache["v"], cfg, positions, k_pos, True, window)
+    return pdot("bshk,hkd->bsd", o, p["wo"], cfg.policy), cache
+
+
 def attention(p, x, cfg, positions, causal=True, window=0):
     """Full attention layer: qkv -> sdpa (kernel 2 on the card) -> out
     projection."""

@@ -126,6 +126,18 @@ def block_decode_paged(p, x, cfg, pool, block_tables, lengths, window, *,
     return _residual_ffn(p, x, a, cfg, moe)[0]
 
 
+def block_chunk(p, x, cfg, cache, start, window, *, moe: bool = False):
+    """:func:`block_prefill` for one chunk of a prompt, reading and
+    extending the layer's dense scratch cache (chunked prefill)."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if cfg.use_mla:
+        a, _ = M.mla_attention_chunk(p["attn"], h, cfg, cache, start)
+    else:
+        a, _ = L.attention_chunk(p["attn"], h, cfg, cache, start,
+                                 window=window)
+    return _residual_ffn(p, x, a, cfg, moe)[0]
+
+
 def layer_windows(cfg, n_layers: int) -> np.ndarray:
     """Per-layer sliding windows (0 = global) — gemma2's local/global."""
     if cfg.local_global_period and cfg.sliding_window:
@@ -314,6 +326,23 @@ def prefill(params, cfg, tokens, positions=None):
                for k in per_layer[0]} for name, per_layer in kvs.items()}
 
 
+def prefill_chunk(params, cfg, cache, tokens, start: int):
+    """One chunk of a chunked prefill: every layer's dense scratch ``cache``
+    (an :func:`init_cache` tree, f32 for exact parity, leaves (layers, B,
+    T, ...)) takes the K/V of ``tokens`` (B, C) at positions ``start ..
+    start + C`` in place, and the chunk's logits (B, C, V) are returned.
+    Running every chunk matches the monolithic :func:`prefill` row for row
+    (the serving engine's chunked-prefill contract; in the MoE layers the
+    routing groups are the chunk's, as in JAX)."""
+    _check_ported(cfg)
+    x = embed(params, tokens, cfg)
+    for name, moe, i, p, w in _stack_layers(
+            cfg, lambda name, n: (layer(params[name], j) for j in range(n))):
+        x = block_chunk(p, x, cfg, layer(cache[name], i), start, w, moe=moe)
+    x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return unembed_logits(params, x, cfg)
+
+
 def _kv_cache(cfg, rows, dtype, device):
     """``{stack: {"k", "v"}}`` for each of :func:`stacks`, zero leaves
     (layers, *rows, Hkv, hd); with MLA ``{stack: {"c_kv", "k_rope"}}``,
@@ -331,16 +360,17 @@ def _kv_cache(cfg, rows, dtype, device):
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    """The dense KV cache of ``launch.serve.generate_dense``: leaves
-    (layers, batch, max_len, Hkv, hd), or MLA's latent leaves."""
+    """The dense KV cache of ``launch.serve.generate_dense`` (and, in f32,
+    a chunked prefill's scratch): leaves (layers, batch, max_len, Hkv, hd),
+    or MLA's latent leaves."""
     return _kv_cache(cfg, (batch, max_len), dtype, device)
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int,
                      dtype=torch.bfloat16, device=None):
     """The paged KV cache: leaves (layers, num_pages, page_size, Hkv, hd),
-    or MLA's latent leaves, shared by all slots.  Page 0 is the engine's scrap page — inactive
-    slots write into it."""
+    or MLA's latent leaves, shared by all slots.  Page 0 is the engine's
+    scrap page — inactive slots write into it."""
     return _kv_cache(cfg, (num_pages, page_size), dtype, device)
 
 
@@ -375,7 +405,8 @@ def decode_step(params, cfg, cache, tokens, cache_index):
 
 
 __all__ = ["init", "embed", "unembed_logits", "apply_blocks", "backbone",
-           "prefill", "forward_logits", "cross_entropy", "loss_fn",
-           "init_cache", "init_paged_cache", "decode_step", "decode_step_paged",
-           "layer_windows", "stacks", "block_init", "block_prefill",
-           "block_decode", "block_decode_paged"]
+           "prefill", "prefill_chunk", "forward_logits", "cross_entropy",
+           "loss_fn", "init_cache", "init_paged_cache", "decode_step",
+           "decode_step_paged", "layer_windows", "stacks", "block_init",
+           "block_prefill", "block_decode", "block_decode_paged",
+           "block_chunk"]

@@ -12,8 +12,8 @@ kernel 1 reads their per-head views of the weights where they lie.  The
 latent attend itself is three plain ``bf16`` products over the dense cache
 or a gather of the slot's pages, as in JAX (kernel 3 takes the standard
 K/V layout, not this contraction).  Both caches are written in place.
-Chunked prefill (``mla_attention_chunk``) is not ported: no family of the
-port has chunked prefill yet.
+Chunked prefill (:func:`mla_attention_chunk`) takes the decompressed attend
+of the prefill, not the absorbed decode.
 """
 from __future__ import annotations
 
@@ -81,6 +81,36 @@ def mla_attention_prefill(p, x, cfg, positions):
     o = sdpa(q, k, v, cfg, positions, positions, causal=True)
     out = pdot("bshk,hkd->bsd", o, p["wo"], cfg.policy)
     return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_attention_chunk(p, x, cfg, cache, start: int):
+    """One prefill chunk against a dense latent scratch cache.
+
+    x: (B, C, D) at positions ``start .. start + C``; cache: the
+    :func:`mla_init_cache` leaves (B, T, kvr) / (B, T, dr) holding earlier
+    chunks' entries, into which the chunk's are written (in place).  It
+    takes the decompressed attend of :func:`mla_attention_prefill` (kernel
+    2 at qk 192 beside v 128 at full width), not the absorbed decode, so
+    with an f32 scratch the chunk's rows are the monolithic prefill's.
+    Returns ``(out, cache)``."""
+    B, C = x.shape[:2]
+    H, dr = cfg.n_heads, cfg.qk_rope_dim
+    positions = (start + torch.arange(C, dtype=torch.int32, device=x.device)
+                 )[None].expand(B, C)
+    q_nope, q_rope = _q_proj(p, x, cfg, positions)
+    c_kv_t, k_rope_t = _kv_compress(p, x, cfg, positions)
+    cache["c_kv"][:, start:start + C] = c_kv_t.to(cache["c_kv"].dtype)
+    cache["k_rope"][:, start:start + C] = k_rope_t.to(cache["k_rope"].dtype)
+    ck, kr = cache["c_kv"], cache["k_rope"]
+    T = ck.shape[1]
+    k_nope = pdot("bsr,rhk->bshk", ck, p["w_uk"], cfg.policy)
+    v = pdot("bsr,rhk->bshk", ck, p["w_uv"], cfg.policy)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+    k_pos = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(
+        B, T)
+    o = sdpa(q, k, v, cfg, positions, k_pos, causal=True)
+    return pdot("bshk,hkd->bsd", o, p["wo"], cfg.policy), cache
 
 
 def mla_init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,

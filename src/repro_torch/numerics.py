@@ -77,10 +77,14 @@ What each field means in the port (each divergence from JAX is pinned by
   contraction's forward operands (``obs/numerics_health.py``): one host
   read a contraction, skipped and counted while a CUDA graph is captured;
   the outputs are bitwise those of ``monitor=False``.
-* ``shard_map``, ``prefix_cache``, ``chunked_prefill``, ``async_sched``,
-  ``keep_bf16_dots``: accepted at JAX's default; any other value raises
-  ``NotImplementedError`` naming its ROADMAP item (16, 14, 14, 3) or "XLA
-  only".
+* ``prefix_cache``, ``chunked_prefill``, ``async_sched``
+  (``REPRO_PREFIX_CACHE``, ``REPRO_CHUNKED_PREFILL``,
+  ``REPRO_ASYNC_SCHED``): the serving engine's knobs, as in JAX (the
+  engine rounds the chunk up to a page multiple); see
+  ``serving/engine.py``.
+* ``shard_map``, ``keep_bf16_dots``: accepted at JAX's default; any other
+  value raises ``NotImplementedError`` naming its ROADMAP item (16) or
+  "XLA only".
 * ``REPRO_FAULTS`` feeds no field: ``repro_torch.faults.env_plan()`` reads
   it (through :func:`env_value`) as the process-default fault plan.
 
@@ -207,14 +211,18 @@ ENV_VARS: dict[str, EnvVar] = {v.name: v for v in [
            "KernelQuarantined without launching; never a fallback).",
            field="guard"),
     EnvVar("REPRO_PREFIX_CACHE", "bool", False,
-           "Serving engine prefix cache: 1 raises until ROADMAP item 14.",
+           "Serving engine copy-on-write prefix cache: full prompt pages "
+           "are shared across requests (use f32 pools for bitwise reuse).",
            field="prefix_cache"),
     EnvVar("REPRO_CHUNKED_PREFILL", "int", 0,
-           "Serving engine chunked prefill: non-zero raises until ROADMAP "
-           "item 14.", field="chunked_prefill"),
+           "Serving engine chunked prefill: prompts longer than this many "
+           "tokens (rounded up to a page multiple) prefill one chunk a "
+           "step, interleaved with decode; 0 = off.",
+           field="chunked_prefill"),
     EnvVar("REPRO_ASYNC_SCHED", "bool", False,
-           "Serving engine async scheduling: 1 raises until ROADMAP item "
-           "3.", field="async_sched"),
+           "Serving engine async scheduling: a decode step is consumed at "
+           "the top of the next step, overlapping host scheduling with the "
+           "device.", field="async_sched"),
     EnvVar("REPRO_MONITOR", "bool", False,
            "Numerics-health monitors: 1 probes each split-policy "
            "contraction's operands (numerics/monitor/* metrics; skipped "
@@ -273,9 +281,6 @@ def _tuple_or_none(x, n, name):
 # Fields the port accepts only at JAX's default, and the ROADMAP item that
 # ports each.
 _NOT_PORTED = {"shard_map": (True, "ROADMAP item 16"),
-               "prefix_cache": (False, "ROADMAP item 14"),
-               "chunked_prefill": (0, "ROADMAP item 14"),
-               "async_sched": (False, "ROADMAP item 3"),
                "keep_bf16_dots": (False, "XLA only")}
 
 
@@ -302,9 +307,9 @@ class NumericsConfig:
     shard_map: bool = True          # ROADMAP item 16
     guard: bool = False             # breaker; count and raise (JAX: True)
     # -- serving ------------------------------------------------------
-    prefix_cache: bool = False      # ROADMAP item 14
-    chunked_prefill: int = 0        # ROADMAP item 14
-    async_sched: bool = False       # ROADMAP item 3
+    prefix_cache: bool = False      # copy-on-write prefix cache
+    chunked_prefill: int = 0        # chunk tokens (0 = off)
+    async_sched: bool = False       # consume decode at the next step
     # -- observability ------------------------------------------------
     monitor: bool = False           # obs/numerics_health probes
     # -- autotuning ---------------------------------------------------

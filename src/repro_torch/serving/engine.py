@@ -53,9 +53,30 @@ reason), and the ``serving/latency/{queue_wait_s,ttft_s,tpot_s}``
 histograms; with none, it reads no clock.  Live engines' counters are the
 ``serving/engine`` source of ``obs.snapshot()``.
 
-Not ported yet: the prefix cache, chunked prefill, async scheduling (the
-dispatch / consume split and the double-buffered staging are its seam),
-meshes and defragmentation.
+Serving knobs (JAX's, on the pinned numerics config; all off by default,
+and then every path below is the single-shot engine's):
+
+  * ``prefix_cache``: full prompt pages are kept in a content-keyed tree
+    (:class:`~repro_torch.serving.prefix_cache.PrefixCache`); an admission
+    whose prompt prefix is cached maps those pages (refcounted, never
+    written: a write into a shared page splits it first) and prefills only
+    the tail;
+  * ``chunked_prefill`` (tokens, rounded up to a page multiple): a prompt
+    longer than a chunk is prefilled one chunk a step, interleaved with
+    the decode steps, through ``models.lm.prefill_chunk`` over a
+    per-request f32 scratch; each finished chunk's whole pages are
+    written to the pool;
+  * ``async_sched``: :meth:`Engine.step` leaves its decode step in flight
+    and consumes it at the top of the next step, so the host's scheduling
+    of step N + 1 overlaps the card's step N; the tokens are those of the
+    synchronous engine, because the consume comes before every other
+    change to the engine's state.
+
+With f32 pools (``cache_dtype=torch.float32``) a reused page is bitwise
+what a fresh prefill writes, so each knob leaves greedy tokens unchanged;
+kernel 3 reads f32 pools on the card through its f32 instantiation.
+:meth:`Engine.defragment` compacts the live pages in place.  Meshes are
+not ported (ROADMAP item 16).
 
 Numerics contract (tests/test_torch_serving.py): with parameters bridged
 from JAX, greedy output is token-identical to the JAX engine's.
@@ -85,9 +106,12 @@ from repro_torch.obs.trace import current as _current_tracer
 from . import sampling
 from .errors import (EngineOverloaded, FinishReason, RequestRejected,
                      RequestResult)
-from .kv_cache import DEFAULT_PAGE_SIZE, PagePool, write_prompt_pages
+from .kv_cache import (DEFAULT_PAGE_SIZE, PagePool, inverse_permutation,
+                       load_pages_into_scratch, permute_pages,
+                       write_prompt_pages, write_span_pages)
+from .prefix_cache import PrefixCache
 from .sampling import SamplingParams, draw_uniform, new_generator, sample_one
-from .scheduler import Request, Scheduler
+from .scheduler import Request, RequestState, Scheduler
 
 # live engines, summed into repro_torch.obs snapshots at read time (weak
 # refs: registering never keeps a dropped engine's pools alive)
@@ -99,6 +123,7 @@ def _engines_source() -> dict:
     for eng in list(_LIVE_ENGINES):
         stats = {**eng._stats, "clock": eng.clock,
                  "prefills": eng.n_prefills,
+                 "prefill_chunks": eng.n_prefill_chunks,
                  "decode_steps": eng.n_decode_steps,
                  "preemptions": eng.sched.n_preemptions,
                  "parks": eng.sched.n_parks}
@@ -160,7 +185,10 @@ class Engine:
         :class:`EngineOverloaded` (None = unbounded).
     max_preemptions: evictions before a request is parked as a
         preemption-storm victim (None = never park).
-    cache_dtype: page-pool element dtype (bf16; kernel 3 takes bf16 pools).
+    cache_dtype: page-pool element dtype, bf16 (the default) or f32.  The
+        prefix cache's parity contract needs f32: a reused page must be
+        bitwise what a fresh prefill writes, and the bf16 round trip
+        loses that.  Kernel 3 has an instantiation for each.
     device: where the pools live and the steps run (default ``cuda``); the
         parameters must already be there.
     numerics_config: the :class:`repro_torch.numerics.NumericsConfig` every
@@ -181,6 +209,9 @@ class Engine:
             raise ValueError(
                 f"family {cfg.family!r} has no paged decode path; use "
                 "launch.serve.generate_dense")
+        if cache_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"cache_dtype must be torch.bfloat16 or "
+                             f"torch.float32, got {cache_dtype}")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters on {params['embed'].device}, "
@@ -220,14 +251,27 @@ class Engine:
                          for _ in range(2)]
         self._graph: _DecodeGraph | None = None   # captured on first use
         self._requests: dict[int, Request] = {}
-        # JAX's counters, without the prefix cache's (item 14); plus
-        # decode_faults, decode steps that raised under guard=True
+        # JAX's counters, plus decode_faults (decode steps that raised
+        # under guard=True)
         self._stats = {"guard_trips": 0, "fallback_reruns": 0,
                        "numerics_errors": 0, "rejections": 0, "overloads": 0,
                        "timeouts": 0, "length_caps": 0, "prefill_faults": 0,
+                       "prefix_hits": 0, "prefix_tokens_reused": 0,
+                       "cow_splits": 0, "prefix_evictions": 0,
                        "decode_faults": 0}
+        # the serving knobs; the chunk is rounded up to a page multiple, so
+        # every chunk boundary is a page boundary
+        nc = self.numerics_config
+        self.chunk_tokens = (-(-nc.chunked_prefill // page_size) * page_size
+                             if nc.chunked_prefill > 0 else 0)
+        self.async_sched = bool(nc.async_sched)
+        self.prefix = PrefixCache(self.pool) if nc.prefix_cache else None
+        if self.prefix is not None:
+            self.sched.evict_cb = self._evict_prefix
+        self._inflight = None       # async: the dispatched, unconsumed step
         self.n_decode_steps = 0
         self.n_prefills = 0
+        self.n_prefill_chunks = 0
         _LIVE_ENGINES.add(self)
 
     # ------------------------------------------------------- observability
@@ -315,7 +359,15 @@ class Engine:
             req.finish_reason = FinishReason.LENGTH_CAP.value
             self.sched.drop(req)
             self._trace_request_end(req)
-        admitted = self.sched.admit()
+        plan = (self._plan_admission
+                if (self.prefix is not None or self.chunk_tokens) else None)
+        admitted = self.sched.admit(plan)
+        for req in admitted:
+            if req.state is RequestState.PREFILLING:
+                if req.shared_pages:
+                    self._stats["prefix_hits"] += 1
+                    self._stats["prefix_tokens_reused"] += req.prefill_done
+                self._start_chunked_prefill(req)
         tr = _current_tracer()
         if tr is not None:
             now = tr.now()
@@ -327,6 +379,8 @@ class Engine:
         ps = self.pool.page_size
         groups: dict[int, list[Request]] = {}
         for req in admitted:
+            if req.state is not RequestState.RUNNING:
+                continue            # PREFILLING: advanced chunk by chunk
             padded = max(1, -(-len(req.full_sequence) // ps)) * ps
             groups.setdefault(padded, []).append(req)
         for padded, reqs in sorted(groups.items()):
@@ -350,17 +404,26 @@ class Engine:
                            np.int64)
         write_prompt_pages(self.pools, kv,
                            torch.from_numpy(pages).to(self.device))
+        if self.prefix is not None:
+            # before the accept loop: a request finishing on its first
+            # token frees its own references, the tree's keep the pages
+            for req in reqs:
+                self.prefix.insert(req.full_sequence, req.pages)
         for i, req in enumerate(reqs):
             plen = len(req.full_sequence)
             self.lengths[req.slot] = plen
             self._sync_slot(req)
-            row = logits[i, plen - 1, :self.cfg.vocab_size].float()
-            if not bool(torch.isfinite(row).all()):
-                self._stats["numerics_errors"] += 1
-                self._finish(req, FinishReason.ERROR)
-                continue
-            self._accept_token(
-                req, sample_one(row, req.params, req.generator))
+            self._first_token(
+                req, logits[i, plen - 1, :self.cfg.vocab_size].float())
+
+    def _first_token(self, req: Request, row: torch.Tensor):
+        """Sample a prefilled request's first token from its last prompt
+        position's logits ``row``; a non-finite row fails the request."""
+        if not bool(torch.isfinite(row).all()):
+            self._stats["numerics_errors"] += 1
+            self._finish(req, FinishReason.ERROR)
+            return
+        self._accept_token(req, sample_one(row, req.params, req.generator))
 
     # a request whose prefill fails this many times finishes with
     # finish_reason="error" instead of retrying forever
@@ -386,6 +449,144 @@ class Engine:
                 self._finish(req, FinishReason.ERROR)
             else:
                 self.sched.unadmit(req)
+
+    # ------------------------------------- shared prefixes / chunked prefill
+
+    def _evict_prefix(self, n: int) -> int:
+        """The scheduler's eviction hook: reclaim ``n`` pages from the
+        prefix cache's LRU tail when the pool runs dry."""
+        freed = self.prefix.evict_for(n)
+        self._stats["prefix_evictions"] += freed
+        return freed
+
+    def _plan_admission(self, req: Request):
+        """The admission plan for :meth:`Scheduler.admit` when the prefix
+        cache or chunked prefill is on: None for the single-shot route,
+        else ``(shared, start, reserve)``: the cached pages mapped at the
+        head of the block table, the token prefill resumes from, and the
+        pages to allocate for the first chunk.  The last prompt position is
+        always recomputed (its logits give the first token), so a hit on
+        the whole prompt still rewrites its last page: a copy-on-write
+        split."""
+        ps = self.pool.page_size
+        seq = req.full_sequence
+        plen = len(seq)
+        padded = max(1, -(-plen // ps)) * ps
+        shared, start = [], 0
+        if self.prefix is not None:
+            pages, matched = self.prefix.match(seq)
+            hit = min(matched, plen - 1)
+            # resume on the chunk grid; the overlap [start, matched) is
+            # recomputed bitwise and splits its pages
+            grid = self.chunk_tokens or ps
+            start = (hit // grid) * grid
+            shared = pages if start > 0 else []
+            if not shared:
+                start = 0
+        if not shared and not (self.chunk_tokens
+                               and plen > self.chunk_tokens):
+            return None
+        end = (min(start + self.chunk_tokens, padded)
+               if self.chunk_tokens else padded)
+        return shared, start, max(0, -(-end // ps) - len(shared))
+
+    def _start_chunked_prefill(self, req: Request):
+        """A PREFILLING admission's f32 dense scratch, sized to the chunk
+        grid and holding the shared prefix's K/V: chunk attention reads
+        the earlier chunks' exact values from it, so the rows match a
+        monolithic prefill's bitwise; only finished whole pages go to the
+        pool."""
+        ps = self.pool.page_size
+        padded = max(1, -(-len(req.full_sequence) // ps)) * ps
+        T = padded
+        if self.chunk_tokens:
+            T = -(-padded // self.chunk_tokens) * self.chunk_tokens
+        req.scratch = self.model.init_cache(1, T, dtype=torch.float32,
+                                            device=self.device)
+        n_load = req.prefill_done // ps
+        if n_load:
+            load_pages_into_scratch(req.scratch, self.pools, torch.tensor(
+                req.pages[:n_load], device=self.device))
+
+    def _preempt_prefilling(self, req: Request):
+        """A dry pool mid-prefill: preempt the request itself (its
+        re-admission replans), unless the pool could never hold it, which
+        finishes it with ``ERROR``."""
+        slot = req.slot
+        if len(req.pages) + 1 >= self.pool.num_pages:
+            self._finish(req, FinishReason.ERROR)
+            return
+        self.sched.preempt(req)
+        self._clear_slot(slot)
+        self._trace_preempt(req)
+
+    def _prefill_chunk_step(self):
+        """Advance every PREFILLING request by one chunk, in admission
+        order, before the step's decode: a long prompt no longer stalls
+        every resident decode for its whole prefill."""
+        cands = sorted((r for r in self.sched.running.values()
+                        if r.state is RequestState.PREFILLING),
+                       key=self.sched.admitted_at)
+        for req in cands:
+            if not self._advance_chunk(req):
+                return
+
+    def _advance_chunk(self, req: Request) -> bool:
+        """One chunk of one request; False ends this step's chunk phase
+        (a dry pool or a failed chunk: retried next step)."""
+        ps = self.pool.page_size
+        seq = req.full_sequence
+        plen = len(seq)
+        padded = max(1, -(-plen // ps)) * ps
+        start = req.prefill_done
+        C = self.chunk_tokens or (padded - start)
+        with self._span("prefill.chunk", rid=req.rid, start=start, chunk=C):
+            # the whole pages this chunk writes: [start, min(start + C,
+            # padded)); a last chunk's padding past the prompt's pages is
+            # never written
+            lo, hi = start // ps, -(-min(start + C, padded) // ps)
+            need = hi - len(req.pages)
+            if need > 0 and self.sched.reserve(req, need) is None:
+                self._preempt_prefilling(req)
+                return False
+            # copy-on-write: never write a page another owner references
+            for idx in range(lo, hi):
+                if self.pool.refcount(req.pages[idx]) > 1:
+                    got = self.sched._alloc(1)
+                    if got is None:
+                        self._preempt_prefilling(req)
+                        return False
+                    self.pool.free([req.pages[idx]])
+                    req.pages[idx] = got[0]
+                    self._stats["cow_splits"] += 1
+            toks = np.zeros((1, C), np.int64)
+            n = min(plen, start + C) - start
+            toks[0, :n] = seq[start:start + n]
+            try:
+                faults.raise_if("prefill.chunk")
+                logits = self.model.prefill_chunk(
+                    self.params, req.scratch,
+                    torch.from_numpy(toks).to(self.device), start)
+            except Exception as exc:   # rolled back (or re-raised) below
+                self._on_prefill_failure([req], exc)
+                return False
+            self.n_prefill_chunks += 1
+            write_span_pages(self.pools, req.scratch, start, torch.tensor(
+                req.pages[lo:hi], device=self.device))
+            req.prefill_done = start + C
+            if req.prefill_done < padded:
+                return True
+            # the prompt is in: this chunk holds position plen - 1, whose
+            # logits give the first token (the monolithic path's draw)
+            req.scratch = None
+            req.state = RequestState.RUNNING
+            if self.prefix is not None:
+                self.prefix.insert(seq, req.pages)
+            self.lengths[req.slot] = plen
+            self._sync_slot(req)
+            self._first_token(req, logits[0, plen - 1 - start,
+                                          :self.cfg.vocab_size].float())
+        return True
 
     def _sync_slot(self, req: Request):
         s = req.slot
@@ -440,6 +641,8 @@ class Engine:
                           key=self.sched.admitted_at):
             if req.slot is None:        # preempted by an earlier grow
                 continue
+            if req.state is not RequestState.RUNNING:
+                continue                # PREFILLING: pages come per chunk
             page_idx = int(self.lengths[req.slot]) // ps
             if page_idx >= self.max_pages_per_slot:
                 self._stats["length_caps"] += 1
@@ -564,25 +767,44 @@ class Engine:
             self.sched.drop(req)
             self._trace_request_end(req)
 
+    def _land_inflight(self):
+        """Consume the decode step in flight, if any; a failure ends only
+        the requests of that step (under ``guard=True``)."""
+        if self._inflight is None:
+            return
+        inflight, self._inflight = self._inflight, None
+        try:
+            self._decode_consume(inflight)
+        except Exception as exc:    # re-raised unless guard=True
+            self._on_decode_failure(inflight["running"], exc)
+
     @torch.no_grad()
     def step(self):
-        """One engine iteration: tick the deadline clock, expire deadlines,
-        admit and prefill, grow pages, then one decode step for every
-        running slot."""
+        """One engine iteration: consume the decode step left in flight
+        (async scheduling), tick the deadline clock, expire deadlines,
+        admit and prefill, advance each chunked prefill by one chunk, grow
+        pages, then dispatch one decode step for every running slot: its
+        consume follows at once, or at the top of the next step with
+        ``async_sched``."""
         with self._span("engine.step") as sp:
+            self._land_inflight()
             self.clock += 1
             spec = faults.poke("decode.slow")
             if spec is not None:         # injected slowdown: burn ticks
                 self.clock += max(1, spec.arg)
             self._expire_deadlines()
             self._admit_and_prefill()
+            self._prefill_chunk_step()
             self._ensure_pages()
-            running = list(self.sched.running.values())
+            running = [r for r in self.sched.running.values()
+                       if r.state is RequestState.RUNNING]
             if running:
                 try:
-                    self._decode_consume(self._decode_dispatch(running))
+                    self._inflight = self._decode_dispatch(running)
                 except Exception as exc:    # re-raised unless guard=True
                     self._on_decode_failure(running, exc)
+                if not self.async_sched:
+                    self._land_inflight()
             # annotated at exit: the span's args dict is live until then
             sp["clock"] = self.clock
             sp["occupancy"] = len(self.sched.running)
@@ -596,7 +818,7 @@ class Engine:
                 params = [params] * len(prompts)
             for prompt, sp in zip(prompts, params):
                 self.add_request(prompt, sp)
-        while self.sched.has_work:
+        while self.sched.has_work or self._inflight is not None:
             self.step()
         return self.results()
 
@@ -605,12 +827,13 @@ class Engine:
                 for rid, req in self._requests.items()}
 
     def stats(self) -> dict:
-        """Resilience and throughput counters, JAX's keys but the prefix
-        cache's (item 14): guard trips (decode steps with a non-finite slot
+        """Resilience and throughput counters, JAX's keys: guard trips (decode steps with a non-finite slot
         under ``guard=True``), ``fallback_reruns`` (always 0: the port
         never re-runs a step on a fallback path), numerics errors,
         rejections, overloads, timeouts, length caps, prefill faults, the
-        clock, prefills, decode steps, preemptions, parks, and the circuit
+        prefix cache's hits, reused tokens, copy-on-write splits and
+        evictions, the clock, prefills, prefill chunks, decode steps,
+        preemptions, parks, and the circuit
         breaker's global totals (``breaker``); the port's
         ``decode_faults`` (decode steps that raised under ``guard=True``);
         on ``cuda`` also the decode program's: its eager warm-up steps,
@@ -620,6 +843,7 @@ class Engine:
         return {**self._stats,
                 "clock": self.clock,
                 "prefills": self.n_prefills,
+                "prefill_chunks": self.n_prefill_chunks,
                 "decode_steps": self.n_decode_steps,
                 "preemptions": self.sched.n_preemptions,
                 "parks": self.sched.n_parks,
@@ -628,6 +852,26 @@ class Engine:
                 "capture_s": 0.0 if g is None else g.capture_s,
                 "graph_replays": 0 if g is None else g.replays,
                 "sampler_replays": 0 if g is None else g.sampler_replays}
+
+    @torch.no_grad()
+    def defragment(self):
+        """Compact the live pages onto the low end of the pool: the device
+        pools are permuted in place (the decode graph keeps its storage)
+        and every running request's pages, block table and prefix-cache
+        node follow.  A decode step in flight is landed first.  Safe
+        between steps; the tokens do not change."""
+        self._land_inflight()
+        mapping = self.pool.defrag()
+        permute_pages(self.pools, inverse_permutation(
+            mapping, self.pool.num_pages, self.device))
+        if self.prefix is not None:
+            self.prefix.remap(mapping)
+        for req in self.sched.running.values():
+            req.pages = [mapping[p] for p in req.pages]
+            if req.state is RequestState.RUNNING:
+                # PREFILLING slots keep zeroed (masked) block tables
+                self.block_tables[req.slot] = 0
+                self.block_tables[req.slot, :len(req.pages)] = req.pages
 
 
 def _decode_step(params, pools, block_tables, lengths, toks, poison, *,
@@ -688,7 +932,8 @@ class _DecodeGraph:
 
     The kernels' Python wrappers run only at capture, so their launch
     counters see nothing of a replay: the increase each counter showed
-    during capture (``launches``, and kernel 1's ``epilogue_launches``) is
+    during capture (``launches``, kernel 3's ``f32_launches`` and kernel
+    1's ``epilogue_launches``) is
     reset there (the capture launched nothing) and added at every replay.
     The warm-up's launches are real and stay counted.
     """
@@ -704,7 +949,10 @@ class _DecodeGraph:
         self.host_out = torch.zeros((2, B), dtype=torch.int64,
                                     pin_memory=True)
         self.done = torch.cuda.Event()
-        self._counters = (tcec_matmul, tcec_attention, tcec_paged_attention)
+        self._counters = ((tcec_matmul, "launches"),
+                          (tcec_attention, "launches"),
+                          (tcec_paged_attention, "launches"),
+                          (tcec_paged_attention, "f32_launches"))
 
         def main():
             logits, finite, greedy = _decode_step(
@@ -725,7 +973,7 @@ class _DecodeGraph:
         with torch.cuda.stream(side):
             sampler(main())
         torch.cuda.current_stream(dev).wait_stream(side)
-        before = [m.launches for m in self._counters]
+        before = [getattr(m, a) for m, a in self._counters]
         epilogues = dict(tcec_matmul.epilogue_launches)
         self.main = torch.cuda.CUDAGraph()
         try:
@@ -733,10 +981,10 @@ class _DecodeGraph:
                 self.logits = main()
         finally:
             # the capture launched nothing, whether it ended or raised
-            self.per_replay = [m.launches - n
-                               for m, n in zip(self._counters, before)]
-            for m, n in zip(self._counters, before):
-                m.launches = n
+            self.per_replay = [getattr(m, a) - n for (m, a), n
+                               in zip(self._counters, before)]
+            for (m, a), n in zip(self._counters, before):
+                setattr(m, a, n)
             self.epilogues_per_replay = {
                 k: n - epilogues[k]
                 for k, n in tcec_matmul.epilogue_launches.items()}
@@ -761,8 +1009,8 @@ class _DecodeGraph:
         self.host_out.copy_(self.out, non_blocking=True)
         self.done.record()
         self.replays += 1
-        for m, n in zip(self._counters, self.per_replay):
-            m.launches += n
+        for (m, a), n in zip(self._counters, self.per_replay):
+            setattr(m, a, getattr(m, a) + n)
         for k, n in self.epilogues_per_replay.items():
             tcec_matmul.epilogue_launches[k] += n
         return self.host_out, self.done

@@ -17,7 +17,14 @@ arrays and calls in here.  The rules are the JAX package's:
     drains, then rejoins at the front.  Recompute-style preemption
     re-prefills the victim's whole sequence, so a thrashing mix can burn
     most of its steps re-prefilling; parking turns that storm into
-    queueing delay.
+    queueing delay;
+  * the prefix cache and chunked prefill (JAX's rules): the engine may
+    plan an admission onto the chunked path (``admit(plan)``), where it
+    maps shared prefix pages, starts in state ``PREFILLING`` and takes
+    its pages chunk by chunk (:meth:`Scheduler.reserve`); a dry pool asks
+    the engine's ``evict_cb`` to evict cached pages once before it blocks
+    an admission or preempts.  A released request's chunked progress is
+    dropped, so a re-admission replans.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from .sampling import SamplingParams
 
 class RequestState(Enum):
     WAITING = "waiting"
+    PREFILLING = "prefilling"      # admitted, prompt prefilling in chunks
     RUNNING = "running"
     FINISHED = "finished"
 
@@ -54,6 +62,9 @@ class Request:
     n_prefill_faults: int = 0          # failed prefill attempts (engine)
     t_enqueue: float | None = None     # tracer clock at add (repro_torch.obs)
     t_last_token: float | None = None  # tracer clock at last accept
+    prefill_done: int = 0              # tokens prefilled so far (chunked)
+    scratch: object = None             # per-request dense scratch cache
+    shared_pages: int = 0              # head pages mapped from the cache
 
     @property
     def full_sequence(self) -> list[int]:
@@ -82,6 +93,9 @@ class Scheduler:
         self._admitted_at: dict[int, int] = {}         # rid -> seq
         self.n_preemptions = 0                         # total evictions
         self.n_parks = 0                               # storm detections
+        # the engine's prefix-cache eviction hook: called with a page
+        # shortfall when the pool is dry, returns the pages it freed
+        self.evict_cb = None
 
     def add(self, prompt, params: SamplingParams | None = None) -> Request:
         req = Request(rid=next(self._ids), prompt=[int(t) for t in prompt],
@@ -99,10 +113,28 @@ class Scheduler:
     def admitted_at(self, req: Request) -> int:
         return self._admitted_at[req.rid]
 
-    def admit(self) -> list[Request]:
+    def _alloc(self, n: int) -> list[int] | None:
+        """``pool.alloc`` with one prefix-cache eviction retry when the
+        pool is dry and the engine installed ``evict_cb``; without it,
+        exactly one ``pool.alloc`` (fault schedules are unchanged)."""
+        pages = self.pool.alloc(n)
+        if pages is None and self.evict_cb is not None:
+            if self.evict_cb(max(1, n - self.pool.num_free)):
+                pages = self.pool.alloc(n)
+        return pages
+
+    def admit(self, plan=None) -> list[Request]:
         """Admit waiting requests FIFO while a slot and pages are available
-        (prompt pages plus one page of headroom each).  Parked requests
-        rejoin at the head once the waiting queue has drained."""
+        (prompt pages plus one page of headroom each), as ``RUNNING``.
+        Parked requests rejoin at the head once the waiting queue has
+        drained.
+
+        ``plan`` (the engine's) may send a request onto the chunked /
+        shared-prefix path: it returns None for the single-shot route, or
+        ``(shared_pages, start_tokens, reserve_pages)``: the cached pages
+        mapped at the head of the block table (one :meth:`PagePool.share`
+        each), the token prefill resumes from, and the pages to allocate
+        now.  Such an admission enters ``PREFILLING``."""
         if self.parked and not self.waiting:
             self.waiting.extendleft(reversed(self.parked))
             self.parked.clear()
@@ -110,24 +142,45 @@ class Scheduler:
         slots = self.free_slots()
         while self.waiting and slots:
             req = self.waiting[0]
-            pages = self.pool.alloc(
-                self.pool.pages_for(len(req.full_sequence) + 1))
-            if pages is None:
-                break                                   # strict FIFO
+            decision = plan(req) if plan is not None else None
+            if decision is None:
+                pages = self._alloc(
+                    self.pool.pages_for(len(req.full_sequence) + 1))
+                if pages is None:
+                    break                               # strict FIFO
+                shared, start = [], 0
+                req.state = RequestState.RUNNING
+            else:
+                shared, start, reserve = decision
+                pages = self._alloc(reserve) if reserve else []
+                if pages is None:
+                    break                               # strict FIFO
+                self.pool.share(shared)
+                req.state = RequestState.PREFILLING
             self.waiting.popleft()
-            req.state = RequestState.RUNNING
-            req.pages = pages
+            req.pages = list(shared) + pages
+            req.shared_pages = len(shared)
+            req.prefill_done = start
             req.slot = slots.pop(0)
             self.running[req.slot] = req
             self._admitted_at[req.rid] = next(self._admit_seq)
             admitted.append(req)
         return admitted
 
+    def reserve(self, req: Request, n: int) -> list[int] | None:
+        """Grant ``req`` ``n`` more pages for its next prefill chunk (no
+        preemption here: the engine handles a dry pool mid-prefill);
+        appended to ``req.pages``."""
+        pages = self._alloc(n)
+        if pages is not None:
+            req.pages.extend(pages)
+        return pages
+
     def grow(self, req: Request) -> bool:
         """Grant ``req`` one more page, preempting younger requests until it
         fits.  False only when ``req`` is alone and the pool is still dry."""
         while True:
-            pages = self.pool.alloc(1)
+            pages = self._alloc(1)
             if pages is not None:
                 req.pages.extend(pages)
                 return True
@@ -151,6 +204,10 @@ class Scheduler:
         self.pool.free(req.pages)
         req.pages = []
         req.slot = None
+        # chunked progress does not survive: a re-admission replans
+        req.prefill_done = 0
+        req.scratch = None
+        req.shared_pages = 0
 
     def preempt(self, req: Request) -> None:
         """Evict a running request back to the front of the queue, or park

@@ -371,8 +371,8 @@ def test_paged_attention_ignores_stale_pages(dev, C):
 
 def test_paged_wrapper_raises_instead_of_falling_back(dev):
     q, kp, vp, bt, ln = _paged_inputs(dev, [5], 1, 2, 64, 64, 16, 2, seed=0)
-    with pytest.raises(TypeError):                    # f32 pools
-        tcec_paged_attention.tcec_paged_attention(q, kp.float(), vp.float(),
+    with pytest.raises(TypeError):                    # f16 pools
+        tcec_paged_attention.tcec_paged_attention(q, kp.half(), vp.half(),
                                                   bt, ln)
     with pytest.raises(ValueError):                   # rep 9
         tcec_paged_attention.tcec_paged_attention(q.repeat(1, 9, 1)[:, :9],
@@ -992,6 +992,76 @@ def test_paged_attention_head_dim_256_matches_plain(dev, policy, ps, C, maxp,
     assert bool((out[ln <= 0] == 0).all())
     assert float((out - ref).abs().max()) <= 1e-5 * float(
         vp.float().abs().max())
+
+
+# Kernel 3's f32 instantiation (f32 pools: the prefix cache's) against the
+# plain version at the wrapper's C (its rule sizes C by the pooled bytes):
+# lengths on page and chunk edges, ragged ones, a window across chunks, the
+# softcaps 30 and 50, head dims 64, 128 and 256 (and 40 / 24, element by
+# element), every policy, maxp 1 (normalise first).  Each case runs twice:
+# the two outputs are bitwise equal; the f32 launches are counted.
+@pytest.mark.parametrize("policy,ps,maxp,rep,hd,hdv,window,softcap", [
+    ("tcec_bf16x6", 16, 10, 2, 128, 128, 0, None),
+    ("tcec_bf16x6", 16, 10, 2, 128, 128, 50, None),
+    ("tcec_bf16x6", 16, 10, 2, 128, 128, 0, 30.0),
+    ("tcec_bf16x3", 8, 9, 1, 64, 64, 0, None),
+    ("tcec_bf16x10", 16, 6, 4, 64, 64, 20, 30.0),
+    ("tcec_bf16x6", 16, 8, 2, 256, 256, 40, 50.0),
+    ("tcec_bf16x10", 16, 5, 8, 256, 256, 0, None),
+    ("tcec_bf16x6", 16, 1, 8, 128, 128, 0, None),
+    ("tcec_bf16x6", 4, 12, 2, 40, 24, 0, None)])
+def test_paged_attention_f32_pools_match_plain(dev, policy, ps, maxp, rep,
+                                               hd, hdv, window, softcap):
+    C = tcec_paged_attention.chunk_pages(4, 2, maxp, ps, hd, hdv, 4)
+    n = C * ps
+    lengths = sorted({0, 1, ps, n - 1, n + 1, 3 * ps + 5, maxp * ps})
+    lengths = [min(x, maxp * ps) for x in lengths]
+    q, kp, vp, bt, ln = _paged_inputs(dev, lengths, 2, rep, hd, hdv, ps,
+                                      maxp, seed=hd + maxp + window)
+    kp, vp = kp.float() + 1e-3 * torch.randn_like(kp.float()), \
+        vp.float() + 1e-3 * torch.randn_like(vp.float())
+    kw = dict(policy=policy, window=window, softcap=softcap)
+    before = (tcec_paged_attention.launches,
+              tcec_paged_attention.f32_launches)
+    out = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    assert (tcec_paged_attention.launches,
+            tcec_paged_attention.f32_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    again = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln, **kw)
+    ref = tcec_paged_attention.tcec_paged_attention_plain(q, kp, vp, bt, ln,
+                                                          **kw)
+    assert torch.equal(out, again)
+    assert bool((out[ln <= 0] == 0).all())
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 1e-5 * float(vp.abs().max())
+
+
+def test_paged_attention_f32_pools_ignore_stale_pages(dev):
+    """The stale-page check on f32 pools: NaN, Inf and -Inf in unlisted
+    pages, past a slot's length and in its last page's tail leave the
+    output bitwise as it was, chunked (C 1) and not."""
+    ps, maxp = 16, 6
+    lengths = [0, 5, 40, 70]
+    q, kp, vp, bt, ln = _paged_inputs(dev, lengths, 8, 2, 128, 128, ps, maxp,
+                                      seed=3)
+    kp, vp = kp.float(), vp.float()
+    for C in (1, maxp):
+        kw = dict(pages_per_chunk=C)
+        clean = tcec_paged_attention.tcec_paged_attention(q, kp, vp, bt, ln,
+                                                          **kw)
+        dk, dv = kp.clone(), vp.clone()
+        dk[0], dv[0] = float("nan"), float("-inf")
+        for row, n in zip(bt.tolist(), lengths):
+            used = -(-n // ps)
+            for page in row[used:]:
+                dk[page], dv[page] = float("-inf"), float("nan")
+            if used and n % ps:
+                dk[row[used - 1], n % ps:] = float("nan")
+                dv[row[used - 1], n % ps:] = float("-inf")
+        dirty = tcec_paged_attention.tcec_paged_attention(q, dk, dv, bt, ln,
+                                                          **kw)
+        assert bool(torch.isfinite(dirty).all())
+        assert torch.equal(dirty, clean)
 
 
 def test_paged_attention_refuses_head_dims_over_256(dev):

@@ -23,8 +23,10 @@ its place; a decode step that raises under ``guard=True`` ends its requests
 with ``error`` and the engine serves on.  Not ported: JAX's
 ``test_chaos_nonfinite_recovers_via_fallback_rerun`` and
 ``test_guarded_dispatch_falls_back_and_quarantines`` (the port has no
-fallback: pinned by the tests above instead), and the ``defragment`` step
-of ``test_preemption_storm_parks_and_recovers`` (item 14).
+fallback: pinned by the tests above instead).  The ``defragment`` step of
+``test_preemption_storm_parks_and_recovers`` is mirrored in
+``test_torch_prefix.py``.  Kernel 3's rule walk raises, outside the
+breaker, on operands beyond the CUDA kernel's limits (pinned here).
 """
 import json
 
@@ -349,6 +351,43 @@ def test_guard_counts_raises_and_quarantines_without_a_plain_call(
         if e["kernel"] == kernel:
             rules[e["rule"]] = rules.get(e["rule"], 0) + e["count"]
     assert rules == {"fused": 3, "kernel-failure": 2, "breaker-open": 3}
+
+
+@pytest.mark.parametrize("limit", ["rep", "page", "head_dim", "dtype"])
+def test_paged_walk_raises_beyond_the_kernel_limits_outside_the_breaker(
+        limit):
+    """Kernel 3's rule walk checks the CUDA kernel's limits for operands
+    off the CPU (meta ones here): rep <= 8, pages of <= 64 tokens, head
+    dims <= 256, bf16 or f32 pools.  Beyond one it raises naming the limit
+    under the slug ``shape-unsupported``, before any launch and without a
+    breaker count, also under ``guard=True``."""
+    shapes = {"rep": ((2, 9, 16), (5, 4, 1, 16), torch.bfloat16),
+              "page": ((2, 4, 16), (5, 128, 2, 16), torch.bfloat16),
+              "head_dim": ((2, 4, 320), (5, 4, 2, 320), torch.bfloat16),
+              "dtype": ((2, 4, 16), (5, 4, 2, 16), torch.float16)}
+    qs, ps, dt = shapes[limit]
+    q = torch.empty(qs, device="meta")
+    kp = torch.empty(ps, dtype=dt, device="meta")
+    bt = torch.ones((2, 2), dtype=torch.int32, device="meta")
+    ln = torch.ones((2,), dtype=torch.int32, device="meta")
+    match = {"rep": "rep 9", "page": "page size 128",
+             "head_dim": "head dims 320", "dtype": "bf16 or f32"}[limit]
+    explain_reset()
+    with numerics.use(guard=True):
+        with pytest.raises(ValueError, match=match):
+            dispatch.attention_decode(q, kp, kp, bt, ln,
+                                      policy="tcec_bf16x6")
+    assert all(v == 0 for v in guard.counters().values())
+    rules = [e["rule"] for e in explain_report().entries
+             if e["kernel"] == "paged_attention"]
+    assert rules == ["shape-unsupported"]
+    # the CPU's plain version takes the same shapes (and no limit applies)
+    cpu = [torch.zeros(x.shape, dtype=x.dtype) for x in (q, kp)]
+    out = dispatch.attention_decode(cpu[0], cpu[1], cpu[1],
+                                    torch.ones((2, 2), dtype=torch.int32),
+                                    torch.ones((2,), dtype=torch.int32),
+                                    policy="tcec_bf16x6")
+    assert out.shape == (2, qs[1], ps[-1])
 
 
 def test_guard_off_propagates_kernel_errors(monkeypatch):

@@ -5,7 +5,8 @@ the JAX package, on the CPU.
 The registry, ``from_env`` and ``parse_override_args`` agree with JAX's
 field for field except the divergences the port's module docstring states,
 each pinned here by name (``min_dim`` 0, ``guard`` False, the tune cache's
-path, the not-ported fields that raise).  JAX's ``test_numerics.py``
+path, the not-ported fields that raise, and the serving knobs that now
+reach the engine).  JAX's ``test_numerics.py``
 battery is mirrored: precedence, nesting, thread-locality, the parsers,
 the tune-mode mapping, no environment read outside ``numerics.py``.  The
 rule walks return JAX's slugs under ``numerics.use(force=True)`` on shapes
@@ -141,11 +142,31 @@ def test_from_env_equals_jax(env):
     ("REPRO_KEEP_BF16_DOTS", "keep_bf16_dots", "XLA only"),
 ])
 def test_fields_not_ported_raise_away_from_their_default(var, field, item):
+    """``shard_map`` and ``keep_bf16_dots`` raise away from JAX's default,
+    naming their ROADMAP item.  The serving knobs (items 14 and 3) are
+    ported: away from their default they parse from the environment as
+    JAX's do, build a config, enter ``use()``, and reach an engine's
+    knobs (the chunk rounded up to a page multiple)."""
     off = "0" if var == "REPRO_SHARD_MAP" else (
         "32" if var == "REPRO_CHUNKED_PREFILL" else "1")
+    value = {"shard_map": False, "chunked_prefill": 20}.get(field, True)
+    if field in ("prefix_cache", "chunked_prefill", "async_sched"):
+        parsed = NumericsConfig.from_env({var: off})
+        assert getattr(parsed, field) == getattr(
+            jnumerics.NumericsConfig.from_env({var: off}), field)
+        assert getattr(parsed, field) not in (0, False)
+        with numerics.use(**{field: value}):
+            cfg = get_smoke_config("qwen3-0.6b")
+            eng = Engine(cfg, get_model(cfg).init(seed=0, device="cpu"),
+                         max_slots=1, num_pages=5, page_size=8,
+                         device="cpu")
+        assert getattr(eng.numerics_config, field) == value
+        assert {"prefix_cache": eng.prefix is not None,
+                "chunked_prefill": eng.chunk_tokens == 24,
+                "async_sched": eng.async_sched}[field]
+        return
     with pytest.raises(NotImplementedError, match=item):
         NumericsConfig.from_env({var: off})
-    value = {"shard_map": False, "chunked_prefill": 32}.get(field, True)
     with pytest.raises(NotImplementedError, match=item):
         NumericsConfig(**{field: value})
     with pytest.raises(NotImplementedError):
