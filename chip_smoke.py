@@ -1091,19 +1091,25 @@ def timed_method(obj, name):
 
 
 def replay_equals_eager(dev, cfg, params, steps=8, numerics_config=None,
-                        cache_dtype=torch.bfloat16):
+                        cache_dtype=torch.bfloat16, mesh=None):
     """Phase 4b: each of ``steps`` decode steps of a full-width engine is
     replayed and also run eagerly through ``_decode_and_sample`` on copies
     of the same pools and inputs; everything must be bitwise equal.  With
     ``numerics_config`` the engine is pinned to it (its model handle runs
     the eager step under it too); ``cache_dtype`` is the pools' (phase 16
-    replays over f32 pools)."""
+    replays over f32 pools); under ``mesh`` (phase 17b) the engine and the
+    eager step run under that mesh."""
     from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.parallel import ctx
     from repro_torch.serving import Engine, SamplingParams
     from repro_torch.serving import engine as em
     engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
                     page_size=16, max_pages_per_slot=40, device=dev,
-                    numerics_config=numerics_config, cache_dtype=cache_dtype)
+                    numerics_config=numerics_config, cache_dtype=cache_dtype,
+                    mesh=mesh)
+    def scope():
+        return (ctx.use_mesh(mesh) if mesh is not None
+                else contextlib.nullcontext())
     rng = np.random.default_rng(2)
     knobs = [dict(), dict(temperature=0.8, top_k=50, top_p=0.9, seed=1),
              dict(), dict(temperature=1.0, seed=2)]
@@ -1120,17 +1126,18 @@ def replay_equals_eager(dev, cfg, params, steps=8, numerics_config=None,
         v = em._input_views(staged.to(dev), B, maxp)
         out, done = em._DecodeGraph.launch(graph, staged, sample)
         done.synchronize()
-        toks, finite, logits = em._decode_and_sample(
-            params, pools, v["block_tables"], v["lengths"], v["next_tok"],
-            v["temps"], v["topks"], v["topps"], v["uniforms"], v["poison"],
-            model=engine.model, cfg=cfg)
+        with scope():
+            toks, finite, logits = em._decode_and_sample(
+                params, pools, v["block_tables"], v["lengths"],
+                v["next_tok"], v["temps"], v["topks"], v["topps"],
+                v["uniforms"], v["poison"], model=engine.model, cfg=cfg)
         check(torch.equal(logits, graph.logits), "replayed logits == eager")
         check(out[0].tolist() == finite.long().tolist(),
               "replayed guard bits == eager")
         check(out[1].tolist() == toks.tolist(), "replayed tokens == eager")
-        check(all(torch.equal(a, b) for a, b in zip(tree_leaves(pools),
-                                                    tree_leaves(
-                                                        engine.pools))),
+        check(all(torch.equal(ctx.full(a), ctx.full(b))
+                  for a, b in zip(tree_leaves(pools),
+                                  tree_leaves(engine.pools))),
               "page pools after the replay == after the eager step")
         compared.append(sample)
         return out, done
@@ -4080,6 +4087,573 @@ def prefix_path(dev, arch="qwen3-0.6b"):
     return total, f32
 
 
+# ------------------------------------------------------------ phase 17
+#
+# The parallel layer (``parallel/``, ``kernels/shmap.py``) in child
+# processes: 17b on one rank over NCCL, 17a/c/d on two ranks over gloo,
+# both ranks on the one card (NCCL refuses two ranks on one GPU).  Each
+# child writes its rows and the kernel launches of its mesh runs to
+# ``chiprun_out/phase17_*.json``; the parent reads them after checking the
+# children's exit codes (``start_processes`` raises on any failure).
+
+P17_PROBES = ("all_reduce", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "all_to_all_single")
+# each is probed through torch.distributed (what 17c's K plans call) and
+# through the functional collectives (what DTensor's redistributions call:
+# 17d needs all four of those)
+P17_APIS = ("c10d", "functional")
+
+
+def _p17_out(name, rank):
+    return ROOT / "chiprun_out" / f"phase17_{name}_rank{rank}.json"
+
+
+def _p17_setup(on_card):
+    """A child's imports: the repo's ``src``, the built kernels (already
+    on disk: the build is keyed by the sources), and on the CPU the smoke
+    config in place of the full one.  A child that dies on a signal
+    prints its Python stack (``faulthandler``)."""
+    import faulthandler
+    faulthandler.enable()
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch  # noqa: F401
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    if on_card:
+        _build.build()
+    else:
+        configs.get_config = configs.get_smoke_config
+    return configs.get_config
+
+
+def _p17_launches():
+    from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
+                                     tcec_paged_attention as tp)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {m.__name__.rsplit(".", 1)[1]: m.launches for m in (tm, ta, tp)}
+
+
+def _p17_zero():
+    from repro_torch.kernels import (tcec_attention as ta, tcec_matmul as tm,
+                                     tcec_paged_attention as tp)
+    for m in (tm, ta, tp):
+        m.launches = 0
+
+
+def _p17_engine(cfg, params, dev, mesh=None, lens=None, max_tokens=16):
+    """Phase 4's engine run (4 slots, pages of 16, the 8 greedy requests of
+    ``SERVE_LENS``) -> (tokens, stats, seconds, decode-step host ms)."""
+    from repro_torch.serving import Engine, SamplingParams
+    engine = Engine(cfg, params, max_slots=4, num_pages=1 + 4 * 40,
+                    page_size=16, max_pages_per_slot=40, device=dev,
+                    mesh=mesh)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n)
+               for n in (lens or SERVE_LENS)]
+    disp = timed_method(engine, "_decode_dispatch")
+    cons = timed_method(engine, "_decode_consume")
+    t0 = time.perf_counter()
+    out = engine.run(prompts, SamplingParams(max_tokens=max_tokens))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    steps = [(a + b) * 1e3 for a, b in zip(disp, cons)]
+    return ([list(map(int, out[r])) for r in sorted(out)], engine.stats(),
+            dt, steps, prompts)
+
+
+def _p17_step_row(name, toks, stats, dt, steps):
+    n = sum(len(t) for t in toks)
+    return {"run": name, "tokens": n, "seconds": dt, "tokens_per_s": n / dt,
+            "decode_steps": stats["decode_steps"],
+            "decode_step_ms_median": float(np.median(steps)),
+            "decode_step_ms_p90": float(np.percentile(steps, 90)),
+            "decode_graph": stats["decode_graph"],
+            "decode_graph_reason": stats["decode_graph_reason"],
+            "graph_replays": stats["graph_replays"]}
+
+
+def _p17_one_rank(rank, on_card):
+    """17b: one rank over NCCL, a (1, 1) mesh, qwen3-0.6b at full width:
+    the engine's tokens, replay against eager under the mesh, and the
+    8 x 128 train step bitwise against the unsharded ones.  The child runs
+    with deterministic algorithms: otherwise the embedding gradient's
+    index accumulation sums repeated tokens in an arbitrary order, and two
+    unsharded steps differ in its last bits."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    get_config = _p17_setup(on_card)
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.kernels import shmap
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.step import make_sharded_train_step, \
+        make_train_step
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    dev = torch.device("cuda" if on_card else "cpu")
+    t_all = time.perf_counter()
+    mesh = make_host_mesh(1, device=dev.type)
+    backend = torch.distributed.get_backend()
+    cfg = get_config("qwen3-0.6b")
+    params = get_model(cfg).init(seed=0, device=dev)
+    sharded = shd.shard_tree(params, shd.to_shardings(
+        shd.param_specs(params, mesh, cfg), mesh))
+    rows, launches = [], {}
+    # the unsharded engine twice (the first run captures the graph and
+    # warms every shape), then the mesh's
+    _p17_engine(cfg, params, dev)
+    base = _p17_engine(cfg, params, dev)
+    rows.append(_p17_step_row("unsharded", *base[:4]))
+    plain, restore = counted_plain_versions()
+    shmap.reset_counters()
+    _p17_zero()
+    mesh_run = _p17_engine(cfg, sharded, dev, mesh=mesh)
+    for k, v in _p17_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    rows.append(_p17_step_row("mesh (1, 1) " + backend, *mesh_run[:4]))
+    calls = shmap.counters()
+    check(mesh_run[0] == base[0], "17b: tokens under the (1, 1) mesh == "
+          "the unsharded engine's")
+    check(all(calls[k] > 0 for k in shmap.KERNELS),
+          f"17b: every wrapper ran ({calls})")
+    if on_card:
+        check(mesh_run[1]["decode_graph"] and mesh_run[1]["graph_replays"]
+              == mesh_run[1]["decode_steps"],
+              "17b: the decode graph is captured and replayed under the "
+              "one-rank NCCL mesh")
+        replay = replay_equals_eager(dev, cfg, sharded, mesh=mesh)
+        rows.append({"replay_vs_eager_under_mesh": replay["steps"],
+                     "bitwise_equal": True})
+    # the train step, 8 x 128, bitwise
+    opt = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    data = DataConfig(seed=0, global_batch=8, seq_len=128)
+    batch = device_batch(cfg, data, 0, dev)
+    state = {"params": params, "opt": adamw.init_state(params, opt)}
+    ref_step = make_train_step(cfg, opt)
+    step, sh, sharder = make_sharded_train_step(cfg, opt, mesh)
+    sstate, sbatch = shd.shard_tree(state, sh), sharder(batch)
+    times = {}
+    for name, fn, st, b in (("unsharded", ref_step, state, batch),
+                            ("mesh", step, sstate, sbatch)):
+        fn(st, b)                                  # warm
+        if on_card:
+            torch.cuda.synchronize()
+        if name == "mesh":
+            _p17_zero()
+        t0 = time.perf_counter()
+        out = fn(st, b)
+        float(out[1]["loss"])
+        times[name] = (time.perf_counter() - t0) * 1e3
+        if name == "mesh":
+            for k, v in _p17_launches().items():
+                launches[k] = launches.get(k, 0) + v
+            new, met = out
+        else:
+            ref_new, ref_met = out
+    restore()
+    same = all(torch.equal(ctx.full(a), b) for a, b in
+               zip(tree_leaves(new), tree_leaves(ref_new)))
+    rows.append({"train_step": "8 x 128 under the (1, 1) mesh",
+                 "loss": float(met["loss"]),
+                 "loss_bitwise": bool(torch.equal(met["loss"],
+                                                  ref_met["loss"])),
+                 "state_bitwise": same, "step_ms": times["mesh"],
+                 "unsharded_step_ms": times["unsharded"]})
+    check(torch.equal(met["loss"], ref_met["loss"]) and same,
+          "17b: the train step's loss and state bitwise the unsharded step's")
+    check(not on_card or sum(plain.values()) == 0,
+          f"17b: plain versions called {plain}")
+    _p17_out("b", rank).write_text(json.dumps({
+        "rows": rows, "launches": launches, "wrapper_calls": calls,
+        "backend": backend, "plain_calls": plain,
+        "seconds": time.perf_counter() - t_all}))
+
+
+def _p17_probe_one(name, api, dev):
+    """One collective on this device's tensors over the world's 2 ranks:
+    "ok", "wrong result", or the error it raised."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    r, w = dist.get_rank(), dist.get_world_size()
+    group = dist.group.WORLD
+    x = torch.full((4 * w,), float(r + 1), device=dev)
+    ranks = torch.arange(1, w + 1).float()
+    try:
+        if name == "all_reduce":
+            if api == "c10d":
+                dist.all_reduce(x)
+            else:
+                x = funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+            ok = bool((x == w * (w + 1) / 2).all())
+        elif name == "all_gather_into_tensor":
+            if api == "c10d":
+                y = torch.empty(4 * w * w, device=dev)
+                dist.all_gather_into_tensor(y, x)
+            else:
+                y = funcol.wait_tensor(funcol.all_gather_tensor(x, 0, group))
+            ok = bool((y.reshape(w, -1)[:, 0].cpu() == ranks).all())
+        elif name == "reduce_scatter_tensor":
+            if api == "c10d":
+                y = torch.empty(4, device=dev)
+                dist.reduce_scatter_tensor(y, x)
+            else:
+                y = funcol.wait_tensor(funcol.reduce_scatter_tensor(
+                    x, "sum", 0, group))
+            ok = bool((y == w * (w + 1) / 2).all())
+        else:
+            if api == "c10d":
+                y = torch.empty_like(x)
+                dist.all_to_all_single(y, x)
+            else:
+                y = funcol.wait_tensor(funcol.all_to_all_single(
+                    x, None, None, group))
+            ok = bool((y.reshape(w, -1)[:, 0].cpu() == ranks).all())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return "ok" if ok else "wrong result"
+    except Exception as exc:      # recorded: the probe's whole point
+        return f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+
+
+def _p17_probe_child(rank, on_card, store, keys, log):
+    """17a's child: the probes in ``keys`` in turn; rank 0 appends
+    ``start`` before and the result after each one to ``log``, so that a
+    probe that kills the process is known by its unfinished start."""
+    import faulthandler
+    faulthandler.enable()
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    for api, name in keys:
+        if rank == 0:
+            with open(log, "a") as f:
+                f.write(json.dumps({"start": [api, name]}) + "\n")
+        got = _p17_probe_one(name, api, dev)
+        if rank == 0:
+            with open(log, "a") as f:
+                f.write(json.dumps({"done": [api, name], "result": got})
+                        + "\n")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _p17_probe(on_card):
+    """17a: which collectives gloo runs on the card's tensors, each through
+    ``torch.distributed`` and through the functional collectives, in pairs
+    of spawned ranks.  A probe that kills its processes (a signal) is
+    recorded as such, and the probes after it run in a fresh pair."""
+    import torch.multiprocessing as mp
+    out_dir = ROOT / "chiprun_out"
+    todo = [(api, name) for api in P17_APIS for name in P17_PROBES]
+    results = {}
+    attempt = 0
+    while todo:
+        attempt += 1
+        store = out_dir / f"phase17_probe_store_{attempt}"
+        log = out_dir / f"phase17_probe_{attempt}.jsonl"
+        try:
+            mp.start_processes(_p17_probe_child,
+                               args=(on_card, str(store), todo, str(log)),
+                               nprocs=2, join=True, start_method="spawn")
+            died = None
+        except mp.ProcessExitedException as exc:
+            died = f"killed: {exc}"
+        started = None
+        for line in log.read_text().splitlines() if log.exists() else []:
+            row = json.loads(line)
+            if "done" in row:
+                results[tuple(row["done"])] = row["result"]
+                started = None
+            else:
+                started = tuple(row["start"])
+        if died is None:
+            break
+        if started is None:
+            raise RuntimeError(f"17a: the probe pair died outside a probe: "
+                               f"{died}")
+        results[started] = died
+        todo = [k for k in todo if k not in results]
+    return {f"{api} {name}": results[(api, name)]
+            for api in P17_APIS for name in P17_PROBES}
+
+
+def _p17_battery(dev, mesh12, mesh21, cfg):
+    """17c: kernels 1-3 per shard at the model's shapes on 2 ranks, each
+    rank's shard against its slice of the unsharded kernel on the same
+    card: N, M, batch, heads, q-sequence and paged shards bitwise, K shards
+    within ``1e-5 * max(scale, 1)``."""
+    from repro_torch.kernels import dispatch, ops, shmap
+    from repro_torch.kernels.shmap import MatmulPlan
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.sharding import P
+    pol = "tcec_bf16x6"
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    M = 1024                                     # the 2 x 512 prefill
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, generator=g)
+
+    def place(t, mesh, spec):
+        return shd.distribute(t, mesh, shd.to_placements(spec, mesh))
+
+    def mine(ref, mesh, out):
+        return shd.local_shard(ref, mesh, out.placements)
+
+    def k_plan(m, k, n):
+        return MatmulPlan(P(None, "model"), P("model", None), P(None, None),
+                          ("model",), (1, m, n, k // 2), "K")
+
+    rows = []
+    cases = [("wq (N)", mesh12, (M, D), (D, H * hd), None),
+             ("wk / wv (N)", mesh12, (M, D), (D, Hkv * hd), None),
+             ("w_gate / w_up (N)", mesh12, (M, D), (D, F), None),
+             ("unembedding (N)", mesh12, (8, D), (D, V), None),
+             ("wo (K, explicit plan)", mesh12, (M, H * hd), (H * hd, D),
+              k_plan(M, H * hd, D)),
+             ("w_down (K, explicit plan)", mesh12, (M, F), (F, D),
+              k_plan(M, F, D)),
+             ("K by the rule (N 1023)", mesh12, (M, D), (D, 1023), None),
+             ("M (K 1025, N 1023)", mesh12, (M, 1025), (1025, 1023), None),
+             ("batch (8 x 512 x 128 @ 128 x 512)", mesh21, (8, 512, hd),
+              (8, hd, 512), None),
+             ("M on data", mesh21, (M, D), (D, F), None)]
+    for name, mesh, ash, bsh, plan in cases:
+        a, b = rnd(*ash), rnd(*bsh)
+        plan = plan or shmap.matmul_plan(a.shape, b.shape, mesh)
+        ref = ops.tcec_matmul(a, b, pol)
+        t0 = time.perf_counter()
+        out = shmap.sharded_matmul(place(a, mesh, plan.a_spec),
+                                   place(b, mesh, plan.b_spec), policy=pol,
+                                   mesh=mesh, plan=plan)
+        local = out.to_local()
+        err = float((local - mine(ref, mesh, out)).abs().max())
+        scale = float(ref.abs().max())
+        limit = 1e-5 * max(scale, 1.0) if plan.psum_axes else 0.0
+        rows.append({"case": name, "plan": plan.sharded_dim,
+                     "local": list(plan.local), "max_abs_err": err,
+                     "limit": limit, "seconds": time.perf_counter() - t0})
+        check(err <= limit, f"17c {name}: {err} > {limit}")
+    for name, Hq, Hk in (("heads (16/8 on 2 ranks)", H, Hkv),
+                         ("q sequence (3/1 heads)", 3, 1)):
+        q, k, v = rnd(2, 512, Hq, hd), rnd(2, 512, Hk, hd), \
+            rnd(2, 512, Hk, hd)
+        plan = shmap.attention_plan(q.shape, k.shape, mesh12)
+        ref = dispatch._attention_local(q, k, v, None, None, pol, True, 0,
+                                        None, dispatch._cfg(None))
+        t0 = time.perf_counter()
+        out = shmap.sharded_attention(
+            place(q, mesh12, plan.q_spec), place(k, mesh12, plan.k_spec),
+            place(v, mesh12, plan.v_spec), policy=pol, mesh=mesh12,
+            plan=plan)
+        err = float((out.to_local() - mine(ref, mesh12, out)).abs().max())
+        rows.append({"case": name, "plan": plan.mode,
+                     "local": list(plan.local), "max_abs_err": err,
+                     "limit": 0.0, "seconds": time.perf_counter() - t0})
+        check(err == 0.0, f"17c attention {name}: {err}")
+    qd = rnd(4, H, hd)
+    kp, vp = rnd(161, 16, Hkv, hd).bfloat16(), rnd(161, 16, Hkv, hd).bfloat16()
+    bt = torch.arange(1, 161, device=dev, dtype=torch.int32).reshape(4, 40)
+    lens = torch.tensor([520, 520, 208, 208], device=dev, dtype=torch.int32)
+    plan = shmap.paged_plan(qd.shape, kp.shape, mesh12)
+    ref = dispatch._paged_local(qd, kp, vp, bt, lens, pol, 0, None,
+                                dispatch._cfg(None))
+    t0 = time.perf_counter()
+    out = shmap.sharded_paged_attention(
+        place(qd, mesh12, plan.q_spec), place(kp, mesh12, plan.pool_spec),
+        place(vp, mesh12, plan.pool_spec), bt, lens, policy=pol,
+        mesh=mesh12, plan=plan)
+    err = float((out.to_local() - mine(ref, mesh12, out)).abs().max())
+    rows.append({"case": "paged decode (4 slots, Hkv 8 on 2 ranks)",
+                 "plan": "heads", "local": list(plan.local),
+                 "max_abs_err": err, "limit": 0.0,
+                 "seconds": time.perf_counter() - t0})
+    check(err == 0.0, f"17c paged: {err}")
+    return rows
+
+
+def _p17_model(dev, mesh12, mesh21, cfg, lens, max_tokens):
+    """17d: qwen3-0.6b at full width on 2 ranks.  (1, 2): the engine's
+    greedy tokens equal the unsharded engine's wherever the unsharded top-2
+    gap exceeds 2e-3, and a teacher-forced prefill of each request's prompt
+    and unsharded tokens has logits within 1e-3 (relative) of the
+    unsharded prefill's; (2, 1): one 8 x 128 step's loss within 1e-5
+    relative and every gradient within 1e-3 of its max|g|.  Times are
+    printed, not gated: both ranks share one card."""
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    model = get_model(cfg)
+    params = model.init(seed=0, device=dev)
+    rows, launches = [], {}
+    base = _p17_engine(cfg, params, dev, lens=lens, max_tokens=max_tokens)
+    sharded = shd.shard_tree(params, shd.to_shardings(
+        shd.param_specs(params, mesh12, cfg), mesh12))
+    _p17_zero()
+    run = _p17_engine(cfg, sharded, dev, mesh=mesh12, lens=lens,
+                      max_tokens=max_tokens)
+    launches = _p17_launches()
+    rows.append(_p17_step_row("unsharded", *base[:4]))
+    rows.append(_p17_step_row("mesh (1, 2) gloo", *run[:4]))
+    worst, compared, moved = 0.0, 0, []
+    with torch.no_grad():
+        for i, (p, want, have) in enumerate(zip(base[4], base[0], run[0])):
+            seq = torch.tensor([list(p) + want[:-1]], device=dev)
+            ref, _ = model.prefill(params, seq)
+            with ctx.use_mesh(mesh12):
+                got, _ = model.prefill(sharded, seq)
+            got = ctx.full(got)
+            rows_ref = ref[0, len(p) - 1:, :cfg.vocab_size]
+            worst = max(worst, float((got - ref).abs().max()
+                                     / ref.abs().max()))
+            top2 = rows_ref.topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).tolist()
+            for j, (x, y) in enumerate(zip(want, have)):
+                if gap[j] <= 2e-3:
+                    break
+                compared += 1
+                if x != y:
+                    moved.append((i, j))
+    rows.append({"teacher_forced_logits_max_rel_diff": worst,
+                 "limit": 1e-3, "tokens_compared": compared,
+                 "tokens_differing": moved})
+    check(worst <= 1e-3, f"17d: logits under (1, 2) within 1e-3 ({worst})")
+    check(not moved, f"17d: greedy tokens differ at {moved}")
+    data = DataConfig(seed=0, global_batch=8, seq_len=128)
+    batch = device_batch(cfg, data, 0, dev)
+
+    def grads(p, b):
+        p = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = model.loss_fn(p, b)
+        return loss, torch.autograd.grad(loss, tree_leaves(p))
+
+    ref_loss, ref_g = grads(params, batch)
+    s21 = shd.shard_tree(params, shd.to_shardings(
+        shd.param_specs(params, mesh21, cfg), mesh21))
+    b21 = shd.shard_tree(batch, shd.to_shardings(
+        shd.batch_specs(cfg, mesh21, batch), mesh21))
+    _p17_zero()
+    t0 = time.perf_counter()
+    with ctx.use_mesh(mesh21, shd.batch_axes(cfg, mesh21)):
+        loss, g = grads(s21, b21)
+    loss = float(ctx.full(loss))
+    dt = time.perf_counter() - t0
+    for k, v in _p17_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    rel = abs(loss - float(ref_loss)) / abs(float(ref_loss))
+    gworst = max(float((ctx.full(a) - b).abs().max())
+                 / max(float(b.abs().max()), 1e-30)
+                 for a, b in zip(g, ref_g))
+    rows.append({"train": "loss and gradients, 8 x 128 on (2, 1)",
+                 "loss": loss, "loss_rel_diff": rel, "limit": 1e-5,
+                 "grad_worst_rel": gworst, "grad_limit": 1e-3,
+                 "seconds": dt})
+    check(rel <= 1e-5, f"17d: loss on (2, 1) within 1e-5 ({rel})")
+    check(gworst <= 1e-3, f"17d: gradients on (2, 1) within 1e-3 ({gworst})")
+    return rows, launches
+
+
+def _p17_two_ranks(rank, on_card, store, run_model):
+    """17c, and 17d when ``run_model``, on two ranks over gloo (one card on
+    the chip)."""
+    get_config = _p17_setup(on_card)
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    t_all = time.perf_counter()
+    out = {}
+    mesh12 = init_device_mesh(dev.type, (1, 2),
+                              mesh_dim_names=("data", "model"))
+    mesh21 = init_device_mesh(dev.type, (2, 1),
+                              mesh_dim_names=("data", "model"))
+    cfg = get_config("qwen3-0.6b")
+    t0 = time.perf_counter()
+    out["battery"] = _p17_battery(dev, mesh12, mesh21, cfg)
+    out["battery_s"] = time.perf_counter() - t0
+    out["launches"] = {}
+    if run_model:
+        t0 = time.perf_counter()
+        out["model"], out["launches"] = _p17_model(
+            dev, mesh12, mesh21, cfg, lens=[200, 64, 17, 17], max_tokens=8)
+        out["model_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_all
+    _p17_out("acd", rank).write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def parallel_path(dev):
+    """Phase 17: returns the launches of its mesh runs (17b's engine and
+    train step, 17d's engine and gradient step, rank 0's)."""
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    for f in out_dir.glob("phase17_*"):
+        f.unlink()
+    rec = RECORD["phase17"] = {"card": RECORD.get("nvidia_smi")}
+    t0 = time.perf_counter()
+    mp.start_processes(_p17_one_rank, args=(on_card,), nprocs=1, join=True,
+                       start_method="spawn")
+    b = json.loads(_p17_out("b", 0).read_text())
+    rec["17b"] = b
+    for row in b["rows"]:
+        emit({"phase17b": row})
+    emit({"phase17b_s": time.perf_counter() - t0, "backend": b["backend"]})
+    t0 = time.perf_counter()
+    probe = rec["17a"] = _p17_probe(on_card)
+    missing = [k for k, v in probe.items()
+               if k.startswith("functional") and v != "ok"]
+    emit({"phase17a_probe": probe, "phase17a_s": time.perf_counter() - t0,
+          "runs": "17c on 2 ranks; 17d " + (
+              "on 2 ranks" if not missing else
+              "not on the card: over gloo on these tensors DTensor's "
+              "redistributions lack " + ", ".join(missing)
+              + " (17d runs in the CPU tests)")})
+    check(probe["c10d all_reduce"] == "ok",
+          "17a: gloo all_reduce on these tensors (17c's K plans need it)")
+    t0 = time.perf_counter()
+    store = out_dir / "phase17_store"
+    mp.start_processes(_p17_two_ranks,
+                       args=(on_card, str(store), not missing), nprocs=2,
+                       join=True, start_method="spawn")
+    acd = [json.loads(_p17_out("acd", r).read_text()) for r in (0, 1)]
+    rec["17cd"] = acd
+    for row in acd[0]["battery"]:
+        emit({"phase17c": row})
+    for row in acd[0].get("model", []):
+        emit({"phase17d": row})
+    emit({"phase17cd_s": time.perf_counter() - t0})
+    launches = {k: b["launches"].get(k, 0) + acd[0]["launches"].get(k, 0)
+                for k in ("tcec_matmul", "tcec_attention",
+                          "tcec_paged_attention")}
+    check(not on_card or all(v > 0 for v in launches.values()),
+          f"phase 17: every kernel launched on the mesh runs ({launches})")
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase17_s": rec["seconds"], "launches": launches})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4092,6 +4666,7 @@ def main():
     import repro_torch  # noqa: F401  (sets TF32 off)
     from repro_torch.kernels import _build, tcec_matmul as tm
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
     # any tuning of this process (REPRO_TUNE=1, or a scope that turns it
     # on) starts cold from a file of this run, never the home directory's
     RECORD["tune_cache"] = str(use_tune_cache(
@@ -4205,6 +4780,7 @@ def main():
     config_launches = numerics_path(dev)           # phase 14
     resilience_launches = resilience_path(dev)     # phase 15
     prefix_launches, prefix_f32 = prefix_path(dev)  # phase 16
+    parallel_launches = parallel_path(dev)         # phase 17
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -4224,6 +4800,7 @@ def main():
                      + config_launches[name] + resilience_launches[name])
             if name != "tcec_paged_attention":
                 count += prefix_launches[name]
+            count += parallel_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": src.format("tcec_paged_attention"
@@ -4235,6 +4812,8 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"]})
     RECORD["kernels"] = kernels
+    RECORD["run_s"] = time.perf_counter() - t_run
+    emit({"run_s": RECORD["run_s"]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -13,6 +13,11 @@ same-width unsigned integer view (``.npy`` has no such dtypes); the
 manifest keeps the real dtype's name.  A checkpoint is written to
 ``step_<n>.tmp`` and renamed into place, so a crashed writer never leaves a
 loadable but partial checkpoint.
+
+Checkpoints are mesh-agnostic: a DTensor leaf is saved whole (gathered;
+rank 0 writes), and :func:`restore` with ``shardings`` lays each leaf out
+on a mesh, any mesh whose axes divide the dims (JAX's elastic restart,
+``manager.py`` :76-95).
 """
 from __future__ import annotations
 
@@ -53,15 +58,33 @@ def _to_numpy(t: torch.Tensor):
     return arr, name
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier():
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save(ckpt_dir: str, step: int, tree) -> str:
-    """Atomically save a tree of tensors.  Returns the final directory."""
+    """Atomically save a tree of tensors.  Returns the final directory.
+    DTensor leaves are gathered whole on every rank (a collective: every
+    rank calls this), rank 0 writes, and the ranks meet again after."""
+    from repro_torch.parallel import ctx
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    leaves = [(path, ctx.full(leaf)) for path, leaf in _leaf_paths(tree)]
+    if _rank() != 0:
+        _barrier()
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "leaves": {}}
-    for path, leaf in _leaf_paths(tree):
+    for path, leaf in leaves:
         arr, dtype_name = _to_numpy(leaf)
         fn = _fname(path)
         np.save(os.path.join(tmp, fn), arr)
@@ -74,6 +97,7 @@ def save(ckpt_dir: str, step: int, tree) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    _barrier()
     return final
 
 
@@ -110,12 +134,15 @@ def check_fits(ckpt_dir: str, step: int, like_tree) -> dict:
 
 
 def restore(ckpt_dir: str, step: int, like_tree, device=None,
-            verify: bool = True):
+            verify: bool = True, shardings=None):
     """Restore into the structure of ``like_tree`` (any leaves with a
     ``shape``: tensors on the ``meta`` device will do), onto ``device``
     (default: the CPU).  :func:`check_fits` holds the leaves' paths and
     shapes against the manifest before any file is read, so a checkpoint
-    of another model is refused at once."""
+    of another model is refused at once.  With ``shardings`` (a
+    :class:`parallel.sharding.NamedSharding` tree of the same structure)
+    each leaf becomes a DTensor on that sharding's mesh, this rank keeping
+    its slice: the elastic restart, onto a mesh other than the writer's."""
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     manifest = check_fits(ckpt_dir, step, like_tree)
 
@@ -132,12 +159,17 @@ def restore(ckpt_dir: str, step: int, like_tree, device=None,
             t = torch.from_numpy(arr.copy())
         return t.to(device) if device is not None else t
 
-    def build(tree, prefix=()):
+    def build(tree, sh, prefix=()):
         if isinstance(tree, dict):
-            return {k: build(v, prefix + (str(k),)) for k, v in tree.items()}
-        return load("/".join(prefix), tree)
+            return {k: build(v, None if sh is None else sh[k],
+                             prefix + (str(k),)) for k, v in tree.items()}
+        t = load("/".join(prefix), tree)
+        if sh is None:
+            return t
+        from repro_torch.parallel.sharding import distribute
+        return distribute(t, sh.mesh, sh.placements)
 
-    return build(like_tree)
+    return build(like_tree, shardings)
 
 
 def retain(ckpt_dir: str, keep: int = 3):

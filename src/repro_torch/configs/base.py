@@ -105,6 +105,24 @@ class ModelConfig:
         return min(512, max(64, self.moe_d_ff // 4))
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (shape) cell of the JAX package's grid: sequence length, global
+    batch and kind (``train`` | ``prefill`` | ``decode``)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 _SMOKE: dict[str, ModelConfig] = {}
 

@@ -24,7 +24,14 @@ function takes the frozen ``NumericsConfig`` as ``cfg`` (None means
   5. ``fused``: the call goes to the kernel's public wrapper, which
      launches the CUDA kernel for a CUDA tensor and runs the plain PyTorch
      version for a CPU tensor.  There is no fallback: a kernel that fails to
-     build or launch raises.
+     build or launch raises;
+  6. ``mesh-declined`` (JAX's ``_mesh_plan_or_decline``): under a mesh
+     installed by ``parallel.ctx.use_mesh``, a call with a plan from
+     ``kernels/shmap.py`` goes to that module's wrapper, which runs the
+     kernel per shard (rule 5 on the local shards).  With ``shard_map``
+     off, with no plan for the shapes, or with ``"model"`` among the
+     context's batch axes (``dp_over_model``), the call declines.  The
+     epilogue hook declines under any mesh.
 
 A declined contraction takes ``core.policy``'s term expansion, declined
 attention the pdot composition, declined paged decode the gather and a
@@ -40,8 +47,8 @@ Routing differences from the JAX package: JAX's ``_canonicalize`` declines
 contractions with more than one free dim per operand (for GSPMD's sake);
 this port has no GSPMD, so :func:`_canonicalize` collapses the free dims
 by reshape and every model projection and the unembed run on kernel 1.
-The port has no "off-backend" rule (``force`` changes nothing), no mesh
-rule (``shard_map`` is item 16) and no VMEM rule.  Kernel 1 takes the
+The port has no "off-backend" rule (``force`` changes nothing) and no
+VMEM rule.  Kernel 1 takes the
 autotuner's tile (:func:`tuned_block`, a path); kernel 3 its C.
 
 Every rule walk records its slug in ``obs.explain``: declines where they
@@ -200,6 +207,30 @@ def _canonicalize(a, b, dims):
     return at, bt, tuple(bsh) + tuple(msh) + tuple(nsh)
 
 
+def _mesh_plan_or_decline(shapes_plan, cfg):
+    """Rule 6: ``(mesh, plan)``; ``(None, None)`` when no mesh is
+    installed, the string ``"decline"`` for the plan when a mesh is
+    installed but ``shard_map`` is off, the context runs DP over the model
+    axis (the plans would put ``model`` on N/K/M instead), or
+    ``shapes_plan(mesh)`` has no plan."""
+    from repro_torch.parallel import ctx
+    mesh = ctx.current_mesh()
+    if mesh is None:
+        return None, None
+    if not cfg.shard_map or "model" in ctx.dp_axes():
+        return mesh, "decline"
+    plan = shapes_plan(mesh)
+    return mesh, (plan if plan is not None else "decline")
+
+
+def _canonical_shapes(shape, dims):
+    """The canonical operand shapes of a collapsed ``(batch, M, N, K)``."""
+    batch, M, N, K = shape
+    if dims[1][0]:
+        return (batch, M, K), (batch, K, N)
+    return (M, K), (K, N)
+
+
 def _decide(a, b, policy: PrecisionPolicy, dims, cfg):
     """The rule walk: ``(collapsed (batch, M, N, K) | None, rule slug)``;
     the slug names the declining rule or is ``"fused"``."""
@@ -210,6 +241,12 @@ def _decide(a, b, policy: PrecisionPolicy, dims, cfg):
     shape = _collapsed(a, b, dims)
     if min(shape[1:]) < cfg.min_dim:
         return None, "below-min-dim"
+    from . import shmap
+    _, plan = _mesh_plan_or_decline(
+        lambda mesh: shmap.matmul_plan(*_canonical_shapes(shape, dims),
+                                       mesh), cfg)
+    if plan == "decline":
+        return None, "mesh-declined"
     return shape, "fused"
 
 
@@ -221,41 +258,53 @@ def decide(a, b, policy: PrecisionPolicy, dims, cfg=None):
 
 
 def tuned_block(M: int, N: int, K: int, policy_name: str, batch: int = 1,
-                cfg=None, operands=None) -> tuple[int, int, int]:
+                cfg=None, operands=None,
+                namespace: str | None = None) -> tuple[int, int, int]:
     """The config's ``block`` if set, else the autotuner's (measured on
-    ``operands`` where it measures, or the rule by M)."""
+    ``operands`` where it measures, or the rule by M), keyed under
+    ``namespace`` (``"shmap"`` for a shard's local shape)."""
     cfg = _cfg(cfg)
     if cfg.block is not None:
         return cfg.block
     return tuning.get_block(M, N, K, policy_name, batch=batch, cfg=cfg,
-                            operands=operands)
+                            namespace=namespace, operands=operands)
+
+
+def _matmul_local(at, bt, policy_name, cfg, bias=None, activation=None,
+                  namespace=None, block=None):
+    """Kernel 1 on canonical local operands, unguarded: the plain version
+    under ``interpret`` / :func:`use_plain`, else the wrapper with
+    ``block``, or else the tuned tile (a CPU operand runs the plain version
+    there).  The sharded wrapper runs this on each shard."""
+    if b_layout(bt) is None:
+        bt = bt.contiguous()
+    if _plain(cfg):
+        return tcec_matmul_plain(at, bt, policy_name, bias, activation)
+    if block is None and at.is_cuda:
+        batch = at.shape[0] if at.ndim == 3 else 1
+        M, K, N = at.shape[-2], at.shape[-1], bt.shape[-1]
+        block = tuned_block(M, N, K, policy_name, batch, cfg,
+                            operands=(at, bt), namespace=namespace)
+    return ops.tcec_matmul(at, bt, policy_name, bias, activation,
+                           block=block)
 
 
 def _kernel_matmul(at, bt, policy_name, cfg, bias=None, activation=None):
-    """Kernel 1 on canonical operands, guarded at ``kernel.matmul``: the
-    plain version under ``interpret`` / :func:`use_plain`, else the wrapper
-    with the tuned tile (a CPU operand runs the plain version there)."""
+    """Kernel 1 on canonical operands, guarded at ``kernel.matmul``."""
     batch = at.shape[0] if at.ndim == 3 else 1
     M, K, N = at.shape[-2], at.shape[-1], bt.shape[-1]
-
-    def run():
-        if _plain(cfg):
-            return tcec_matmul_plain(at, bt, policy_name, bias, activation)
-        block = None
-        if at.is_cuda:
-            block = tuned_block(M, N, K, policy_name, batch, cfg,
-                                operands=(at, bt))
-        return ops.tcec_matmul(at, bt, policy_name, bias, activation,
-                               block=block)
-
     ident = (policy_name,) + tuning.shape_bucket(batch, M, N, K)
-    return _guarded("matmul", ident, at.device, cfg, run, "kernel.matmul")
+    return _guarded("matmul", ident, at.device, cfg,
+                    lambda: _matmul_local(at, bt, policy_name, cfg, bias,
+                                          activation),
+                    "kernel.matmul")
 
 
 def maybe_dispatch(a, b, policy: PrecisionPolicy, dims, cfg=None):
     """Kernel 1 for an eligible split-policy contraction, else None (the
     caller keeps the term expansion).  Called from ``core.policy._dot_impl``
-    for every split-policy contraction, forward and backward."""
+    for every split-policy contraction, forward and backward.  Under a mesh
+    the call runs per shard through ``shmap.sharded_matmul`` (rule 6)."""
     cfg = _cfg(cfg)
     shape, rule = _decide(a, b, policy, dims, cfg)
     if shape is None:
@@ -263,7 +312,17 @@ def maybe_dispatch(a, b, policy: PrecisionPolicy, dims, cfg=None):
                  (tuple(a.shape), tuple(b.shape)), rule)
         return None
     at, bt, out_shape = _canonicalize(a, b, dims)
-    return _kernel_matmul(at, bt, policy.name, cfg).reshape(out_shape)
+    from . import shmap
+    mesh, plan = _mesh_plan_or_decline(
+        lambda m: shmap.matmul_plan(at.shape, bt.shape, m), cfg)
+    if mesh is None:
+        return _kernel_matmul(at, bt, policy.name, cfg).reshape(out_shape)
+    ident = (policy.name,) + tuning.shape_bucket(*shape)
+    return _guarded(
+        "matmul", ident, at.device, cfg,
+        lambda: shmap.sharded_matmul(at, bt, policy=policy.name, mesh=mesh,
+                                     cfg=cfg, plan=plan),
+        "kernel.matmul").reshape(out_shape)
 
 
 def fused_matmul(x2, w, policy: PrecisionPolicy, bias=None, activation=None,
@@ -293,6 +352,11 @@ def _attention_reason(q, k, v, pol, cfg) -> str:
         return "shape-unsupported"
     if min(S, T) < cfg.min_dim:
         return "below-min-dim"
+    from . import shmap
+    _, plan = _mesh_plan_or_decline(
+        lambda mesh: shmap.attention_plan(q.shape, k.shape, mesh), cfg)
+    if plan == "decline":
+        return "mesh-declined"
     return "fused"
 
 
@@ -328,14 +392,29 @@ def attention(q, k, v, *, policy, q_pos=None, k_pos=None, causal: bool = True,
             raise ValueError(f"kernel 2 has one tile at head dims {hd}/{hdv}"
                              f" under {pol.name}: {tile}; got "
                              f"attn_block={cfg.attn_block}")
-    fn = tcec_attention_plain if _plain(cfg) else tcec_attention
     ident = (pol.name, B, Hkv, H // Hkv, tuning._round_up(S, 128),
              tuning._round_up(T, 128))
-    return _guarded(
-        "attention", ident, q.device, cfg,
-        lambda: fn(q, k, v, q_pos, k_pos, policy=pol.name, causal=causal,
-                   window=window, softcap=softcap),
-        "kernel.attention")
+    from . import shmap
+    mesh, plan = _mesh_plan_or_decline(
+        lambda m: shmap.attention_plan(q.shape, k.shape, m), cfg)
+    if mesh is not None:
+        run = (lambda: shmap.sharded_attention(
+            q, k, v, q_pos, k_pos, policy=pol.name, causal=causal,
+            window=window, softcap=softcap, mesh=mesh, cfg=cfg, plan=plan))
+    else:
+        run = (lambda: _attention_local(q, k, v, q_pos, k_pos, pol.name,
+                                        causal, window, softcap, cfg))
+    return _guarded("attention", ident, q.device, cfg, run,
+                    "kernel.attention")
+
+
+def _attention_local(q, k, v, q_pos, k_pos, policy_name, causal, window,
+                     softcap, cfg):
+    """Kernel 2 on local operands, unguarded (the plain version under
+    ``interpret`` / :func:`use_plain`)."""
+    fn = tcec_attention_plain if _plain(cfg) else tcec_attention
+    return fn(q, k, v, q_pos, k_pos, policy=policy_name, causal=causal,
+              window=window, softcap=softcap)
 
 
 # -------------------------------------------- paged decode-attention
@@ -354,6 +433,11 @@ def _paged_reason(q, k_pages, v_pages, pol, cfg) -> str:
     if (hd2 != hd or v_pages.shape[:3] != k_pages.shape[:3]
             or Hkv == 0 or H % Hkv):
         return "shape-unsupported"
+    from . import shmap
+    _, plan = _mesh_plan_or_decline(
+        lambda mesh: shmap.paged_plan(q.shape, k_pages.shape, mesh), cfg)
+    if plan == "decline":
+        return "mesh-declined"
     return "fused"
 
 
@@ -399,24 +483,43 @@ def attention_decode(q, k_pages, v_pages, block_tables, lengths, *, policy,
             raise ValueError(f"kernel 3 does not take these operands: "
                              f"{limit}")
 
-    def run():
-        C = cfg.paged_block
-        if _plain(cfg):
-            fn = tcec_paged_attention_plain
-        else:
-            fn = tcec_paged_attention
-            if (C is None and q.is_cuda
-                    and k_pages.dtype == torch.bfloat16):
-                C = tuning.get_paged_block(B, Hkv, H // Hkv, maxp, ps, hd,
-                                           v_pages.shape[3], pol.name,
-                                           cfg=cfg, device=q.device)
-        return fn(q, k_pages, v_pages, block_tables, lengths,
-                  policy=pol.name, window=window, softcap=softcap,
-                  pages_per_chunk=C)
-
     ident = (pol.name, B, Hkv, H // Hkv, maxp, ps)
+    from . import shmap
+    mesh, plan = _mesh_plan_or_decline(
+        lambda m: shmap.paged_plan(q.shape, k_pages.shape, m), cfg)
+    if mesh is not None:
+        run = (lambda: shmap.sharded_paged_attention(
+            q, k_pages, v_pages, block_tables, lengths, policy=pol.name,
+            window=window, softcap=softcap, mesh=mesh, cfg=cfg, plan=plan))
+    else:
+        run = (lambda: _paged_local(q, k_pages, v_pages, block_tables,
+                                    lengths, pol.name, window, softcap, cfg))
     return _guarded("paged_attention", ident, q.device, cfg, run,
                     "kernel.paged")
+
+
+def _paged_local(q, k_pages, v_pages, block_tables, lengths, policy_name,
+                 window, softcap, cfg, namespace=None, pages_per_chunk=None):
+    """Kernel 3 on local operands, unguarded: C is ``pages_per_chunk``,
+    else the config's ``paged_block``, else the tuner's for bf16 pools on
+    the card (keyed under ``namespace``), else :func:`chunk_pages`'s
+    inside the wrapper."""
+    C = cfg.paged_block if pages_per_chunk is None else pages_per_chunk
+    if _plain(cfg):
+        fn = tcec_paged_attention_plain
+    else:
+        fn = tcec_paged_attention
+        if C is None and q.is_cuda and k_pages.dtype == torch.bfloat16:
+            B, H, hd = q.shape
+            _, ps, Hkv, _ = k_pages.shape
+            C = tuning.get_paged_block(B, Hkv, H // Hkv,
+                                       block_tables.shape[1], ps, hd,
+                                       v_pages.shape[3], policy_name,
+                                       cfg=cfg, namespace=namespace,
+                                       device=q.device)
+    return fn(q, k_pages, v_pages, block_tables, lengths,
+              policy=policy_name, window=window, softcap=softcap,
+              pages_per_chunk=C)
 
 
 # ------------------------------------------------- epilogue-fusion hook
@@ -425,7 +528,8 @@ def epilogue_eligible(policy: PrecisionPolicy, cfg=None,
                       device="cuda") -> bool:
     """Whether ``models.layers.fused_linear`` may fold its bias and
     activation into kernel 1's epilogue under the config: ``enabled`` and
-    ``fuse_epilogue`` on, and a policy the kernel takes.  Records every
+    ``fuse_epilogue`` on, a policy the kernel takes, and no mesh installed
+    (``mesh-declined``: the unfused products then run per shard).  Records every
     decision (shape-independent: the bucket is empty) under ``device``,
     the caller's operand device; the product underneath records its own
     matmul decision."""
@@ -440,4 +544,7 @@ def _epilogue_reason(policy: PrecisionPolicy, cfg) -> str:
         return "hatch-disabled"
     if not eligible_policy(policy):
         return _policy_rule(policy)
+    from repro_torch.parallel import ctx
+    if ctx.current_mesh() is not None:
+        return "mesh-declined"
     return "fused"

@@ -4,7 +4,8 @@
       --batch 4 --prompt-len 16 --gen 32 [--device cuda] \\
       [--numerics fuse_epilogue=1 ...] [--max-waiting N] [--deadline T] \\
       [--prefix-cache] [--chunked-prefill C] [--async-sched] \\
-      [--shared-prefix N] [--trace t.json] [--metrics-out m.json]
+      [--shared-prefix N] [--trace t.json] [--metrics-out m.json] \
+      [--mesh-model N [--backend gloo]]
 
 Two code paths, as in the JAX package:
 
@@ -36,6 +37,16 @@ bf16, as JAX's are.  ``--trace PATH`` runs under
 JSONL for ``.jsonl``); ``--metrics-out PATH`` writes the metrics snapshot;
 either prints the dispatch-explain summary.  ``REPRO_FAULTS`` runs the CLI
 under a fault plan (``repro_torch.faults``).
+
+``--mesh-model N`` serves under a ``(world / N, N)`` ``("data", "model")``
+mesh (``launch/mesh.py::make_host_mesh``): the parameters are laid out by
+``parallel.sharding.param_specs``, the engine shards its page pools (KV
+heads on ``model``) and every kernel runs per shard
+(``kernels/shmap.py``).  The world is the one ``torchrun`` gives
+(``torchrun --nproc-per-node 2 -m repro_torch.launch.serve ...``), or this
+process alone; rank 0 prints the mesh and the results.  ``--backend`` is
+NCCL by default on the card; two ranks on one card need ``--backend
+gloo`` (NCCL refuses them), and then decode runs eagerly.
 """
 from __future__ import annotations
 
@@ -154,6 +165,7 @@ def main(argv=None):
                          "the batch (exercises the prefix cache)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    add_mesh_flags(ap)
     numerics.add_cli_overrides(ap)
     obs.add_cli_flags(ap)
     args = ap.parse_args(argv)
@@ -161,15 +173,50 @@ def main(argv=None):
         _main(args)
 
 
+def add_mesh_flags(ap):
+    ap.add_argument("--mesh-model", type=int, default=0, metavar="N",
+                    help="run under a (world/N, N) (data, model) mesh; the "
+                         "kernels run per shard (0 = no mesh)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="the mesh's process-group backend (default nccl "
+                         "on cuda, gloo on cpu)")
+
+
+def cli_mesh(args, device):
+    """``(mesh or None, print)``: the CLI's mesh from ``--mesh-model`` and
+    ``--backend``, and a ``print`` that only rank 0 speaks through.  Rank
+    0 prints the mesh, as JAX's CLIs do."""
+    if not args.mesh_model:
+        return None, print
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(model=args.mesh_model, backend=args.backend,
+                          device=device.type)
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
+    return mesh, say
+
+
 def _main(args):
     device = resolve_device(args.device)
+    mesh, say = cli_mesh(args, device)
+    if mesh is not None:
+        device = resolve_device(device.type)    # this rank's card
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     if args.policy:
         cfg = cfg.replace(policy=args.policy)
     if cfg.family in ("vlm", "audio"):
-        print("note: serving CLI drives the LM/decoder path of this arch")
+        say("note: serving CLI drives the LM/decoder path of this arch")
     model = get_model(cfg)
     params = model.init(args.seed, device=device)
+    if mesh is not None:
+        if model.decode_step_paged is None:
+            raise ValueError(f"--mesh-model serves through the engine; "
+                             f"family {cfg.family!r} has none")
+        from repro_torch.parallel import sharding as shd
+        params = shd.shard_tree(params, shd.to_shardings(
+            shd.param_specs(params, mesh, cfg), mesh))
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
     if args.shared_prefix:
@@ -199,7 +246,7 @@ def _main(args):
                     num_pages=1 + max(slots, args.batch) * pages,
                     page_size=ps, max_pages_per_slot=pages,
                     max_waiting=args.max_waiting or None, device=device,
-                    numerics_config=nc)
+                    numerics_config=nc, mesh=mesh)
     rids = []
     for i in range(args.batch):
         try:
@@ -210,7 +257,7 @@ def _main(args):
                     seed=args.seed + i),
                 deadline=args.deadline or None))
         except EngineOverloaded:
-            print(f"request {i}: rejected (overloaded: queue at "
+            say(f"request {i}: rejected (overloaded: queue at "
                   f"{args.max_waiting})")
     t0 = time.perf_counter()
     out = engine.run()
@@ -221,19 +268,19 @@ def _main(args):
     reasons: dict[str, int] = {}
     for v in out.values():
         reasons[v.finish_reason] = reasons.get(v.finish_reason, 0) + 1
-    print(f"engine on {device}: {args.batch} requests, {slots} slots, "
+    say(f"engine on {device}: {args.batch} requests, {slots} slots, "
           f"{engine.n_prefills} prefills, {engine.n_decode_steps} decode "
           f"steps -> {toks} tokens in {dt:.2f}s ({toks / dt:.1f} tok/s, "
           "kernel builds on a first run and the decode graph's capture "
           "included)")
-    print(f"finish reasons: {reasons}")
+    say(f"finish reasons: {reasons}")
     stats = engine.stats()
-    print(f"stats: {stats}")
-    print("prefix: " + str({k: stats[k] for k in (
+    say(f"stats: {stats}")
+    say("prefix: " + str({k: stats[k] for k in (
         "prefix_hits", "prefix_tokens_reused", "cow_splits",
         "prefix_evictions", "prefill_chunks")}))
     if rids:
-        print("sample:", list(out[rids[0]][:16]))
+        say("sample:", list(out[rids[0]][:16]))
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ A train step takes ``state = {"params", "opt"}`` and a batch of
 ``patches``) and returns the new state and its metrics: the
 loss and its gradient by autograd (every policy product and its gradient
 products run kernel 1, every attention forward kernel 2), then one AdamW
-step.  The sharded step and the lowering helpers of the JAX module are not
-ported.
+step.  :func:`make_sharded_train_step` runs the same step on DTensor state
+under a mesh (JAX :89-117): every product and attention call then runs per
+shard through ``kernels/shmap.py``.  JAX's ``lower_cell`` (XLA lowering
+for the dry run) is not here.
 """
 from __future__ import annotations
 
@@ -15,6 +17,10 @@ import torch
 from repro_torch.models import get_model
 from repro_torch.models.modules import tree_leaves, tree_map
 from repro_torch.optim import adamw
+from repro_torch.parallel import ctx
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.sharding import P
+from . import specs as S
 
 
 def _unflatten(like, leaves):
@@ -22,11 +28,14 @@ def _unflatten(like, leaves):
     return tree_map(lambda _: next(it), like)
 
 
-def make_train_step(cfg, opt_cfg: adamw.OptConfig, num_microbatches: int = 1):
+def make_train_step(cfg, opt_cfg: adamw.OptConfig, num_microbatches: int = 1,
+                    reduce_grads=None):
     """``train_step(state, batch) -> (new_state, metrics)``.  With
     ``num_microbatches > 1`` the batch is split on its leading dim, the
     microbatches' gradients are summed and divided by their number, and the
-    metrics are their means (JAX's gradient accumulation)."""
+    metrics are their means (JAX's gradient accumulation).
+    ``reduce_grads(grads, params)`` (flat lists) runs on the gradients
+    before the update."""
     model = get_model(cfg)
 
     def grads_of(params, batch):
@@ -53,12 +62,75 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, num_microbatches: int = 1):
             metrics = {k: v / num_microbatches for k, v in metrics.items()}
         else:
             grads, metrics = grads_of(params, batch)
+        if reduce_grads is not None:
+            grads = reduce_grads(grads, tree_leaves(params))
         new_params, new_opt, om = adamw.apply_updates(
             params, _unflatten(params, grads), state["opt"], opt_cfg)
         metrics.update(om)
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
+
+
+def _reduce_once(grads, params):
+    """Each gradient in its parameter's placements: the data-parallel
+    partial sums are all-reduced here, once, in f32 (the gradients are
+    f32)."""
+    return [g.redistribute(p.device_mesh, p.placements)
+            if ctx.is_dtensor(g) and tuple(g.placements) != tuple(p.placements)
+            else g for g, p in zip(grads, params)]
+
+
+def make_sharded_train_step(cfg, opt_cfg: adamw.OptConfig, mesh,
+                            num_microbatches: int = 1):
+    """The train step on ``mesh``: ``(step, state_shardings,
+    batch_sharder)``.
+
+    ``state_shardings`` is the :class:`parallel.sharding.NamedSharding`
+    tree of the state (``param_specs`` for the parameters, the optimizer
+    state's mirrored by :func:`_opt_specs`); place a state with
+    ``sharding.shard_tree(state, state_shardings)``.  ``batch_sharder``
+    lays a whole batch out by ``batch_specs``.  The step runs under
+    ``ctx.use_mesh(mesh, batch_axes)``, so dispatch routes every eligible
+    call through the per-shard wrappers; its metrics come back whole."""
+    state_abs = S.abstract_state(cfg, opt_cfg)
+    pspec = shd.param_specs(state_abs["params"], mesh, cfg)
+    state_spec = {"params": pspec,
+                  "opt": _opt_specs(state_abs["opt"], pspec)}
+    state_sh = shd.to_shardings(state_spec, mesh)
+    inner = make_train_step(cfg, opt_cfg, num_microbatches, _reduce_once)
+    axes = shd.batch_axes(cfg, mesh)
+
+    def step(state, batch):
+        with ctx.use_mesh(mesh, axes):
+            new_state, metrics = inner(state, batch)
+            return new_state, {k: ctx.full(v) for k, v in metrics.items()}
+
+    def batch_sharder(batch):
+        spec = shd.batch_specs(cfg, mesh, batch)
+        return shd.shard_tree(batch, shd.to_shardings(spec, mesh))
+
+    return step, state_sh, batch_sharder
+
+
+def _opt_specs(opt_abs, pspec):
+    """Optimizer-state specs mirror the parameter specs (JAX :181-196); a
+    factored ``v`` drops the corresponding parameter dim; ``step`` is
+    replicated."""
+    def mk_v(p_spec, v_leaf):
+        if isinstance(v_leaf, dict):  # factored second moment
+            dims = list(p_spec) + [None] * (
+                len(v_leaf["row"].shape) + 1 - len(list(p_spec)))
+            return {"row": P(*dims[:-1]),
+                    "col": P(*(dims[:-2] + dims[-1:]))}
+        return p_spec
+
+    def walk(p, v):
+        if isinstance(p, dict):
+            return {k: walk(p[k], v[k]) for k in p}
+        return mk_v(p, v)
+
+    return {"m": pspec, "v": walk(pspec, opt_abs["v"]), "step": P()}
 
 
 def make_prefill_step(cfg):

@@ -25,6 +25,7 @@ from repro_torch import numerics
 from repro_torch.core import get_policy, pdot
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.tcec_matmul import EPILOGUE_ACTIVATIONS
+from repro_torch.parallel import ctx
 from .modules import dense_init, zeros
 
 NEG_INF = -2.0e38
@@ -104,15 +105,20 @@ def _mask_bias(q_pos, k_pos, causal: bool, window: int):
 
 def mha(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
     """Materialized-scores attention through pdot — the composition path
-    for policies the fused kernel does not take.  GQA by head grouping."""
+    for policies the fused kernel does not take.  GQA by head grouping.
+    Under a mesh the q sequence and the scores' query rows shard on
+    ``model`` (context parallelism; JAX ``layers.py`` :101-116)."""
     B, S, H, hd = q.shape
     Hkv, hdv = k.shape[2], v.shape[3]
     qg = q.reshape(B, S, Hkv, H // Hkv, hd)
+    qg = ctx.constrain(qg, ctx.dp_axes(), "model", None, None, None)
     scores = pdot("bqhrd,bkhd->bhrqk", qg, k, cfg.mix_policy)
+    scores = ctx.constrain(scores, ctx.dp_axes(), None, None, "model", None)
     scores = softcap(scores / math.sqrt(hd), cfg.attn_softcap)
     scores = scores + _mask_bias(q_pos[0], k_pos[0], causal, window)
     probs = torch.softmax(scores.float(), dim=-1)
     out = pdot("bhrqk,bkhd->bqhrd", probs, v, cfg.mix_policy)
+    out = ctx.constrain(out, ctx.dp_axes(), None, None, "model", None)
     return out.reshape(B, S, H, hdv)
 
 
@@ -125,7 +131,9 @@ def blocked_attention(q, k, v, cfg, q_pos, k_pos, causal=True, window=0,
     the whole q chunk (``min(k_pos) > max(q_pos)``) carries only masked
     scores, so it is skipped.  The rule reads the positions, so it is right
     for any nondecreasing positions; the chunks' minima and maxima come to
-    the host together, one transfer a call, not one a chunk."""
+    the host together, one transfer a call, not one a chunk.  Under a mesh
+    each q chunk and its scores shard as in :func:`mha` (JAX
+    :146-158)."""
     B, S, H, hd = q.shape
     T, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     rep = H // Hkv
@@ -145,6 +153,7 @@ def blocked_attention(q, k, v, cfg, q_pos, k_pos, causal=True, window=0,
     outs = []
     for qi in range(nq):
         qblk = qg[:, qi]                             # (B, qc, Hkv, rep, hd)
+        qblk = ctx.constrain(qblk, ctx.dp_axes(), "model", None, None, None)
         m = torch.full((B, Hkv, rep, q_chunk), NEG_INF, device=q.device)
         l = torch.zeros((B, Hkv, rep, q_chunk), device=q.device)
         acc = torch.zeros((B, Hkv, rep, q_chunk, hdv), device=q.device)
@@ -153,6 +162,7 @@ def blocked_attention(q, k, v, cfg, q_pos, k_pos, causal=True, window=0,
                 continue
             s = pdot("bqhrd,bkhd->bhrqk", qblk, kg[:, ki],
                      cfg.mix_policy) * scale
+            s = ctx.constrain(s, ctx.dp_axes(), None, None, "model", None)
             s = softcap(s, cfg.attn_softcap)
             s = s + _mask_bias(qp[qi], kp[ki], causal, window)
             m_new = torch.maximum(m, s.max(dim=-1).values)
@@ -251,8 +261,9 @@ def attention_chunk(p, x, cfg, cache, start: int, window=0):
     positions = (start + torch.arange(C, dtype=torch.int32, device=x.device)
                  )[None].expand(B, C)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    cache["k"][:, start:start + C] = k.to(cache["k"].dtype)
-    cache["v"][:, start:start + C] = v.to(cache["v"].dtype)
+    # the per-request scratch is whole on every rank under a mesh
+    cache["k"][:, start:start + C] = ctx.full(k).to(cache["k"].dtype)
+    cache["v"][:, start:start + C] = ctx.full(v).to(cache["v"].dtype)
     T = cache["k"].shape[1]
     k_pos = torch.arange(T, dtype=torch.int32, device=x.device)[None].expand(
         B, T)
@@ -323,8 +334,10 @@ def attention_decode_paged(p, x, cfg, pool, block_tables, lengths, window=0):
     rows = torch.arange(B, device=x.device)
     page = block_tables[rows, (lengths // ps).long()].long()
     off = (lengths % ps).long()
-    pool["k"][page, off] = k[:, 0].to(pool["k"].dtype)
-    pool["v"][page, off] = v[:, 0].to(pool["v"].dtype)
+    for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
+        dst = pool[name]
+        local = dst.to_local() if ctx.is_dtensor(dst) else dst
+        local[page, off] = ctx.local_like(new, dst).to(dst.dtype)
     o = dispatch.attention_decode(q[:, 0], pool["k"], pool["v"], block_tables,
                                   lengths + 1, policy=cfg.mix_policy,
                                   window=window, softcap=cfg.attn_softcap)

@@ -29,9 +29,11 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.core import pdot
+from repro_torch.parallel import ctx
 from . import layers as L
 from . import mla as M
 from .modules import (checkpointed, dense_init, embed_init, generator, layer,
@@ -190,16 +192,50 @@ def init(cfg, seed: int = 0, device=None):
     return params
 
 
+def _gather_rows(table, tokens):
+    """``table[tokens]`` for a DTensor table that no rank splits: the rows
+    are gathered from the local (whole) table by the same indexing as
+    without a mesh, so the gradient sums repeated tokens in the same
+    order.  The rows take the tokens' layout; the table's gradient is a
+    partial sum over the mesh dims that split the tokens (the data axes),
+    which the train step reduces once."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    if ctx.is_dtensor(tokens):
+        idx, placements = tokens.to_local(), tuple(tokens.placements)
+    else:
+        idx, placements = tokens, (Replicate(),) * mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate() for p in placements]
+    rows = table.to_local(grad_placements=grad)[idx.long()]
+    shape = tuple(tokens.shape) + tuple(table.shape[1:])
+    return DTensor.from_local(rows, mesh, placements, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
 def embed(params, tokens, cfg):
-    x = params["embed"][tokens.long()]
+    """The token rows of the table, f32, batch on the data axes under a
+    mesh (JAX :250-255).  A table split over ranks (vocab on ``model``) is
+    gathered through ``F.embedding``, which DTensor shards (indexing it has
+    no rule); a whole one through :func:`_gather_rows`."""
+    table = params["embed"]
+    if not ctx.is_dtensor(table):
+        x = table[tokens.long()]
+    elif any(p.is_shard() for p in table.placements):
+        x = F.embedding(tokens.long(), table)
+    else:
+        x = _gather_rows(table, tokens)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
-    return x.float()
+    return ctx.constrain(x.float(), ctx.dp_axes(), None, None)
 
 
 def unembed_logits(params, x, cfg):
+    """Logits, vocab on ``model`` under a mesh (JAX :258-263)."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     logits = pdot("bsd,dv->bsv", x, w, cfg.logits_policy or cfg.policy)
+    logits = ctx.constrain(logits, ctx.dp_axes(), None, "model")
     return L.softcap(logits, cfg.final_softcap)
 
 
@@ -259,10 +295,13 @@ def forward_logits(params, tokens, cfg):
 def cross_entropy(logits, labels, z_loss_w: float = 1e-4):
     """Masked CE with z-loss; labels < 0 are ignored.  Returns ``(loss,
     tokens counted)``.  The label's logit is gathered, where JAX sums
-    against a one-hot: the same value, without a (B, S, V) one-hot."""
+    against a one-hot: the same value, without a (B, S, V) one-hot.
+    Under a mesh the logits' vocab dim is gathered first (JAX constrains
+    its one-hot to the vocab on ``model``, :297-302; DTensor's rule for a
+    gather along a sharded dim does not hold here)."""
     mask = (labels >= 0).float()
     lbl = labels.clamp_min(0).long()
-    logits = logits.float()
+    logits = ctx.constrain(logits.float(), ctx.dp_axes(), None, None)
     logz = torch.logsumexp(logits, dim=-1)
     ll = logits.gather(-1, lbl[..., None])[..., 0]
     nll = (logz - ll) * mask

@@ -82,9 +82,13 @@ What each field means in the port (each divergence from JAX is pinned by
   ``REPRO_ASYNC_SCHED``): the serving engine's knobs, as in JAX (the
   engine rounds the chunk up to a page multiple); see
   ``serving/engine.py``.
-* ``shard_map``, ``keep_bf16_dots``: accepted at JAX's default; any other
-  value raises ``NotImplementedError`` naming its ROADMAP item (16) or
-  "XLA only".
+* ``shard_map`` (``REPRO_SHARD_MAP``): under a mesh installed by
+  ``parallel.ctx.use_mesh``, True runs each eligible kernel call per shard
+  (``kernels/shmap.py``); False makes every call under a mesh decline
+  (``mesh-declined``: the term expansion, the pdot composition, the
+  gather), as in JAX.
+* ``keep_bf16_dots``: accepted at JAX's default; any other value raises
+  ``NotImplementedError`` ("XLA only").
 * ``REPRO_FAULTS`` feeds no field: ``repro_torch.faults.env_plan()`` reads
   it (through :func:`env_value`) as the process-default fault plan.
 
@@ -193,8 +197,9 @@ ENV_VARS: dict[str, EnvVar] = {v.name: v for v in [
            "gathers the pages and attends in bf16).",
            field="paged_attention", invert=True),
     EnvVar("REPRO_SHARD_MAP", "bool", True,
-           "Mesh dispatch: accepted at its default; 0 raises until the "
-           "parallel slice (ROADMAP item 16).", field="shard_map"),
+           "Under an installed mesh, run kernel dispatch per shard "
+           "(kernels/shmap.py).  0 declines every dispatch under a mesh.",
+           field="shard_map"),
     EnvVar("REPRO_TUNE", "bool", False,
            "Force the autotuner's measurement, also where auto would not "
            "measure (CPU operands: the plain version is timed).  Unset, the "
@@ -280,8 +285,7 @@ def _tuple_or_none(x, n, name):
 
 # Fields the port accepts only at JAX's default, and the ROADMAP item that
 # ports each.
-_NOT_PORTED = {"shard_map": (True, "ROADMAP item 16"),
-               "keep_bf16_dots": (False, "XLA only")}
+_NOT_PORTED = {"keep_bf16_dots": (False, "XLA only")}
 
 
 @dataclass(frozen=True)
@@ -304,7 +308,7 @@ class NumericsConfig:
     attn_block: tuple | None = None   # kernel 2's tile (one candidate)
     paged_attention: bool = True    # kernel 3 routing
     paged_block: int | None = None  # kernel 3's pages per chunk
-    shard_map: bool = True          # ROADMAP item 16
+    shard_map: bool = True          # mesh dispatch via kernels/shmap.py
     guard: bool = False             # breaker; count and raise (JAX: True)
     # -- serving ------------------------------------------------------
     prefix_cache: bool = False      # copy-on-write prefix cache

@@ -24,8 +24,7 @@ Counts also land in the metrics registry (``kernels/dispatch/route`` and
 ``kernels/dispatch/decline`` counters), so snapshots carry the totals even
 after :func:`reset`.  JAX slugs the port never emits: ``off-backend`` (a
 CUDA operand launches, a CPU operand runs the plain version; there is no
-backend rule), ``vmem-budget`` (no VMEM), and ``mesh-declined`` until the
-parallel slice (ROADMAP item 16).
+backend rule) and ``vmem-budget`` (no VMEM).
 """
 from __future__ import annotations
 
@@ -51,6 +50,10 @@ RULES = {
     "shape-unsupported": "the operands are not the model layout the "
                          "attention kernels take",
     "below-min-dim": "a problem dim is under min_dim (0 by default)",
+    "mesh-declined": "a mesh is installed but the shard_map knob is off, "
+                     "the context runs DP over the model axis, or "
+                     "kernels/shmap.py has no per-shard plan for these "
+                     "shapes (rule 6)",
     "breaker-open": "the circuit breaker has this key quarantined after "
                     "repeated kernel failures: KernelQuarantined was raised "
                     "and nothing launched (kernels/guard.py)",

@@ -75,8 +75,18 @@ and then every path below is the single-shot engine's):
 With f32 pools (``cache_dtype=torch.float32``) a reused page is bitwise
 what a fresh prefill writes, so each knob leaves greedy tokens unchanged;
 kernel 3 reads f32 pools on the card through its f32 instantiation.
-:meth:`Engine.defragment` compacts the live pages in place.  Meshes are
-not ported (ROADMAP item 16).
+:meth:`Engine.defragment` compacts the live pages in place.
+
+Under a mesh (captured from ``parallel.ctx`` at construction, or passed as
+``mesh=``; JAX :139-151) the page pools are DTensors laid out by
+:func:`_pool_spec` (KV heads on ``model``), block tables and lengths stay
+whole on every rank, and every step runs under the mesh scope, so kernel 3
+and the model's products run per shard (``kernels/shmap.py``).  The
+parameters are taken as given: lay them out with
+``parallel.sharding.param_specs`` first.  Over a gloo process group the
+decode step runs eagerly (a gloo collective cannot be captured in a CUDA
+graph); :meth:`Engine.stats` says so (``decode_graph``,
+``decode_graph_reason``).
 
 Numerics contract (tests/test_torch_serving.py): with parameters bridged
 from JAX, greedy output is token-identical to the JAX engine's.
@@ -101,6 +111,7 @@ from repro_torch import faults, numerics, resolve_device
 from repro_torch.kernels import (guard, tcec_attention, tcec_matmul,
                                  tcec_paged_attention)
 from repro_torch.models import get_model
+from repro_torch.models.modules import tree_map
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs.trace import current as _current_tracer
 from . import sampling
@@ -173,6 +184,22 @@ class _Staging:
         self.arrays = {k: t.numpy() for k, t in self.tensors.items()}
 
 
+def _pool_spec(shape, mesh):
+    """The spec of one page-pool leaf ``(..., Hkv, hd)`` (JAX :90-103): KV
+    heads on ``model`` when divisible (the paged plan's layout), else
+    head_dim, else replicated."""
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel.sharding import P
+    msize = ctx.axis_shape(mesh).get("model", 1)
+    dims = [None] * len(shape)
+    if msize > 1 and len(shape) >= 2:
+        if shape[-2] % msize == 0:
+            dims[-2] = "model"
+        elif shape[-1] % msize == 0:
+            dims[-1] = "model"
+    return P(*dims)
+
+
 class Engine:
     """Continuous-batching engine for the dense and MoE families.
 
@@ -193,6 +220,8 @@ class Engine:
         parameters must already be there.
     numerics_config: the :class:`repro_torch.numerics.NumericsConfig` every
         step runs under (default: the one active at construction).
+    mesh: the ``DeviceMesh`` every step runs under (default: the one
+        installed by ``parallel.ctx.use_mesh`` at construction, if any).
     """
 
     def __init__(self, cfg, params, *, max_slots: int = 4,
@@ -202,8 +231,11 @@ class Engine:
                  max_waiting: int | None = None,
                  max_preemptions: int | None = 8,
                  cache_dtype=torch.bfloat16, device=None,
-                 numerics_config: numerics.NumericsConfig | None = None):
+                 numerics_config: numerics.NumericsConfig | None = None,
+                 mesh=None):
+        from repro_torch.parallel import ctx
         self.numerics_config = numerics_config or numerics.active()
+        self.mesh = mesh if mesh is not None else ctx.current_mesh()
         self.model = get_model(cfg, self.numerics_config)
         if self.model.decode_step_paged is None:
             raise ValueError(
@@ -233,6 +265,16 @@ class Engine:
         self.clock = 0
         self.pools = self.model.init_paged_cache(
             num_pages, page_size, dtype=cache_dtype, device=self.device)
+        self.graph_off = None         # why decode is eager, if it is
+        if self.device.type != "cuda":
+            self.graph_off = self.device.type
+        if self.mesh is not None:
+            from repro_torch.parallel.sharding import distribute, to_placements
+            self.pools = tree_map(
+                lambda t: distribute(t, self.mesh, to_placements(
+                    _pool_spec(t.shape, self.mesh), self.mesh)), self.pools)
+            if self.graph_off is None and _mesh_backend(self.mesh) == "gloo":
+                self.graph_off = "gloo"
         # host mirrors of the per-slot device state
         self.block_tables = np.zeros((max_slots, max_pages_per_slot),
                                      np.int32)
@@ -396,6 +438,7 @@ class Engine:
             faults.raise_if("prefill")
             logits, kv = self.model.prefill(
                 self.params, torch.from_numpy(toks).to(self.device))
+            logits = _whole(logits)
         except Exception as exc:   # rolled back (or re-raised) below
             self._on_prefill_failure(reqs, exc)
             return
@@ -564,9 +607,9 @@ class Engine:
             toks[0, :n] = seq[start:start + n]
             try:
                 faults.raise_if("prefill.chunk")
-                logits = self.model.prefill_chunk(
+                logits = _whole(self.model.prefill_chunk(
                     self.params, req.scratch,
-                    torch.from_numpy(toks).to(self.device), start)
+                    torch.from_numpy(toks).to(self.device), start))
             except Exception as exc:   # rolled back (or re-raised) below
                 self._on_prefill_failure([req], exc)
                 return False
@@ -697,7 +740,7 @@ class Engine:
             stage = self._staging[self.n_decode_steps % 2]
             for name, host in stage.arrays.items():
                 np.copyto(host, getattr(self, name))
-            if self.device.type == "cuda":
+            if self.graph_off is None:
                 if self._graph is None:
                     self._graph = _DecodeGraph(self)
                 out, done = self._graph.launch(
@@ -778,6 +821,12 @@ class Engine:
         except Exception as exc:    # re-raised unless guard=True
             self._on_decode_failure(inflight["running"], exc)
 
+    def _mesh_scope(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.parallel import ctx
+        return ctx.use_mesh(self.mesh)
+
     @torch.no_grad()
     def step(self):
         """One engine iteration: consume the decode step left in flight
@@ -786,7 +835,7 @@ class Engine:
         pages, then dispatch one decode step for every running slot: its
         consume follows at once, or at the top of the next step with
         ``async_sched``."""
-        with self._span("engine.step") as sp:
+        with self._span("engine.step") as sp, self._mesh_scope():
             self._land_inflight()
             self.clock += 1
             spec = faults.poke("decode.slow")
@@ -838,9 +887,13 @@ class Engine:
         ``decode_faults`` (decode steps that raised under ``guard=True``);
         on ``cuda`` also the decode program's: its eager warm-up steps,
         its capture time and its replays (all of them, and of the sampler
-        graph)."""
+        graph); ``decode_graph`` (whether decode replays a graph) and
+        ``decode_graph_reason`` (why not: ``"cpu"``, or ``"gloo"`` under a
+        mesh over gloo; None when it does)."""
         g = self._graph
         return {**self._stats,
+                "decode_graph": self.graph_off is None,
+                "decode_graph_reason": self.graph_off,
                 "clock": self.clock,
                 "prefills": self.n_prefills,
                 "prefill_chunks": self.n_prefill_chunks,
@@ -874,6 +927,17 @@ class Engine:
                 self.block_tables[req.slot, :len(req.pages)] = req.pages
 
 
+def _mesh_backend(mesh) -> str:
+    import torch.distributed as dist
+    return dist.get_backend(mesh.get_group(0))
+
+
+def _whole(x):
+    """Logits whole on every rank (every rank samples the same tokens)."""
+    from repro_torch.parallel import ctx
+    return ctx.full(x)
+
+
 def _decode_step(params, pools, block_tables, lengths, toks, poison, *,
                  model, cfg):
     """The model half of :func:`_decode_and_sample`: the paged decode
@@ -882,8 +946,8 @@ def _decode_step(params, pools, block_tables, lengths, toks, poison, *,
     ``decode.nonfinite`` fault: ``torch.where(mask, nan, logits)``, bitwise
     the logits where it is not), the per-slot ``isfinite`` guard bit and
     the greedy argmax.  Returns ``(logits, finite, greedy)``."""
-    logits = model.decode_step_paged(params, pools, block_tables, lengths,
-                                     toks)
+    logits = _whole(model.decode_step_paged(params, pools, block_tables,
+                                            lengths, toks))
     logits = logits[:, :cfg.vocab_size].float()
     logits = torch.where(poison[:, None], float("nan"), logits)
     return logits, torch.isfinite(logits).all(dim=-1), torch.argmax(logits,

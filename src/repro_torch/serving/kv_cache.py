@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import faults
 from repro_torch.models.modules import tree_leaves
+from repro_torch.parallel import ctx
 from .errors import PagePoolError
 
 DEFAULT_PAGE_SIZE = 16
@@ -125,6 +126,12 @@ class PagePool:
 
 # ------------------------------------------------------- device helpers
 
+def _local(pool):
+    """The storage a write goes to: a sharded pool's local shard (the
+    DTensor sees the write; see ``parallel.ctx.local_like``)."""
+    return pool.to_local() if ctx.is_dtensor(pool) else pool
+
+
 def _pairs(pools, other):
     """``(pool leaf, matching leaf of other)`` over the nested cache trees."""
     for name, pool in pools.items():
@@ -145,8 +152,8 @@ def write_prompt_pages(pools, kv, pages: torch.Tensor):
     for pool, k in _pairs(pools, kv):
         nL, B, P = k.shape[:3]
         ps = pool.shape[2]
-        pool[:, flat] = k.reshape((nL, B * (P // ps), ps) + tuple(
-            k.shape[3:])).to(pool.dtype)
+        rows = k.reshape((nL, B * (P // ps), ps) + tuple(k.shape[3:]))
+        _local(pool)[:, flat] = ctx.local_like(rows, pool).to(pool.dtype)
     return pools
 
 
@@ -159,7 +166,7 @@ def load_pages_into_scratch(scratch, pools, pages: torch.Tensor):
     The gathered tokens land at positions ``[0, n * ps)``."""
     idx = pages.long()
     for s, pool in _pairs(scratch, pools):
-        g = pool[:, idx]                              # (nL, n, ps, ...)
+        g = ctx.full(pool[:, idx])                    # (nL, n, ps, ...)
         s[:, 0, :g.shape[1] * g.shape[2]] = g.flatten(1, 2).to(s.dtype)
     return scratch
 
@@ -177,8 +184,8 @@ def write_span_pages(pools, scratch, start: int, pages: torch.Tensor):
     for pool, s in _pairs(pools, scratch):
         ps = pool.shape[2]
         span = s[:, 0, start:start + n * ps]
-        pool[:, idx] = span.reshape((span.shape[0], n, ps)
-                                    + tuple(span.shape[2:])).to(pool.dtype)
+        span = span.reshape((span.shape[0], n, ps) + tuple(span.shape[2:]))
+        _local(pool)[:, idx] = ctx.local_like(span, pool).to(pool.dtype)
     return pools
 
 
@@ -190,7 +197,7 @@ def permute_pages(pools, perm: torch.Tensor):
     inverse of :meth:`PagePool.defrag`'s ``{old: new}`` mapping."""
     idx = perm.long()
     for pool in tree_leaves(pools):
-        for layer in pool:
+        for layer in _local(pool):
             layer.copy_(layer[idx])
     return pools
 

@@ -10,9 +10,12 @@
     :class:`StragglerEvent`;
   * preemption hook: SIGTERM makes the loop checkpoint after the current
     step and stop;
-  * a non-finite loss raises ``FloatingPointError``.
-
-One process, one device: the JAX loop's mesh is not ported.
+  * a non-finite loss raises ``FloatingPointError``;
+  * under a mesh (``mesh=``) the state is DTensors laid out by
+    ``launch.step.make_sharded_train_step``, batches are sharded on the
+    data axes, and the loop runs under ``parallel.ctx.use_mesh``, so every
+    kernel runs per shard (``kernels/shmap.py``).  Checkpoints are written
+    whole and re-sharded on resume (the elastic restart).
 """
 from __future__ import annotations
 
@@ -49,29 +52,54 @@ def _init_state(model, opt_cfg, seed, device):
 
 def train(cfg, opt_cfg: adamw.OptConfig, data_cfg: DataConfig,
           loop_cfg: TrainLoopConfig, ckpt_dir: str, device=None, log=print,
-          train_step=None):
+          train_step=None, mesh=None):
     """Run (or resume) a training job on ``device`` (default ``cuda``);
     returns ``(state, history)``, one ``{"step", "loss", "time_s"}`` a
     step.  Fresh parameters come from ``data_cfg.seed``; ``train_step``
     (default ``launch.step.make_train_step``) maps ``(state, batch)`` to
-    ``(state, metrics)``."""
+    ``(state, metrics)``.  With ``mesh`` (a ``DeviceMesh``, JAX :51-89)
+    the default step is ``launch.step.make_sharded_train_step``'s, the
+    state is laid out by its shardings and each batch by its sharder, and
+    the loop runs under ``parallel.ctx.use_mesh``."""
     device = resolve_device(device)
     model = get_model(cfg)
-    if train_step is None:
+    state_sh = batch_sharder = None
+    if mesh is not None:
+        from repro_torch.launch.step import make_sharded_train_step
+        step_fn, state_sh, batch_sharder = make_sharded_train_step(
+            cfg, opt_cfg, mesh)
+        train_step = train_step or step_fn
+    elif train_step is None:
         from repro_torch.launch.step import make_train_step
         train_step = make_train_step(cfg, opt_cfg)
+    if mesh is None:
+        return _run(cfg, opt_cfg, data_cfg, loop_cfg, ckpt_dir, device, log,
+                    train_step, model, None, None)
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    with ctx.use_mesh(mesh, shd.batch_axes(cfg, mesh)):
+        return _run(cfg, opt_cfg, data_cfg, loop_cfg, ckpt_dir, device, log,
+                    train_step, model, state_sh, batch_sharder)
+
+
+def _run(cfg, opt_cfg, data_cfg, loop_cfg, ckpt_dir, device, log,
+         train_step, model, state_sh, batch_sharder):
 
     # ---- resume or init ---------------------------------------------------
     start = ckpt.latest_step(ckpt_dir)
     if start is not None:
         like = _init_state(model, opt_cfg, 0, "meta")
-        state = ckpt.restore(ckpt_dir, start, like, device=device)
+        state = ckpt.restore(ckpt_dir, start, like, device=device,
+                             shardings=state_sh)
         log(f"[resume] restored step {start} from {ckpt_dir}"
             + (f"; total_steps {loop_cfg.total_steps} already reached, "
                "nothing to run" if start >= loop_cfg.total_steps else ""))
         step0 = start
     else:
         state = _init_state(model, opt_cfg, data_cfg.seed, device)
+        if state_sh is not None:
+            from repro_torch.parallel.sharding import shard_tree
+            state = shard_tree(state, state_sh)
         step0 = 0
 
     # ---- preemption hook -------------------------------------------------
@@ -86,6 +114,8 @@ def train(cfg, opt_cfg: adamw.OptConfig, data_cfg: DataConfig,
     try:
         for step in range(step0, loop_cfg.total_steps):
             batch = device_batch(cfg, data_cfg, step, device)
+            if batch_sharder is not None:
+                batch = batch_sharder(batch)
             t0 = time.time()
             state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])      # waits for the step

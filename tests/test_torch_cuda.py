@@ -1383,3 +1383,57 @@ def test_monitor_skips_probes_while_capturing(dev):
     assert probes.total() == before[0] + 1
     assert skipped.total() == before[1] + 1
     assert torch.equal(out, eager)
+
+
+# ------------------------------------------------ the parallel layer
+
+def test_wrappers_on_a_one_rank_nccl_mesh_equal_the_unsharded_kernels(
+        dev, tmp_path):
+    """``kernels/shmap.py`` on a ``(1, 1)`` NCCL mesh: each wrapper once,
+    bitwise the unsharded kernel on the same card; the per-shard tuner
+    (``tune="force"``) keys the local shape under ``cuda/shmap/``."""
+    import json
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dispatch, shmap
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import ctx
+    owned = not dist.is_initialized()
+    mesh = make_host_mesh(1)
+    try:
+        g = torch.Generator(device=dev).manual_seed(0)
+        a = torch.randn(96, 256, device=dev, generator=g)
+        b = torch.randn(256, 384, device=dev, generator=g)
+        q = torch.randn(2, 192, 16, 128, device=dev, generator=g)
+        k = torch.randn(2, 192, 8, 128, device=dev, generator=g)
+        v = torch.randn(2, 192, 8, 128, device=dev, generator=g)
+        qd = torch.randn(4, 16, 128, device=dev, generator=g)
+        kp = torch.randn(41, 16, 8, 128, device=dev,
+                         generator=g).bfloat16()
+        vp = torch.randn(41, 16, 8, 128, device=dev,
+                         generator=g).bfloat16()
+        bt = torch.arange(1, 41, device=dev, dtype=torch.int32).reshape(
+            4, 10)
+        lens = torch.tensor([150, 160, 9, 1], device=dev, dtype=torch.int32)
+        pol = "tcec_bf16x6"
+        cache = str(tmp_path / "tune.json")
+        want = [ops.tcec_matmul(a, b, pol),
+                tcec_attention.tcec_attention(q, k, v, policy=pol),
+                dispatch._paged_local(qd, kp, vp, bt, lens, pol, 0, None,
+                                      numerics.active())]
+        n0 = dict(shmap.counters())
+        got = [shmap.sharded_matmul(a, b, policy=pol, mesh=mesh),
+               shmap.sharded_attention(q, k, v, policy=pol, mesh=mesh),
+               shmap.sharded_paged_attention(qd, kp, vp, bt, lens,
+                                             policy=pol, mesh=mesh)]
+        for x, y in zip(got, want):
+            assert not ctx.is_dtensor(x) and torch.equal(x, y)
+        assert all(shmap.counters()[n] == n0[n] + 1 for n in shmap.KERNELS)
+        with numerics.use(tune="force", tune_cache=cache):
+            shmap.sharded_matmul(a, b, policy=pol, mesh=mesh)
+        keys = json.load(open(cache))["entries"]
+        assert any(key.startswith("cuda/shmap/tcec_bf16x6/") for key in keys)
+    finally:
+        if owned:
+            dist.destroy_process_group()

@@ -142,14 +142,20 @@ def test_from_env_equals_jax(env):
     ("REPRO_KEEP_BF16_DOTS", "keep_bf16_dots", "XLA only"),
 ])
 def test_fields_not_ported_raise_away_from_their_default(var, field, item):
-    """``shard_map`` and ``keep_bf16_dots`` raise away from JAX's default,
-    naming their ROADMAP item.  The serving knobs (items 14 and 3) are
-    ported: away from their default they parse from the environment as
-    JAX's do, build a config, enter ``use()``, and reach an engine's
-    knobs (the chunk rounded up to a page multiple)."""
+    """``keep_bf16_dots`` raises away from JAX's default ("XLA only").  The
+    serving knobs (items 14 and 3) are ported: away from their default
+    they parse from the environment as JAX's do, build a config, enter
+    ``use()``, and reach an engine's knobs (the chunk rounded up to a page
+    multiple).  ``shard_map`` (item 16) is ported: ``REPRO_SHARD_MAP=0``
+    parses as JAX's does, and ``shard_map=False`` under a one-rank mesh
+    makes kernel 1's walk record ``mesh-declined`` and run nothing of the
+    kernel."""
     off = "0" if var == "REPRO_SHARD_MAP" else (
         "32" if var == "REPRO_CHUNKED_PREFILL" else "1")
     value = {"shard_map": False, "chunked_prefill": 20}.get(field, True)
+    if field == "shard_map":
+        _shard_map_off_declines(var, off)
+        return
     if field in ("prefix_cache", "chunked_prefill", "async_sched"):
         parsed = NumericsConfig.from_env({var: off})
         assert getattr(parsed, field) == getattr(
@@ -171,6 +177,39 @@ def test_fields_not_ported_raise_away_from_their_default(var, field, item):
         NumericsConfig(**{field: value})
     with pytest.raises(NotImplementedError):
         numerics.use(**{field: value})
+
+
+def _shard_map_off_declines(var, off):
+    import importlib
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dispatch, shmap
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import ctx
+    explain = importlib.import_module("repro_torch.obs.explain")
+    parsed = NumericsConfig.from_env({var: off})
+    assert parsed.shard_map is False
+    assert jnumerics.NumericsConfig.from_env({var: off}).shard_map is False
+    ran = []
+    real = dispatch._matmul_local
+    a = torch.randn(64, 64)
+    owned = not dist.is_initialized()
+    mesh = make_host_mesh(1, device="cpu")
+    try:
+        dispatch._matmul_local = lambda *x, **kw: (ran.append(1),
+                                                   real(*x, **kw))[1]
+        explain.reset()
+        n0 = shmap.counters()["matmul"]
+        with numerics.use(parsed), ctx.use_mesh(mesh):
+            repro_torch.matmul(a, a, policy="tcec_bf16x6")
+        assert ran == [] and shmap.counters()["matmul"] == n0
+        assert {e["rule"] for e in explain.report().entries
+                if e["kernel"] == "matmul"} == {"mesh-declined"}
+    finally:
+        dispatch._matmul_local = real
+        if owned:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("var,field", [("REPRO_GUARD", "guard"),

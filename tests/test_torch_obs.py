@@ -307,7 +307,8 @@ def test_rules_are_the_ports_slugs_and_documented():
     and JAX's other slugs are listed as never emitted."""
     assert set(RULES) == {"fused", "plain-policy", "policy-ineligible",
                           "hatch-disabled", "shape-unsupported",
-                          "below-min-dim", "breaker-open", "kernel-failure"}
+                          "below-min-dim", "mesh-declined", "breaker-open",
+                          "kernel-failure"}
     assert set(RULES) <= set(JRULES)
     import sys
     doc = (dispatch.__doc__ or "") + sys.modules[
