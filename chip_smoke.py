@@ -318,7 +318,20 @@ Phases, each of which raises on a failed check (nothing is caught):
      decode graph over f32 pools replayed bitwise as the eager step (4b).
      Printed: each run's tok/s, decode-step median and TTFT of requests 5-8
      (p50, p90 of the host-clock samples), and the profiled device busy
-     time of requests 5-8's prefill with and without the prefix cache.
+     time of requests 5-8's prefill with and without the prefix cache;
+  17. the parallel layer in child processes (see the section comment);
+  18. the dry run held to the card: in a child process (the dry run's fake
+     world becomes the default process group), qwen3-0.6b at full width
+     traced through ``launch/step.py::lower_cell`` on a one-rank mesh at
+     the 8 x 128 train step, ``forward_logits`` at 2 x 512 and the serve
+     step on a dense cache of 4 x 1024, and then each step on the card.
+     Gates: each step's kernel-1/2/3 launches on the card equal the
+     trace's, and kernel 1's FLOPs from the launch shapes equal the
+     trace's.  Printed: the trace's peak beside ``max_memory_allocated``,
+     the roofline step time from ``dryrun.HW`` beside the measured median
+     (``roofline_fraction``), a profiled step.  18b traces qwen3-0.6b's
+     train_4k cell on the (16, 16) fake world through the dry run's CLI
+     (gate: status ok; its seconds printed).
 
 Phases 2-13 run under the default numerics config, whose tune mode is
 "off" (the rule by M, the parent's routing bit for bit); the tuner writes
@@ -4654,6 +4667,202 @@ def parallel_path(dev):
     return launches
 
 
+# ------------------------------------------------------------ phase 18
+#
+# The dry run (``launch/dryrun.py``, ``hlo_cost.py``, ``step.py::
+# lower_cell``) held to the card.  18a runs in a child process: the dry
+# run's fake world becomes the process's default group, which no NCCL
+# group may share.  There qwen3-0.6b at full width is traced through
+# ``lower_cell`` on a one-rank mesh at three steps, and then each step runs
+# on the card.  18b traces one production cell through the dry run's CLI
+# in a subprocess.
+
+P18_STEPS = (("train 8 x 128", "train", 8, 128),
+             ("forward_logits 2 x 512", "prefill", 2, 512),
+             ("serve step 4 x 1024, dense cache", "decode", 4, 1024))
+
+
+def _p18_kernel1_flops(on_card):
+    """Wrap kernel 1's launch (its plain version on the CPU) to sum each
+    call's kept terms x 2 batch M N K, from the shapes it is given;
+    returns ``([flops, calls], restore)``."""
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import tcec_matmul as tm
+    name = "launch" if on_card else "tcec_matmul_plain"
+    orig = getattr(tm, name)
+    seen = [0.0, 0]
+
+    def wrapped(a, b, policy="tcec_bf16x6", *args, **kw):
+        *bdims, M, K = a.shape
+        seen[0] += (len(get_policy(policy).keep) * 2.0 * math.prod(bdims)
+                    * M * b.shape[-1] * K)
+        seen[1] += 1
+        return orig(a, b, policy, *args, **kw)
+
+    setattr(tm, name, wrapped)
+    return seen, lambda: setattr(tm, name, orig)
+
+
+def _p18_step(cfg, kind, B, S, dev):
+    """The step of one 18a row on ``dev``, as a thunk, with the optimizer
+    config ``lower_cell`` takes for this config (f32 moments)."""
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.launch.step import (make_prefill_step, make_serve_step,
+                                         make_train_step)
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    model = get_model(cfg)
+    params = model.init(seed=0, device=dev)
+    batch = device_batch(cfg, DataConfig(seed=0, global_batch=B, seq_len=S),
+                         0, dev)
+    if kind == "train":
+        opt = adamw.OptConfig(moment_dtype="float32", factored_v=False)
+        state = {"params": params, "opt": adamw.init_state(params, opt)}
+        step = make_train_step(cfg, opt)
+        return lambda: step(state, batch)
+    if kind == "prefill":
+        step = make_prefill_step(cfg)
+        return lambda: step(params, {"tokens": batch["tokens"]})
+    cache = model.init_cache(B, S, device=dev)
+    tokens = batch["tokens"][:, 0].contiguous()
+    step = make_serve_step(cfg)
+    return lambda: step(params, cache, tokens, S - 1)
+
+
+def _p18_child(rank, on_card, card):
+    """18a (see the section comment); writes ``chiprun_out/
+    phase18_18a_rank0.json``.  ``card`` is the parent's ``nvidia-smi``
+    line."""
+    get_config = _p17_setup(on_card)
+    os.environ["REPRO_DRYRUN_DEVICES"] = "1"
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import HW, roofline
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.step import lower_cell
+    RECORD.setdefault("profile", [])
+    dev = torch.device("cuda" if on_card else "cpu")
+    t_all = time.perf_counter()
+    mesh = make_production_mesh()
+    cfg = get_config("qwen3-0.6b")
+    rows, launches = [], {}
+    for name, kind, B, S in P18_STEPS:
+        t0 = time.perf_counter()
+        pred, got_kind = lower_cell(cfg, ShapeConfig(name, S, B, kind), mesh)
+        trace_s = time.perf_counter() - t0
+        check(got_kind == kind, f"18a {name}: traced as {got_kind}")
+        want = {k: pred["kernels"].get(k, {}).get("launches", 0)
+                for k in ("tcec_matmul", "tcec_attention",
+                          "tcec_paged_attention")}
+        run = _p18_step(cfg, kind, B, S, dev)
+        run()                                             # warm
+        if on_card:
+            torch.cuda.synchronize()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        seen, restore = _p18_kernel1_flops(on_card)
+        _p17_zero()
+        out = run()
+        got = _p17_launches()
+        restore()
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        del out
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            run()
+            if on_card:
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        median = float(np.median(times))
+        terms = roofline(pred)
+        bound_ms = max(terms.values()) * 1e3
+        row = {"step": name, "trace_s": trace_s,
+               "launches_predicted": want, "launches_card": got,
+               "kernel1_calls_card": seen[1],
+               "kernel1_flops_predicted": pred["kernels"]["tcec_matmul"][
+                   "flops"],
+               "kernel1_flops_card": seen[0],
+               "dot_flops_predicted": pred["dot_flops"],
+               "dot_flops_by_dtype_predicted": pred["dot_flops_by_dtype"],
+               "bytes_predicted": pred["bytes"],
+               "peak_bytes_predicted": pred["memory"]["peak_size_in_bytes"],
+               "memory_predicted": pred["memory"],
+               "max_memory_allocated": peak,
+               "roofline_terms_ms": {k: v * 1e3 for k, v in terms.items()},
+               "roofline_step_ms": bound_ms, "step_ms_median": median,
+               "step_ms_all": times,
+               "roofline_fraction": bound_ms / median,
+               "hw": HW["name"], "card": card}
+        if on_card:
+            prof = profile_window(f"18a {name}", run)
+            row["device_busy_ms"] = prof["device_busy_ms"]
+            row["port_kernels"] = prof["port_kernels"]
+        rows.append(row)
+        check(seen[1] == want["tcec_matmul"],
+              f"18a {name}: kernel-1 calls {seen[1]} == the trace's "
+              f"{want['tcec_matmul']}")
+        check(not on_card or got == want,
+              f"18a {name}: launches on the card {got} == the trace's {want}")
+        check(seen[0] == row["kernel1_flops_predicted"],
+              f"18a {name}: kernel-1 FLOPs from the launch shapes "
+              f"{seen[0]} == the trace's {row['kernel1_flops_predicted']}")
+    _p17_out("18a", rank).write_text(json.dumps({
+        "rows": rows, "launches": launches,
+        "seconds": time.perf_counter() - t_all}))
+    torch.distributed.destroy_process_group()
+
+
+def dryrun_path(dev):
+    """Phase 18: returns the launches of 18a's card runs (one run of each
+    step, counted from 0)."""
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    rec = RECORD["phase18"] = {"card": RECORD.get("nvidia_smi")}
+    mp.start_processes(_p18_child, args=(on_card, RECORD.get("nvidia_smi")),
+                       nprocs=1, join=True, start_method="spawn")
+    a = json.loads(_p17_out("18a", 0).read_text())
+    rec["18a"] = a
+    for row in a["rows"]:
+        emit({"phase18a": row})
+    # 18b: one production cell through the CLI, on this host's CPU
+    cell_dir = out_dir / "phase18_dryrun"
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "qwen3-0.6b", "--shape", "train_4k", "--out", str(cell_dir)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_DRYRUN_DEVICES", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    cell_s = time.perf_counter() - t0
+    cell = json.loads((cell_dir / "qwen3-0.6b__train_4k__16x16.json")
+                      .read_text())
+    row = {"phase18b": "qwen3-0.6b train_4k on the (16, 16) fake world",
+           "status": cell["status"], "returncode": proc.returncode,
+           "seconds": cell_s, "trace_s": cell.get("lower_s"),
+           "roofline": cell.get("roofline"),
+           "bottleneck": cell.get("bottleneck"),
+           "roofline_fraction": cell.get("roofline_fraction"),
+           "hlo_flops_per_device": cell.get("hlo_flops_per_device"),
+           "collectives": cell.get("collectives", {}).get("counts"),
+           "memory": cell.get("memory")}
+    rec["18b"] = row
+    emit(row)
+    check(proc.returncode == 0 and cell["status"] == "ok",
+          f"18b: the cell traced ok ({cell.get('error')})")
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase18_s": rec["seconds"], "launches": a["launches"]})
+    return a["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4781,6 +4990,7 @@ def main():
     resilience_launches = resilience_path(dev)     # phase 15
     prefix_launches, prefix_f32 = prefix_path(dev)  # phase 16
     parallel_launches = parallel_path(dev)         # phase 17
+    dryrun_launches = dryrun_path(dev)             # phase 18
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -4801,6 +5011,7 @@ def main():
             if name != "tcec_paged_attention":
                 count += prefix_launches[name]
             count += parallel_launches[name]
+            count += dryrun_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda",
             "source": src.format("tcec_paged_attention"

@@ -122,6 +122,10 @@ SHAPES: dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
 
+# the archs whose long_500k cell runs (sub-quadratic sequence mixing); the
+# dry run records a documented skip for every other arch there
+LONG_CONTEXT_ARCHS = {"mamba2-130m", "zamba2-1.2b"}
+
 
 _REGISTRY: dict[str, ModelConfig] = {}
 _SMOKE: dict[str, ModelConfig] = {}

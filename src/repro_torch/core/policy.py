@@ -123,7 +123,11 @@ def get_policy(p) -> PrecisionPolicy:
 
 def _dot_general(a, b, dims):
     """``jax.lax.dot_general`` for f32 operands: output dims are
-    (batch, lhs free, rhs free)."""
+    (batch, lhs free, rhs free).  Operands sharded over more than one rank
+    (DTensors) take :func:`_dot_general_sharded`."""
+    from repro_torch.parallel.ctx import is_sharded
+    if is_sharded(a) or is_sharded(b):
+        return _dot_general_sharded(a, b, dims)
     (ca, cb), (ba, bb) = dims
     letters = iter("abcdefghijklmnopqrstuvwxyz")
     sa = [None] * a.ndim
@@ -143,6 +147,20 @@ def _dot_general(a, b, dims):
            + [sb[i] for i in range(b.ndim) if i not in cb and i not in bb])
     spec = f"{''.join(sa)},{''.join(sb)}->{''.join(out)}"
     return torch.einsum(spec, a, b)
+
+
+def _dot_general_sharded(a, b, dims):
+    """:func:`_dot_general` on sharded DTensors: the operands laid out as
+    kernel 1's canonical ``(B?, M, K) @ (B?, K, N)`` (``kernels.dispatch.
+    _canonicalize``, whose reshapes make whole any dim sharded behind the
+    first of a flattened group, and any uneven shard), one ``matmul``, and
+    the result reshaped back.  ``einsum``'s own reshapes would carry such
+    dims as strided shards, which DTensor redistributes by a graph search
+    that takes minutes on a mesh of three dims."""
+    from repro_torch.kernels.dispatch import _canonicalize
+    from repro_torch.parallel.ctx import evenly, reshape
+    at, bt, out_shape = _canonicalize(evenly(a), evenly(b), dims)
+    return reshape(torch.matmul(at, bt), out_shape)
 
 
 def _pass_dot(a, b, dims):

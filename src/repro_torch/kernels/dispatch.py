@@ -195,12 +195,15 @@ def _canonicalize(a, b, dims):
     msh, ksh = at.shape[nb:nb + nm], at.shape[nb + nm:]
     nsh = bt.shape[nb + nk:]
     M, K, N = math.prod(msh), math.prod(ksh), math.prod(nsh)
+    # DTensors through ctx.reshape: a dim sharded behind the first of a
+    # flattened group is made whole there, not carried as a strided shard
+    from repro_torch.parallel.ctx import reshape
     if nb:
-        at = at.reshape(math.prod(bsh), M, K)
-        bt = bt.reshape(math.prod(bsh), K, N)
+        at = reshape(at, (math.prod(bsh), M, K))
+        bt = reshape(bt, (math.prod(bsh), K, N))
     else:
-        at = at.reshape(M, K)
-        bt = bt.reshape(K, N)
+        at = reshape(at, (M, K))
+        bt = reshape(bt, (K, N))
     at = at.contiguous()
     if b_layout(bt) is None:
         bt = bt.contiguous()
@@ -317,12 +320,13 @@ def maybe_dispatch(a, b, policy: PrecisionPolicy, dims, cfg=None):
         lambda m: shmap.matmul_plan(at.shape, bt.shape, m), cfg)
     if mesh is None:
         return _kernel_matmul(at, bt, policy.name, cfg).reshape(out_shape)
+    from repro_torch.parallel import ctx
     ident = (policy.name,) + tuning.shape_bucket(*shape)
-    return _guarded(
+    return ctx.reshape(_guarded(
         "matmul", ident, at.device, cfg,
         lambda: shmap.sharded_matmul(at, bt, policy=policy.name, mesh=mesh,
                                      cfg=cfg, plan=plan),
-        "kernel.matmul").reshape(out_shape)
+        "kernel.matmul"), out_shape)
 
 
 def fused_matmul(x2, w, policy: PrecisionPolicy, bias=None, activation=None,

@@ -3,9 +3,11 @@
 ``(M, K) @ (K, N)`` or batched ``(B, M, K) @ (B, K, N)`` f32, any shapes:
 the CUDA kernel masks ragged M, N and K itself, so nothing is padded.  A
 CUDA operand launches the kernel (or raises); a CPU operand runs the plain
-PyTorch version.  Callers that want the technique without caring about
-kernels use :func:`repro_torch.core.pdot`, which routes here through
-``kernels/dispatch.py`` (with the autotuner's tile).
+PyTorch version; a ``meta`` operand takes the dry run's record
+(``kernels/meta.py``) and computes nothing.  Callers that want the
+technique without caring about kernels use :func:`repro_torch.core.pdot`,
+which routes here through ``kernels/dispatch.py`` (with the autotuner's
+tile).
 """
 from __future__ import annotations
 
@@ -35,4 +37,6 @@ def tcec_matmul(a, b, policy: str = "tcec_bf16x6", bias=None,
     if a.device.type == "cpu":
         return _tm.tcec_matmul_plain(a, b, policy, bias, activation,
                                      out_scale)
+    if a.device.type == "meta":
+        return _tm.tcec_matmul_meta(a, b, policy, bias)
     raise ValueError(f"no TCEC matmul for device {a.device}")

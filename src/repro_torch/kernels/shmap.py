@@ -318,7 +318,7 @@ def _leave(local, mesh, spec, shape, as_dtensor: bool):
     ``spec``; its whole tensor when the caller passed plain operands."""
     from torch.distributed.tensor import DTensor
     shape = torch.Size(shape)
-    stride = torch.empty(shape, device="meta").stride()
+    stride = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
     out = DTensor.from_local(local.contiguous(), mesh,
                              to_placements(spec, mesh),
                              run_check=False, shape=shape, stride=stride)

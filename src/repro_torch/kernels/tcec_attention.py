@@ -30,7 +30,7 @@ import math
 import torch
 
 from repro_torch.core.policy import get_policy
-from . import _build
+from . import _build, meta
 from .tcec_matmul import check_policy, fold, split_tile
 
 # The additive mask bias of models.layers (finite, so fully-masked rows give
@@ -194,10 +194,29 @@ def _launch(q, k, v, qp, kp, pol, causal, window, softcap, sm_denom):
     return out
 
 
+def _meta_call(q, k, v, pol):
+    """The ``meta`` route (``kernels/meta.py``): an empty (B, S, H, hdv)
+    f32 result and one record.  FLOPs are the composition's: kept terms x
+    (2 B H S T hd for QK^T + 2 B H S T hdv for P.V), every (query, key)
+    pair, masked or not, as JAX's ``mha`` / ``blocked_attention`` lower."""
+    B, S, H, hd = q.shape
+    T, hdv = k.shape[1], v.shape[3]
+    out = q.new_empty((B, S, H, hdv), dtype=torch.float32)
+    terms = len(pol.keep)
+    f32 = 4 * (q.numel() + k.numel() + v.numel() + out.numel())
+    meta.record(meta.KernelRecord(
+        "tcec_attention", (tuple(q.shape), tuple(k.shape), tuple(v.shape)),
+        pol.name, terms, float(terms) * 2 * B * H * S * T * (hd + hdv),
+        float(f32 + 4 * (S + T))))
+    return out
+
+
 def _run(plain, q, k, v, q_pos, k_pos, policy, causal, window, softcap):
     pol = get_policy(policy)
     check_policy(pol)
     _check_shapes(q, k, v)
+    if meta.is_meta(q):
+        return _meta_call(q, k, v, pol)
     qp = _positions(q_pos, q.shape[1], q.device)
     kp = _positions(k_pos, k.shape[1], q.device)
     args = (pol, bool(causal), int(0 if window is None else window),
@@ -218,9 +237,10 @@ def tcec_attention(q, k, v, q_pos=None, k_pos=None, *,
     ``H = rep * Hkv``.  ``q_pos``/``k_pos`` are (S,)/(T,) position vectors
     or batch-uniform (B, S)/(B, T) ones (default ``arange``); ``window`` 0 is
     unlimited.  Returns (B, S, H, hdv) f32.  A CUDA tensor launches the
-    kernel; a CPU tensor runs :func:`tcec_attention_plain`'s arithmetic.
+    kernel; a CPU tensor runs :func:`tcec_attention_plain`'s arithmetic; a
+    ``meta`` tensor takes the dry run's record (``kernels/meta.py``).
     """
-    if q.device.type not in ("cuda", "cpu"):
+    if q.device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"no TCEC attention for device {q.device}")
     return _run(not q.is_cuda, q, k, v, q_pos, k_pos, policy, causal, window,
                 softcap)
@@ -229,5 +249,6 @@ def tcec_attention(q, k, v, q_pos=None, k_pos=None, *,
 def tcec_attention_plain(q, k, v, q_pos=None, k_pos=None, *,
                          policy: str = "tcec_bf16x6", causal: bool = True,
                          window=0, softcap: float | None = None):
-    """Kernel 2's function in plain PyTorch, on any device."""
+    """Kernel 2's function in plain PyTorch, on any device (``meta``
+    operands take the record instead, as in :func:`tcec_attention`)."""
     return _run(True, q, k, v, q_pos, k_pos, policy, causal, window, softcap)

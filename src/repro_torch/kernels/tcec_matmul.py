@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.policy import (PrecisionPolicy, get_policy,
                                      triangular_keep)
-from . import _build
+from . import _build, meta
 
 # Activations the fused epilogue supports — the same callables the unfused
 # model path uses.  gelu is the tanh approximation, as jax.nn.gelu is.
@@ -117,6 +117,8 @@ def tcec_matmul_plain(a, b, policy="tcec_bf16x6", bias=None, activation=None,
     ``(B, M, K) @ (B, K, N)`` -> f32, with the fused epilogue.  A batched
     product whose B terms would pass ``PLAIN_CHUNK_BYTES`` is taken in
     slices of the batch, bit for bit the same products."""
+    if meta.is_meta(a):
+        return tcec_matmul_meta(a, b, policy, bias)
     pol = get_policy(policy)
     check_policy(pol)
     step = b.shape[0]
@@ -132,6 +134,23 @@ def tcec_matmul_plain(a, b, policy="tcec_bf16x6", bias=None, activation=None,
     # the epilogue once over the whole: its activations are not bitwise
     # the same on slices of another length
     return epilogue(out, bias, activation, out_scale)
+
+
+def tcec_matmul_meta(a, b, policy="tcec_bf16x6", bias=None):
+    """The ``meta`` route (``kernels/meta.py``): an empty f32 result and
+    one record, kept terms x 2 batch M N K FLOPs; nothing launches and no
+    plain version runs."""
+    pol = get_policy(policy)
+    check_policy(pol)
+    *bdims, M, K = a.shape
+    N = b.shape[-1]
+    out = a.new_empty((*bdims, M, N), dtype=torch.float32)
+    terms = len(pol.keep)
+    meta.record(meta.KernelRecord(
+        "tcec_matmul", (tuple(a.shape), tuple(b.shape)), pol.name, terms,
+        float(terms) * 2 * math.prod(bdims) * M * N * K,
+        float(meta.nbytes(a, b, bias, out))))
+    return out
 
 
 def _plain(a, b, pol):

@@ -35,7 +35,7 @@ import math
 import torch
 
 from repro_torch.core.policy import get_policy
-from . import _build
+from . import _build, meta
 from .tcec_attention import NEG_INF, _product, _terms
 from .tcec_matmul import check_policy, fold
 
@@ -264,6 +264,27 @@ def _enqueue(qt, k_pages, v_pages, block_tables, lengths, pol, window,
     return out
 
 
+def _meta_core(qt, k_pages, v_pages, block_tables, lengths, pol, window,
+               softcap, sm_denom, C):
+    """The ``meta`` route (``kernels/meta.py``): an empty (B, Hkv, rep,
+    hdv) f32 result and one record.  FLOPs are the gather-and-attend
+    composition's: kept terms x 2 B H T (hd + hdv) with T = maxp x ps, every
+    page of the tables; bytes read the tables' pages once."""
+    B, Hkv, rep, hd = qt.shape
+    ps, hdv = k_pages.shape[1], v_pages.shape[3]
+    maxp = block_tables.shape[1]
+    T = maxp * ps
+    out = qt.new_empty((B, Hkv, rep, hdv), dtype=torch.float32)
+    terms = len(pol.keep)
+    pages = B * T * Hkv * (hd + hdv) * k_pages.element_size()
+    meta.record(meta.KernelRecord(
+        "tcec_paged_attention", (tuple(qt.shape), tuple(k_pages.shape),
+                                 tuple(block_tables.shape)),
+        pol.name, terms, float(terms) * 2 * B * Hkv * rep * T * (hd + hdv),
+        float(pages + meta.nbytes(qt, block_tables, lengths, out))))
+    return out
+
+
 def _run(core, q, k_pages, v_pages, block_tables, lengths, policy, window,
          softcap, pages_per_chunk):
     pol = get_policy(policy)
@@ -280,6 +301,8 @@ def _run(core, q, k_pages, v_pages, block_tables, lengths, policy, window,
     else:
         C = max(1, min(int(pages_per_chunk), maxp))
     qt = q.float().reshape(B, Hkv, H // Hkv, hd).contiguous()
+    if meta.is_meta(qt):
+        core = _meta_core
     window = int(0 if window is None else window)
     softcap = float(softcap) if softcap else None
     out = core(qt, k_pages, v_pages, block_tables, lengths, pol, window,
@@ -307,11 +330,12 @@ def tcec_paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     i32 valid tokens including the current one (whose K/V is already in its
     page).  ``pages_per_chunk`` overrides :func:`chunk_pages` (clamped to
     1..maxp).  Returns (B, H, hdv) f32.  A CUDA tensor launches the kernel;
-    a CPU tensor runs the plain version.
+    a CPU tensor runs the plain version; a ``meta`` tensor takes the dry
+    run's record (``kernels/meta.py``).
     """
     if q.is_cuda:
         core = _launch
-    elif q.device.type == "cpu":
+    elif q.device.type in ("cpu", "meta"):
         core = _plain_core
     else:
         raise ValueError(f"no TCEC paged attention for device {q.device}")
@@ -323,6 +347,8 @@ def tcec_paged_attention_plain(q, k_pages, v_pages, block_tables, lengths, *,
                                policy: str = "tcec_bf16x6", window=0,
                                softcap: float | None = None,
                                pages_per_chunk: int | None = None):
-    """Kernel 3's function in plain PyTorch, on any device."""
+    """Kernel 3's function in plain PyTorch, on any device (``meta``
+    operands take the record instead, as in
+    :func:`tcec_paged_attention`)."""
     return _run(_plain_core, q, k_pages, v_pages, block_tables, lengths,
                 policy, window, softcap, pages_per_chunk)

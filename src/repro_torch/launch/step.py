@@ -1,4 +1,4 @@
-"""Train and prefill steps (the port's ``launch/step.py``).
+"""Train, prefill and serve steps (the port's ``launch/step.py``).
 
 A train step takes ``state = {"params", "opt"}`` and a batch of
 ``tokens`` / ``labels`` (and the enc-dec and VLM families' ``frames`` /
@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import numerics
+from repro_torch.configs import SHAPES
 from repro_torch.models import get_model
 from repro_torch.models.modules import tree_leaves, tree_map
 from repro_torch.optim import adamw
@@ -144,3 +146,98 @@ def make_prefill_step(cfg):
         return model.forward_logits(params, batch)
 
     return prefill_step
+
+
+def make_serve_step(cfg):
+    """``serve_step(params, cache, tokens, cache_index) -> (logits,
+    cache)``: one token a row against the dense cache (the family's
+    ``decode_step``; the cache is updated in place)."""
+    model = get_model(cfg)
+
+    @torch.no_grad()
+    def serve_step(params, cache, tokens, cache_index):
+        return model.decode_step(params, cache, tokens, cache_index)
+
+    return serve_step
+
+
+# ------------------------------------------------------------- tracing
+
+def lower_cell(cfg, shape_name: str, mesh, opt_cfg=None,
+               numerics_overrides: dict | None = None):
+    """Trace one (arch x shape x mesh) cell of the dry run (``shape_name``
+    a key of ``configs.SHAPES``, or a ``ShapeConfig`` of its own); returns
+    ``(record, kind)``, ``record`` being ``launch/hlo_cost.py::analyze``'s
+    per-device counts and ``kind`` ``"train"``, ``"prefill"`` or
+    ``"decode"``.
+
+    JAX's ``lower_cell`` lowers the step to HLO.  This one traces it: the
+    cell's state and inputs are ``meta`` stand-ins (``launch/specs.py``),
+    each placed as this rank's shard of its spec (``param_specs`` /
+    ``batch_specs`` / ``cache_specs`` / :func:`_opt_specs`, through
+    ``parallel/sharding.py::shard_tree``, which scatters nothing), and the
+    step runs once under ``parallel.ctx.use_mesh(mesh, batch_axes)`` and
+    ``numerics.use(**numerics_overrides)`` inside the counter.  Nothing is
+    stored and nothing launches: each kernel call leaves a record
+    (``kernels/meta.py``).  The decode cell's ``cache_index`` is the last
+    position of the cache (a Python int, as the port's decode takes; the
+    work does not depend on it)."""
+    from .hlo_cost import CostCounter, analyze
+    with numerics.use(**(numerics_overrides or {})):
+        counter = CostCounter()
+        kind, run, inputs = _cell(cfg, shape_name, mesh, opt_cfg)
+        counter.add_arguments(inputs)
+        with ctx.use_mesh(mesh, shd.batch_axes(cfg, mesh)), counter:
+            out = run()   # held through analyze: its storage is the output
+        return analyze(counter), kind
+
+
+def _place(tree, spec_tree, mesh):
+    return shd.shard_tree(tree, shd.to_shardings(spec_tree, mesh))
+
+
+def _cell(cfg, shape_name, mesh, opt_cfg):
+    """``(kind, run, inputs)``: the cell's step as a thunk over its placed
+    stand-ins, and those stand-ins."""
+    shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
+    opt_cfg = opt_cfg or adamw.OptConfig(
+        moment_dtype=("bfloat16" if cfg.shard_mode == "fsdp_tp"
+                      else "float32"),
+        factored_v=(cfg.shard_mode == "fsdp_tp"))
+
+    if shape.kind == "train":
+        state_abs = S.abstract_state(cfg, opt_cfg)
+        pspec = shd.param_specs(state_abs["params"], mesh, cfg)
+        state = _place(state_abs, {"params": pspec,
+                                   "opt": _opt_specs(state_abs["opt"],
+                                                     pspec)}, mesh)
+        batch_abs = S.input_specs(cfg, shape)
+        batch = _place(batch_abs, shd.batch_specs(cfg, mesh, batch_abs),
+                       mesh)
+        step = make_train_step(cfg, opt_cfg, reduce_grads=_reduce_once)
+        return "train", lambda: step(state, batch), [state, batch]
+
+    params_abs = S.abstract_params(cfg)
+    params = _place(params_abs, shd.param_specs(params_abs, mesh, cfg), mesh)
+    if shape.kind == "prefill":
+        batch_abs = S.input_specs(cfg, shape)
+        batch = _place(batch_abs, shd.batch_specs(cfg, mesh, batch_abs),
+                       mesh)
+        prefill = make_prefill_step(cfg)
+
+        def run():
+            # JAX's out_shardings: the logits laid out P(dp, None, model)
+            return ctx.constrain(prefill(params, batch), shd.dp_axes(mesh),
+                                 None, "model")
+        return "prefill", run, [params, batch]
+
+    tokens_abs, _, cache_abs = S.decode_specs(cfg, shape)
+    cache = _place(cache_abs, shd.cache_specs(
+        cfg, mesh, cache_abs, shape.global_batch, shape.seq_len), mesh)
+    tspec = (P(shd.dp_axes(mesh))
+             if shape.global_batch % shd.data_size(mesh) == 0 else P())
+    tokens = _place(tokens_abs, tspec, mesh)
+    serve = make_serve_step(cfg)
+    return ("decode",
+            lambda: serve(params, cache, tokens, shape.seq_len - 1),
+            [params, cache, tokens])

@@ -110,7 +110,7 @@ def mha(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
     ``model`` (context parallelism; JAX ``layers.py`` :101-116)."""
     B, S, H, hd = q.shape
     Hkv, hdv = k.shape[2], v.shape[3]
-    qg = q.reshape(B, S, Hkv, H // Hkv, hd)
+    qg = ctx.reshape(q, (B, S, Hkv, H // Hkv, hd))
     qg = ctx.constrain(qg, ctx.dp_axes(), "model", None, None, None)
     scores = pdot("bqhrd,bkhd->bhrqk", qg, k, cfg.mix_policy)
     scores = ctx.constrain(scores, ctx.dp_axes(), None, None, "model", None)
@@ -119,7 +119,7 @@ def mha(q, k, v, cfg, q_pos, k_pos, causal=True, window=0):
     probs = torch.softmax(scores.float(), dim=-1)
     out = pdot("bhrqk,bkhd->bqhrd", probs, v, cfg.mix_policy)
     out = ctx.constrain(out, ctx.dp_axes(), None, None, "model", None)
-    return out.reshape(B, S, H, hdv)
+    return ctx.reshape(out, (B, S, H, hdv))
 
 
 def blocked_attention(q, k, v, cfg, q_pos, k_pos, causal=True, window=0,
@@ -131,9 +131,10 @@ def blocked_attention(q, k, v, cfg, q_pos, k_pos, causal=True, window=0,
     the whole q chunk (``min(k_pos) > max(q_pos)``) carries only masked
     scores, so it is skipped.  The rule reads the positions, so it is right
     for any nondecreasing positions; the chunks' minima and maxima come to
-    the host together, one transfer a call, not one a chunk.  Under a mesh
-    each q chunk and its scores shard as in :func:`mha` (JAX
-    :146-158)."""
+    the host together, one transfer a call, not one a chunk.  ``meta``
+    positions (the dry run's trace) cannot be read: every chunk pair is
+    then taken, as JAX's traced loop takes them.  Under a mesh each q
+    chunk and its scores shard as in :func:`mha` (JAX :146-158)."""
     B, S, H, hd = q.shape
     T, Hkv, hdv = k.shape[1], k.shape[2], v.shape[3]
     rep = H // Hkv
@@ -141,13 +142,13 @@ def blocked_attention(q, k, v, cfg, q_pos, k_pos, causal=True, window=0,
     if S % q_chunk or T % k_chunk:
         raise ValueError(f"blocked attention needs S {S} and T {T} to be "
                          f"multiples of the chunks {q_chunk}, {k_chunk}")
-    qg = q.reshape(B, nq, q_chunk, Hkv, rep, hd)
-    kg = k.reshape(B, nk, k_chunk, Hkv, hd)
-    vg = v.reshape(B, nk, k_chunk, Hkv, hdv)
+    qg = ctx.reshape(q, (B, nq, q_chunk, Hkv, rep, hd))
+    kg = ctx.reshape(k, (B, nk, k_chunk, Hkv, hd))
+    vg = ctx.reshape(v, (B, nk, k_chunk, Hkv, hdv))
     qp = q_pos[0].reshape(nq, q_chunk)
     kp = k_pos[0].reshape(nk, k_chunk)
     live = [[True] * nk for _ in range(nq)]
-    if causal:
+    if causal and qp.device.type != "meta":
         live = (kp.amin(1)[None, :] <= qp.amax(1)[:, None]).tolist()
     scale = 1.0 / math.sqrt(hd)
     outs = []
@@ -174,7 +175,7 @@ def blocked_attention(q, k, v, cfg, q_pos, k_pos, causal=True, window=0,
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B,Hkv,rep,qc,hdv)
         outs.append(out.permute(0, 3, 1, 2, 4))           # (B,qc,Hkv,rep,hdv)
-    return torch.stack(outs, 1).reshape(B, S, H, hdv)
+    return ctx.reshape(torch.stack(outs, 1), (B, S, H, hdv))
 
 
 ATTN_BLOCK_THRESHOLD = 8192
@@ -284,7 +285,7 @@ def _decode_attend(q, ck, cv, cfg, cur_pos, window=0):
     q: (B, 1, H, hd); ck/cv: (B, T, Hkv, d); cur_pos: (B,)."""
     B, T, Hkv = ck.shape[0], ck.shape[1], ck.shape[2]
     H, hd = q.shape[2], q.shape[3]
-    qg = q.reshape(B, 1, Hkv, H // Hkv, hd)
+    qg = ctx.reshape(q, (B, 1, Hkv, H // Hkv, hd))
     s = pdot("bqhrd,bkhd->bhrqk", qg, ck, "bf16")
     s = softcap(s / math.sqrt(hd), cfg.attn_softcap)
     d = cur_pos.reshape(-1, 1).long() - torch.arange(T, device=q.device)[None]
@@ -294,7 +295,7 @@ def _decode_attend(q, ck, cv, cfg, cur_pos, window=0):
     s = torch.where(ok[:, None, None, None, :], s, NEG_INF)
     pr = torch.softmax(s.float(), dim=-1)
     o = pdot("bhrqk,bkhd->bqhrd", pr, cv, "bf16")
-    return o.reshape(B, 1, H, cv.shape[3])
+    return ctx.reshape(o, (B, 1, H, cv.shape[3]))
 
 
 def attention_decode(p, x, cfg, cache, cache_index: int, window=0):
@@ -347,8 +348,9 @@ def attention_decode_paged(p, x, cfg, pool, block_tables, lengths, window=0):
         Hkv, hd = pool["k"].shape[2], pool["k"].shape[3]
         maxp = block_tables.shape[1]
         bt = block_tables.long()
-        kg = pool["k"][bt].reshape(B, maxp * ps, Hkv, hd)
-        vg = pool["v"][bt].reshape(B, maxp * ps, Hkv, pool["v"].shape[3])
+        kg = ctx.reshape(pool["k"][bt], (B, maxp * ps, Hkv, hd))
+        vg = ctx.reshape(pool["v"][bt], (B, maxp * ps, Hkv,
+                                         pool["v"].shape[3]))
         o = _decode_attend(q, kg, vg, cfg, lengths, window)
     return pdot("bshk,hkd->bsd", o, p["wo"], cfg.policy)
 
@@ -517,9 +519,9 @@ def moe_route(p, xg, cfg):
     C = capacity(gs, cfg)
     experts = torch.arange(E, device=xg.device)
     onehot = (topi[..., None] == experts).float()          # (G, gs, K, E)
-    flat = onehot.reshape(G, gs * K, E)
+    flat = ctx.reshape(onehot, (G, gs * K, E))
     pos = torch.cumsum(flat, dim=1)
-    pos = ((pos - 1.0) * flat).sum(-1).reshape(G, gs, K)
+    pos = ctx.reshape(((pos - 1.0) * flat).sum(-1), (G, gs, K))
     return {"gates": gates, "topv": topv, "topi": topi, "onehot": onehot,
             "pos": pos, "keep": (pos < C).to(torch.bfloat16), "C": C}
 
@@ -541,7 +543,7 @@ def moe(p, x, cfg):
     N = B * S
     gs = group_size(N, cfg)
     G = N // gs
-    xg = x.reshape(G, gs, D)
+    xg = ctx.reshape(x, (G, gs, D))
     r = moe_route(p, xg, cfg)
     C = r["C"]
     posc = r["pos"].clamp(0, C - 1).long()
@@ -564,7 +566,7 @@ def moe(p, x, cfg):
     he = _act(hg, cfg.activation) * hu
     ye = pdot("gecf,efd->gecd", he, p["w_down"], cfg.policy)
     y = pdot("gsec,gecd->gsd", combine, ye.to(torch.bfloat16), "bf16")
-    y = y.reshape(B, S, D)
+    y = ctx.reshape(y, (B, S, D))
 
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], x, cfg)

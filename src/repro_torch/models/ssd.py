@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import pdot
+from repro_torch.parallel import ctx
 from .layers import rmsnorm
 from .modules import dense_init, zeros
 
@@ -99,12 +100,12 @@ def ssd_layer(p, x, cfg):
 
     A = -torch.exp(p["A_log"].float())                          # (H,) < 0
     dts = _softplus(dt.float() + p["dt_bias"])                  # (B, S, H)
-    xbar = xs.reshape(B, S, H, P) * dts[..., None]
-    cum = torch.cumsum((dts * A).reshape(B, nc, Q, G, rep), dim=2)
+    xbar = ctx.reshape(xs, (B, S, H, P)) * dts[..., None]
+    cum = torch.cumsum(ctx.reshape(dts * A, (B, nc, Q, G, rep)), dim=2)
 
-    Bc = Bm.reshape(B, nc, Q, G, N)
-    Cc = Cm.reshape(B, nc, Q, G, N)
-    Xc = xbar.reshape(B, nc, Q, G, rep, P)
+    Bc = ctx.reshape(Bm, (B, nc, Q, G, N))
+    Cc = ctx.reshape(Cm, (B, nc, Q, G, N))
+    Xc = ctx.reshape(xbar, (B, nc, Q, G, rep, P))
     tri = torch.ones(Q, Q, dtype=torch.bool, device=x.device).tril()
 
     state = x.new_zeros((B, G, rep, N, P), dtype=torch.float32)
@@ -126,9 +127,9 @@ def ssd_layer(p, x, cfg):
         cstate = pdot("bqgn,bqgrp->bgrnp", bc, xb * tail[..., None], pol)
         state = state * torch.exp(lc[:, -1])[..., None, None] + cstate
         ys.append(y_intra + y_inter)
-    y = torch.stack(ys, 1).reshape(B, S, H, P)
-    y = y + xs.reshape(B, S, H, P) * p["D_skip"][None, None, :, None]
-    y = y.reshape(B, S, d_inner) * F.silu(z)
+    y = ctx.reshape(torch.stack(ys, 1), (B, S, H, P))
+    y = y + ctx.reshape(xs, (B, S, H, P)) * p["D_skip"][None, None, :, None]
+    y = ctx.reshape(y, (B, S, d_inner)) * F.silu(z)
     y = rmsnorm(p["norm"], y, cfg.norm_eps)
     return pdot("bse,ed->bsd", y, p["w_out"], cfg.policy)
 
@@ -167,16 +168,17 @@ def ssd_decode(p, x, cfg, cache):
 
     A = -torch.exp(p["A_log"].float())
     dts = _softplus(dt[:, 0].float() + p["dt_bias"])            # (B, H)
-    dA = torch.exp(dts * A).reshape(B, G, rep)
-    xh = xs[:, 0].reshape(B, G, rep, P) * dts.reshape(B, G, rep)[..., None]
-    Bh = Bm[:, 0].reshape(B, G, N)
-    Ch = Cm[:, 0].reshape(B, G, N)
+    dA = ctx.reshape(torch.exp(dts * A), (B, G, rep))
+    xh = ctx.reshape(xs[:, 0], (B, G, rep, P)) \
+        * ctx.reshape(dts, (B, G, rep))[..., None]
+    Bh = ctx.reshape(Bm[:, 0], (B, G, N))
+    Ch = ctx.reshape(Cm[:, 0], (B, G, N))
     state = cache["state"] * dA[..., None, None] + \
         Bh[:, :, None, :, None] * xh[:, :, :, None, :]
     y = torch.einsum("bgn,bgrnp->bgrp", Ch, state)
-    y = y + xs[:, 0].reshape(B, G, rep, P) \
-        * p["D_skip"].reshape(G, rep)[None, :, :, None]
-    y = y.reshape(B, 1, d_inner) * F.silu(z)
+    y = y + ctx.reshape(xs[:, 0], (B, G, rep, P)) \
+        * ctx.reshape(p["D_skip"], (G, rep))[None, :, :, None]
+    y = ctx.reshape(y, (B, 1, d_inner)) * F.silu(z)
     y = rmsnorm(p["norm"], y, cfg.norm_eps)
     out = pdot("bse,ed->bsd", y, p["w_out"], cfg.policy)
     return out, {"conv_x": ncx, "conv_b": ncb, "conv_c": ncc, "state": state}

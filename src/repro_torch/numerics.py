@@ -240,8 +240,9 @@ ENV_VARS: dict[str, EnvVar] = {v.name: v for v in [
            "XLA only (bf16 dots in lowered HLO): 1 raises.",
            field="keep_bf16_dots"),
     EnvVar("REPRO_DRYRUN_DEVICES", "int", 0,
-           "Dry-run device count: the port has no dry-run launcher yet "
-           "(ROADMAP item 19) and reads it nowhere."),
+           "Dry-run world size for launch.mesh.make_production_mesh (0 = "
+           "the production 256- or 512-rank fake world); tests use a "
+           "small one."),
     EnvVar("REPRO_BENCH_OUT", "path", "experiments/bench",
            "Benchmark output directory: the port has no benchmark yet "
            "(ROADMAP item 18) and reads it nowhere."),

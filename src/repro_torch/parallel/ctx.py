@@ -144,6 +144,122 @@ def local_like(x, ref):
     return x.to_local()
 
 
+def is_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor split or pending a sum over a mesh dim of
+    more than one rank."""
+    return is_dtensor(x) and any(
+        not p.is_replicate() and x.device_mesh.size(m) > 1
+        for m, p in enumerate(x.placements))
+
+
+def evenly(x):
+    """``x`` with every uneven shard made whole: a DTensor sharded on a dim
+    its mesh dims do not divide (DTensor's product rules pick such
+    shardings, and its views then refuse them) is redistributed to
+    ``Replicate`` on those mesh dims; anything else is returned as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    per_dim = _ranks_per_dim(x)
+    keep = tuple(Replicate() if p.is_shard()
+                 and x.shape[p.dim] % per_dim[p.dim] else p
+                 for p in x.placements)
+    if keep == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, keep)
+
+
+def _ranks_per_dim(x) -> dict[int, int]:
+    """``{tensor dim: ranks it is split over}`` of a DTensor's shards."""
+    out: dict[int, int] = {}
+    for m, p in enumerate(x.placements):
+        if p.is_shard():
+            out[p.dim] = out.get(p.dim, 1) * x.device_mesh.size(m)
+    return out
+
+
+def _groups(old, new):
+    """The contiguous dim groups of a reshape ``old -> new``: pairs of
+    (old dims, new dims) whose sizes have equal products."""
+    out, i, j = [], 0, 0
+    while i < len(old) and j < len(new):
+        a, b, pa, pb = [i], [j], old[i], new[j]
+        i, j = i + 1, j + 1
+        while pa != pb:
+            if pa < pb and i < len(old):
+                pa *= old[i]
+                a.append(i)
+                i += 1
+            elif j < len(new):
+                pb *= new[j]
+                b.append(j)
+                j += 1
+            else:
+                break
+        out.append((a, b))
+    return out
+
+
+def reshape(x, shape):
+    """``x.reshape(shape)``, for a DTensor too where a sharded dim cannot
+    keep its sharding through the reshape: DTensor's view refuses to split
+    a dim sharded over n ranks unless the split's leading size divides by
+    n (and, sharded over several mesh dims, checks each mesh dim alone, so
+    that an uneven split passes and gives wrong local shapes), and to
+    flatten a group unless its leading dim carries the sharding.  Such a
+    mesh dim is made whole first (an all-gather), as XLA reshards ahead of
+    such a reshape; every other placement is kept.  The gradient goes back
+    through the same rule.  A plain tensor is reshaped directly."""
+    shape = tuple(shape)
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    if -1 in shape:
+        known = 1
+        for n in shape:
+            known *= n if n != -1 else 1
+        shape = tuple(x.numel() // known if n == -1 else n for n in shape)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Reshape.apply(x, shape)
+    return _reshape(x, shape)
+
+
+class _Reshape(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, shape):
+        fctx.shape = tuple(x.shape)
+        return _reshape(x, shape)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _reshape(g, fctx.shape), None
+
+
+def _reshape(x, shape):
+    from torch.distributed.tensor import Replicate
+    old = tuple(x.shape)
+    where = {}
+    for a, b in _groups(old, shape):
+        for d in a:
+            where[d] = (a, b)
+    per_dim = _ranks_per_dim(x)
+    keep = []
+    for p in x.placements:
+        ok = True
+        if p.is_shard() and p.dim in where:
+            a, b = where[p.dim]
+            n = per_dim[p.dim]
+            lead = next((shape[j] for j in b if shape[j] != 1), 1)
+            if len(a) == 1:
+                ok = len(b) == 1 or lead % n == 0
+            else:
+                ok = len(b) == 1 and p.dim == a[0] and old[a[0]] % n == 0
+        keep.append(p if ok else Replicate())
+    if tuple(keep) != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, keep)
+    return x.reshape(shape)
+
+
 def full(x):
     """The whole tensor of a DTensor (gathered on every rank), else
     ``x``."""
