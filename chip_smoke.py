@@ -4863,6 +4863,404 @@ def dryrun_path(dev):
     return a["launches"]
 
 
+# ------------------------------------------------------------ phase 19
+#
+# Every non-dense family under a mesh: a child process with one rank over
+# NCCL on a (1, 1) mesh (19b), as 17b is for qwen3; then 19c, the
+# vocab-parallel loss at qwen3's full-width loss shape on two ranks over
+# gloo on the one card.  Each writes ``chiprun_out/phase17_19*.json``
+# (``_p17_out``).
+
+# the shmap wrappers each config's runs reach: kernel 3 only through the
+# engine's paged decode (MLA decodes in the latent space, the dense cache
+# attends in plain bf16), kernel 2 wherever a forward attends
+P19_REACH = {"granite-moe-1b-a400m": ("matmul", "attention", "paged"),
+             "deepseek-v3-671b": ("matmul", "attention"),
+             "mamba2-130m": ("matmul",),
+             "zamba2-1.2b": ("matmul", "attention"),
+             "internvl2-2b": ("matmul", "attention"),
+             "seamless-m4t-large-v2": ("matmul", "attention")}
+P19_ENGINE = ("granite-moe-1b-a400m", "deepseek-v3-671b")
+P19_TRAIN = ("granite-moe-1b-a400m", "mamba2-130m", "zamba2-1.2b",
+             "internvl2-2b", "seamless-m4t-large-v2")
+# depth cuts that keep phase 19 near 250 s: under the mesh each eager
+# decode step pays DTensor's host cost on every op (on the H100, at full
+# depth, zamba2's 38 layers took 77 s, seamless's 24 + 24 79 s; with those
+# two halved, internvl2's 24 65 s and mamba2's 24 32 s); widths stay
+P19_DEPTH = {"zamba2-1.2b": dict(n_layers=19),
+             "seamless-m4t-large-v2": dict(n_layers=12, n_enc_layers=12),
+             "internvl2-2b": dict(n_layers=12),
+             "mamba2-130m": dict(n_layers=12)}
+
+
+def _p19_dense(cfg, params, dev, B=4, P=64, gen=16, T=512):
+    """Phases 9a / 10c's ``generate_dense`` run (``B`` greedy prompts of
+    ``P`` tokens, ``gen`` generated) under the installed mesh, if any; for
+    the enc-dec family 10a's served run in its place: ``prefill_cross`` on
+    B x T stub frames, then the same loop over ``decode_step``, the cache
+    laid out by ``cache_specs`` under a mesh as ``generate_dense`` lays out
+    its own.  Returns (tokens, seconds, the generated steps' ms)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    model = get_model(cfg)
+    mod = model.module
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (B, P))
+    steps, step = [], mod.decode_step
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = step(*a, **kw)
+        _sync(dev)
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    mod.decode_step = timed
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        if cfg.family != "audio":
+            out = serve.generate_dense(cfg, params, prompts, gen, device=dev)
+        else:
+            frames = torch.from_numpy(rng.standard_normal(
+                (B, T, cfg.frontend_dim)).astype(np.float32)).to(dev)
+            cache = model.init_cache(B, P + gen + 1, mem_len=T, device=dev)
+            mesh = ctx.current_mesh()
+            if mesh is not None:
+                cache = shd.shard_tree(cache, shd.to_shardings(
+                    shd.cache_specs(cfg, mesh, cache, B, P + gen + 1),
+                    mesh))
+            toks, picked = torch.from_numpy(prompts).to(dev), []
+            with torch.no_grad():
+                mod.prefill_cross(params, frames, cfg, cache)
+                for i in range(P):
+                    logits, cache = model.decode_step(params, cache,
+                                                      toks[:, i], i)
+                for i in range(gen):
+                    tok = torch.argmax(ctx.full(logits)[:, :cfg.vocab_size],
+                                       dim=-1)
+                    picked.append(tok)
+                    logits, cache = model.decode_step(params, cache, tok,
+                                                      P + i)
+            out = torch.stack(picked, 1).cpu().numpy()
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    finally:
+        mod.decode_step = step
+    fed = P if model.prefill is None else 0
+    return out.tolist(), dt, steps[fed:]
+
+
+def _p19_train(cfg, params, dev, mesh, on_card, rows, launches, calls):
+    """The train step (8 x 128; the SSM families 4 x 256, a whole chunk)
+    unsharded and under the mesh, each once to warm and once timed: the
+    loss and every parameter and moment bitwise (the unsharded state is
+    held on the host meanwhile, so that the card holds two states, not
+    three)."""
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.kernels import shmap
+    from repro_torch.launch.step import make_sharded_train_step, \
+        make_train_step
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    ssm = cfg.family in ("ssm", "hybrid")
+    data = DataConfig(seed=0, global_batch=4 if ssm else 8,
+                      seq_len=cfg.ssm_chunk if ssm else 128)
+    opt = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    batch = device_batch(cfg, data, 0, dev)
+    state = {"params": params, "opt": adamw.init_state(params, opt)}
+    step, sh, sharder = make_sharded_train_step(cfg, opt, mesh)
+    sstate, sbatch = shd.shard_tree(state, sh), sharder(batch)
+    times, peaks = {}, {}
+    for name, fn, st, b in (("unsharded", make_train_step(cfg, opt), state,
+                             batch), ("mesh", step, sstate, sbatch)):
+        fn(st, b)                                    # warm
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        if name == "mesh":
+            _p17_zero()
+            shmap.reset_counters()
+        t0 = time.perf_counter()
+        new, met = fn(st, b)
+        float(met["loss"])
+        times[name] = (time.perf_counter() - t0) * 1e3
+        peaks[name] = (torch.cuda.max_memory_allocated() / 1e9 if on_card
+                       else None)
+        if name == "unsharded":
+            ref = [t.cpu() for t in tree_leaves(new)]
+            ref_met = {k: v.cpu() for k, v in met.items()}
+            del new, met
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+    for k, v in _p17_launches().items():
+        launches[k] = launches.get(k, 0) + v
+    for k, v in shmap.counters().items():
+        calls[k] = calls.get(k, 0) + v
+    loss_same = torch.equal(met["loss"].cpu(), ref_met["loss"])
+    same = loss_same and all(torch.equal(ctx.full(a).cpu(), b)
+                             for a, b in zip(tree_leaves(new), ref))
+    rows.append({"config": cfg.name, "train_step": f"{data.global_batch} x "
+                 f"{data.seq_len} under the (1, 1) mesh",
+                 "loss": float(met["loss"]), "loss_bitwise": loss_same,
+                 "state_bitwise": same, "step_ms": times["mesh"],
+                 "unsharded_step_ms": times["unsharded"],
+                 "peak_gb": peaks["mesh"],
+                 "unsharded_peak_gb": peaks["unsharded"]})
+    check(same, f"19b {cfg.name}: the train step's loss and state bitwise "
+          "the unsharded step's")
+    del new, state, sstate, ref
+
+
+def _p19_one_rank(rank, on_card):
+    """19b: one rank over NCCL, a (1, 1) mesh; each config at full width
+    from seed-0 weights, deepseek-v3-671b at phase 13's 4 layers, zamba2
+    and seamless at the depths of ``P19_DEPTH``: the
+    serving tokens (the engine for granite and deepseek, with its decode
+    graph captured and replayed under the mesh; ``_p19_dense`` for the
+    others) equal the unsharded run's, the train step bitwise (not
+    deepseek's: its full-width training waits for parameter sharding
+    across cards), every wrapper the config reaches ran, and no plain
+    version was called.  Deterministic algorithms, as in 17b."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    get_config = _p17_setup(on_card)
+    from repro_torch.kernels import shmap
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    dev = torch.device("cuda" if on_card else "cpu")
+    t_all = time.perf_counter()
+    mesh = make_host_mesh(1, device=dev.type)
+    backend = torch.distributed.get_backend()
+    rows, launches, reached = [], {}, {}
+    plain, restore = counted_plain_versions()
+    for arch in P19_REACH:
+        t_cfg = time.perf_counter()
+        cfg = deepseek_config() if arch == DEEPSEEK else get_config(arch)
+        cfg = cfg.replace(**{k: min(v, getattr(cfg, k)) for k, v in
+                             P19_DEPTH.get(arch, {}).items()})
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        params = get_model(cfg).init(seed=0, device=dev)
+        sharded = shd.shard_tree(params, shd.to_shardings(
+            shd.param_specs(params, mesh, cfg), mesh))
+        calls = {}
+        if arch in P19_ENGINE:
+            _p17_engine(cfg, params, dev)                   # warm, capture
+            base = _p17_engine(cfg, params, dev)
+            rows.append(dict(_p17_step_row("unsharded", *base[:4]),
+                             config=arch))
+            shmap.reset_counters()
+            _p17_zero()
+            run = _p17_engine(cfg, sharded, dev, mesh=mesh)
+            stats = run[1]
+            row = dict(_p17_step_row("mesh (1, 1) " + backend, *run[:4]),
+                       config=arch)
+            same = run[0] == base[0]
+            check(not on_card or (stats["decode_graph"]
+                                  and stats["graph_replays"]
+                                  == stats["decode_steps"]),
+                  f"19b {arch}: the decode graph is captured and replayed "
+                  "under the mesh")
+        else:
+            _p19_dense(cfg, params, dev, P=4, gen=2)        # warm
+            base = _p19_dense(cfg, params, dev)
+            rows.append({"config": arch, "run": "unsharded",
+                         "seconds": base[1],
+                         "tokens_per_s": 4 * 16 / base[1],
+                         "decode_step_ms_median": float(np.median(base[2]))})
+            shmap.reset_counters()
+            _p17_zero()
+            with ctx.use_mesh(mesh):
+                run = _p19_dense(cfg, sharded, dev)
+            row = {"config": arch, "run": "mesh (1, 1) " + backend,
+                   "seconds": run[1], "tokens_per_s": 4 * 16 / run[1],
+                   "decode_step_ms_median": float(np.median(run[2])),
+                   "decode_step_ms_p90": float(np.percentile(run[2], 90))}
+            same = run[0] == base[0]
+        for k, v in _p17_launches().items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in shmap.counters().items():
+            calls[k] = calls.get(k, 0) + v
+        row["tokens_equal"] = same
+        row["serve_peak_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                                if on_card else None)
+        rows.append(row)
+        check(same, f"19b {arch}: tokens under the (1, 1) mesh == the "
+              "unsharded run's")
+        del sharded
+        if arch in P19_TRAIN:
+            _p19_train(cfg, params, dev, mesh, on_card, rows, launches,
+                       calls)
+        check(all(calls.get(k, 0) > 0 for k in P19_REACH[arch]),
+              f"19b {arch}: every wrapper it reaches ran ({calls})")
+        reached[arch] = calls
+        rows.append({"config": arch, "seconds": time.perf_counter() - t_cfg})
+        del params
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    restore()
+    check(not on_card or sum(plain.values()) == 0,
+          f"19b: plain versions called {plain}")
+    _p17_out("19b", rank).write_text(json.dumps({
+        "rows": rows, "launches": launches, "wrapper_calls": reached,
+        "backend": backend, "plain_calls": plain,
+        "seconds": time.perf_counter() - t_all}))
+
+
+def _p19_loss_grad64(logits, labels, z_loss_w=1e-4):
+    """The gradient of ``lm.cross_entropy`` in closed form, in f64:
+    ``(softmax (1 + 2 z logz) - onehot) mask / tokens``."""
+    mask = (labels >= 0).double()
+    w = mask / mask.sum().clamp_min(1.0)
+    g = logits.double()
+    logz = torch.logsumexp(g, dim=-1)
+    g.sub_(logz[..., None]).exp_().mul_(((1 + 2 * z_loss_w * logz) * w)[
+        ..., None])
+    g.scatter_add_(-1, labels.clamp_min(0).long()[..., None], -w[..., None])
+    return g
+
+
+def _p19_loss(rank, on_card, store, shape):
+    """19c: ``lm.cross_entropy`` on (B, S, V) f32 logits drawn from a seed
+    (qwen3's full-width loss shape on the card), split over the vocab on a
+    (1, 2) mesh of two ranks over gloo on the one card, against the
+    unsharded loss computed in each rank: the loss within 1e-6 relative,
+    this rank's gradient shard within 1e-6 of ``max|g|`` of the gradient
+    computed in f64, and the peak allocated above what was live when the
+    loss began (the logits' shard) below the global logits' bytes.  The
+    unsharded f32 gradient's distance to the shard and to f64 is
+    reported: a row's f32 log-normalizer (about 20 here) is known to one
+    unit in the last place, 1.9e-6, and each gradient entry carries that
+    relative error times its probability, in the unsharded gradient as in
+    the shard.  Only ``c10d`` all-reduces are used (17a's probe finds them
+    on the card)."""
+    import faulthandler
+    faulthandler.enable()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        from repro_torch.models.lm import cross_entropy
+        from repro_torch.parallel import ctx
+        from repro_torch.parallel import sharding as shd
+        dev = torch.device("cuda" if on_card else "cpu")
+        mesh = init_device_mesh(dev.type, (1, 2),
+                                mesh_dim_names=("data", "model"))
+        B, S, V = shape
+        g = torch.Generator(dev).manual_seed(19)
+        logits = torch.randn((B, S, V), generator=g, device=dev) * 4
+        labels = torch.randint(0, V, (B, S), generator=g, device=dev)
+        labels[0, :7] = -1
+        placements = shd.to_placements(shd.P("data", None, "model"), mesh)
+        x = logits.clone().requires_grad_()
+        ref, _ = cross_entropy(x, labels)
+        (g,) = torch.autograd.grad(ref, x)
+        ref, f32 = float(ref), shd.local_shard(g, mesh, placements).clone()
+        del x, g
+        exact = _p19_loss_grad64(logits, labels)
+        exact = shd.local_shard(exact, mesh, placements).clone()
+        scale = float(exact.abs().max())
+        xd = shd.distribute(logits, mesh, placements).requires_grad_()
+        del logits
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with ctx.use_mesh(mesh):
+            loss, _ = cross_entropy(xd, labels)
+            (gd,) = torch.autograd.grad(loss, xd)
+        loss = float(loss.to_local())
+        dt = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base if on_card
+                else None)
+        here = gd.to_local()
+
+        def err(a, b):
+            return float((a.double() - b.double()).abs().max()) / scale
+        row = {"rank": rank, "shape": [B, S, V], "loss": loss,
+               "unsharded_loss": ref,
+               "loss_rel_err": abs(loss - ref) / abs(ref),
+               "grad_err_over_max": err(here, exact),
+               "grad_vs_unsharded_f32_over_max": err(here, f32),
+               "unsharded_f32_vs_f64_over_max": err(f32, exact),
+               "grad_placements": str(tuple(gd.placements)),
+               "peak_above_inputs_bytes": peak,
+               "global_logits_bytes": 4 * B * S * V, "ms": dt}
+        _p17_out("19c", rank).write_text(json.dumps(row))
+    finally:
+        dist.destroy_process_group()
+
+
+def family_mesh_path(dev):
+    """Phase 19: returns 19b's launches."""
+    import torch.multiprocessing as mp
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    for f in out_dir.glob("phase17_19*"):
+        f.unlink()
+    rec = RECORD["phase19"] = {"card": RECORD.get("nvidia_smi")}
+    t0 = time.perf_counter()
+    mp.start_processes(_p19_one_rank, args=(on_card,), nprocs=1, join=True,
+                       start_method="spawn")
+    b = json.loads(_p17_out("19b", 0).read_text())
+    rec["19b"] = b
+    for row in b["rows"]:
+        emit({"phase19b": row})
+    emit({"phase19b_s": time.perf_counter() - t0, "backend": b["backend"],
+          "wrapper_calls": b["wrapper_calls"]})
+    # 19c where 17a found gloo's all-reduce on the card's tensors
+    probe = RECORD.get("phase17", {}).get("17a") or _p17_probe(on_card)
+    t0 = time.perf_counter()
+    if probe.get("c10d all_reduce") == "ok":
+        shape = (8, 128, 151936) if on_card else (4, 16, 1024)
+        mp.start_processes(_p19_loss, args=(on_card, str(
+            out_dir / "phase19_store"), shape), nprocs=2, join=True,
+            start_method="spawn")
+        c = [json.loads(_p17_out("19c", r).read_text()) for r in (0, 1)]
+        rec["19c"] = c
+        for row in c:
+            emit({"phase19c": row})
+        check(all(r["loss_rel_err"] <= 1e-6 for r in c),
+              "19c: the vocab-parallel loss within 1e-6 of the unsharded")
+        check(all(r["grad_err_over_max"] <= 1e-6 for r in c),
+              "19c: each gradient shard within 1e-6 of max|g| of the f64 "
+              "gradient")
+        check(not on_card or all(r["peak_above_inputs_bytes"]
+                                 < r["global_logits_bytes"] for r in c),
+              "19c: each rank's peak below the global logits' bytes")
+    else:
+        rec["19c"] = ("not run: gloo's all_reduce on the card's tensors "
+                      f"failed in 17a's probe ({probe.get('c10d all_reduce')}"
+                      "); the CPU tests hold the loss on two ranks")
+        emit({"phase19c": rec["19c"]})
+    emit({"phase19c_s": time.perf_counter() - t0})
+    rec["launches"] = b["launches"]
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit({"phase19_s": rec["seconds"], "launches": b["launches"]})
+    return b["launches"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -4991,6 +5389,7 @@ def main():
     prefix_launches, prefix_f32 = prefix_path(dev)  # phase 16
     parallel_launches = parallel_path(dev)         # phase 17
     dryrun_launches = dryrun_path(dev)             # phase 18
+    family_mesh_launches = family_mesh_path(dev)   # phase 19
 
     src = "src/repro_torch/csrc/{}.cu"
     rep = "src/repro/kernels/{}"
@@ -5012,6 +5411,7 @@ def main():
                 count += prefix_launches[name]
             count += parallel_launches[name]
             count += dryrun_launches.get(name, 0)
+            count += family_mesh_launches.get(name, 0)
         kernels.append({
             "name": name, "route": "cuda",
             "source": src.format("tcec_paged_attention"

@@ -5,8 +5,8 @@ Token/label batches come from a counter-based numpy generator seeded by
 ``(seed, step, host)``, so a restart replays the exact stream, and each
 host makes only its slice of the global batch.  The numpy code is the JAX
 package's, so a batch is bitwise the one JAX makes for the same
-``(seed, step, host)``.  Only the text-only families are ported: the VLM
-and audio stubs' extra inputs raise.
+``(seed, step, host)``, the VLM family's patches and the enc-dec
+family's frames included.
 """
 from __future__ import annotations
 

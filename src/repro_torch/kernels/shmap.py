@@ -55,7 +55,8 @@ import torch.distributed as dist
 
 from repro_torch import numerics
 from repro_torch.obs import metrics as _metrics
-from repro_torch.parallel.ctx import axis_names, axis_shape, is_dtensor
+from repro_torch.parallel.ctx import (axis_names, axis_shape, is_dtensor,
+                                      local_in)
 from repro_torch.parallel.sharding import P, to_placements
 
 # Cache namespace for per-shard tuning keys: ``backend/shmap/...``.
@@ -303,14 +304,7 @@ def paged_plan(q_shape, pool_shape, mesh) -> PagedPlan | None:
 def _enter(x, mesh, spec):
     """The local shard of ``x`` (a DTensor, or a plain tensor taken as
     replicated) under ``spec``'s placements."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if not is_dtensor(x):
-        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
-    placements = to_placements(spec, mesh)
-    if tuple(x.placements) != placements:
-        x = x.redistribute(mesh, placements)
-    return x.to_local()
+    return local_in(x, mesh, to_placements(spec, mesh))
 
 
 def _leave(local, mesh, spec, shape, as_dtensor: bool):
@@ -363,13 +357,15 @@ def sharded_matmul(a, b, *, policy: str, mesh, cfg=None,
 
 def _pos_2d(pos, B, n, device):
     """Global (B, n) i32 positions, made before the shard so that a
-    q-sequence shard sees its true global offsets, not a local arange."""
+    q-sequence shard sees its true global offsets, not a local arange.  A
+    (1, n) row (the cross-attention's) is every row's, and is broadcast
+    before the batch is split."""
     if pos is None:
         pos = torch.arange(n, dtype=torch.int32, device=device)
     pos = torch.as_tensor(pos, device=device).to(torch.int32)
     if pos.ndim == 1:
-        pos = pos[None].expand(B, n)
-    return pos.contiguous()
+        pos = pos[None]
+    return pos.expand(B, n).contiguous()
 
 
 def sharded_attention(q, k, v, q_pos=None, k_pos=None, *, policy: str,

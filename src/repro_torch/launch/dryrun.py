@@ -127,6 +127,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     rec["lower_s"] = round(time.time() - t0, 1)
     rec["compile_s"] = 0.0
     rec["memory"] = hc["memory"]
+    rec["largest_allocation"] = hc["largest_allocation"]
     rec["hlo_flops_per_device"] = hc["dot_flops"]
     rec["flops_by_dtype"] = hc["dot_flops_by_dtype"]
     rec["hlo_bytes_per_device"] = hc["bytes"]

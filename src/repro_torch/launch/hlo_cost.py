@@ -40,7 +40,9 @@ Per device, :func:`analyze` gives JAX's keys:
     ``argument_size_in_bytes`` (the step's inputs, this rank's shards),
     ``output_size_in_bytes`` (storage the step made that is still held at
     its end) and ``temp_size_in_bytes`` (the peak above both), and
-    ``peak_size_in_bytes`` (the peak of all live storage, inputs included).
+    ``peak_size_in_bytes`` (the peak of all live storage, inputs included);
+  * ``largest_allocation`` (the port's own): the bytes, shape and op of
+    the largest single storage a local op made.
 """
 from __future__ import annotations
 
@@ -147,6 +149,7 @@ class CostCounter(TorchDispatchMode):
         self.argument_bytes = 0
         self._cur = 0
         self.peak = 0
+        self.largest = (0, (), "")     # bytes, shape, op of one allocation
         self._sink = None
 
     # ------------------------------------------------------------ memory
@@ -243,6 +246,9 @@ class CostCounter(TorchDispatchMode):
         for t in _tensors(out):
             if t.device.type == "meta":
                 self._track(t)
+                n = t.untyped_storage().nbytes()
+                if n > self.largest[0]:
+                    self.largest = (n, tuple(t.shape), name)
         coll = _COLLECTIVES.get(name)
         if coll is not None:
             ob = sum(_size(t) for t in _tensors(args[0] if args else ()))
@@ -293,5 +299,8 @@ def analyze(counter: CostCounter) -> dict:
         "top_dots": counter.top_dots[:12],
         "kernels": {k: dict(v) for k, v in counter.kernels.items()},
         "memory": counter.memory(),
+        "largest_allocation": {"bytes": counter.largest[0],
+                               "shape": list(counter.largest[1]),
+                               "op": counter.largest[2]},
         "ops": sum(counter.ops.values()),
     }

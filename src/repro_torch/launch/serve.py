@@ -14,13 +14,16 @@ Two code paths, as in the JAX package:
   * :func:`generate_dense` is the dense-cache loop: the engine's
     verification oracle, and the only path of the families without a
     paged decode path (SSM, hybrid, enc-dec, VLM), to which ``generate``
-    and the CLI fall back.  Its prompt prefill is one forward where the
-    family has ``prefill``; otherwise the prompt is fed through
-    ``decode_step`` one token at a time, as JAX does.  For the enc-dec and
-    VLM families it drives the decoder / LM path only, as JAX's does: the
-    enc-dec decoder attends over a cross cache of zeros (nothing calls
-    ``encdec_lm.prefill_cross``, whose serving path is ``prefill_cross``
-    then ``decode_step``), and the VLM loop is text only.
+    and the CLI fall back.  Under an installed mesh its cache is laid out
+    by ``parallel.sharding.cache_specs`` and each step's logits are made
+    whole over the vocab before the token is picked.  Its prompt prefill
+    is one forward where the family has ``prefill``; otherwise the prompt
+    is fed through ``decode_step`` one token at a time, as JAX does.  For
+    the enc-dec and VLM families it drives the decoder / LM path only, as
+    JAX's does: the enc-dec decoder attends over a cross cache of zeros
+    (nothing calls ``encdec_lm.prefill_cross``, whose serving path is
+    ``prefill_cross`` then ``decode_step``), and the VLM loop is text
+    only.
 
 Parameters are random, from ``--seed``; prompts are random tokens.
 ``--numerics KEY=VALUE`` (repeatable) sets fields of the numerics config the
@@ -38,19 +41,21 @@ JSONL for ``.jsonl``); ``--metrics-out PATH`` writes the metrics snapshot;
 either prints the dispatch-explain summary.  ``REPRO_FAULTS`` runs the CLI
 under a fault plan (``repro_torch.faults``).
 
-``--mesh-model N`` serves under a ``(world / N, N)`` ``("data", "model")``
-mesh (``launch/mesh.py::make_host_mesh``): the parameters are laid out by
-``parallel.sharding.param_specs``, the engine shards its page pools (KV
-heads on ``model``) and every kernel runs per shard
-(``kernels/shmap.py``).  The world is the one ``torchrun`` gives
-(``torchrun --nproc-per-node 2 -m repro_torch.launch.serve ...``), or this
-process alone; rank 0 prints the mesh and the results.  ``--backend`` is
-NCCL by default on the card; two ranks on one card need ``--backend
-gloo`` (NCCL refuses them), and then decode runs eagerly.
+``--mesh-model N`` serves every family under a ``(world / N, N)``
+``("data", "model")`` mesh (``launch/mesh.py::make_host_mesh``): the
+parameters are laid out by ``parallel.sharding.param_specs``, the engine
+shards its page pools (KV heads on ``model``), ``generate_dense`` its
+cache, and every kernel runs per shard (``kernels/shmap.py``).  The world
+is the one ``torchrun`` gives (``torchrun --nproc-per-node 2 -m
+repro_torch.launch.serve ...``), or this process alone; rank 0 prints
+the mesh and the results.  ``--backend`` is NCCL by default on the card;
+two ranks on one card need ``--backend gloo`` (NCCL refuses them), and
+then decode runs eagerly.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -60,6 +65,8 @@ from repro_torch import numerics, obs, resolve_device
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.models import get_model
 from repro_torch.models.modules import tree_map
+from repro_torch.parallel import ctx
+from repro_torch.parallel import sharding as shd
 from repro_torch.serving import (DEFAULT_PAGE_SIZE, Engine, EngineOverloaded,
                                  SamplingParams)
 
@@ -86,6 +93,10 @@ def generate_dense(cfg, params, prompts, gen_len: int, greedy=True, seed=0,
     prompts = torch.as_tensor(np.asarray(prompts), device=device)
     B, P = prompts.shape
     cache = model.init_cache(B, P + gen_len + 1, device=device)
+    mesh = ctx.current_mesh()
+    if mesh is not None and ctx.is_device_mesh(mesh):
+        cache = shd.shard_tree(cache, shd.to_shardings(shd.cache_specs(
+            cfg, mesh, cache, B, P + gen_len + 1), mesh))
     with torch.no_grad():
         if model.prefill is not None:
             logits_all, kv = model.prefill(params, prompts)
@@ -98,7 +109,7 @@ def generate_dense(cfg, params, prompts, gen_len: int, greedy=True, seed=0,
         gen = None if greedy else torch.Generator(device).manual_seed(seed)
         out = []
         for i in range(gen_len):
-            lv = logits[:, :cfg.vocab_size]
+            lv = ctx.full(logits)[:, :cfg.vocab_size]   # vocab made whole
             if greedy:
                 tok = torch.argmax(lv, dim=-1)
             else:
@@ -211,10 +222,6 @@ def _main(args):
     model = get_model(cfg)
     params = model.init(args.seed, device=device)
     if mesh is not None:
-        if model.decode_step_paged is None:
-            raise ValueError(f"--mesh-model serves through the engine; "
-                             f"family {cfg.family!r} has none")
-        from repro_torch.parallel import sharding as shd
         params = shd.shard_tree(params, shd.to_shardings(
             shd.param_specs(params, mesh, cfg), mesh))
     rng = np.random.default_rng(args.seed)
@@ -224,14 +231,16 @@ def _main(args):
         prompts[:, :n] = prompts[0, :n]
     if model.decode_step_paged is None:
         t0 = time.perf_counter()
-        out = generate_dense(cfg, params, prompts, args.gen,
-                             greedy=args.temperature <= 0, seed=args.seed,
-                             device=device)
+        with (ctx.use_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            out = generate_dense(cfg, params, prompts, args.gen,
+                                 greedy=args.temperature <= 0,
+                                 seed=args.seed, device=device)
         dt = time.perf_counter() - t0
-        print(f"generate_dense on {device}: {out.shape} in {dt:.2f}s "
-              f"({out.size / dt:.1f} tok/s, kernel builds on a first run "
-              "included)")
-        print("sample:", out[0][:16].tolist())
+        say(f"generate_dense on {device}: {out.shape} in {dt:.2f}s "
+            f"({out.size / dt:.1f} tok/s, kernel builds on a first run "
+            "included)")
+        say("sample:", out[0][:16].tolist())
         return
     ps = DEFAULT_PAGE_SIZE
     pages = -(-(args.prompt_len + args.gen + 1) // ps)

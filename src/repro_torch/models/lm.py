@@ -296,14 +296,21 @@ def cross_entropy(logits, labels, z_loss_w: float = 1e-4):
     """Masked CE with z-loss; labels < 0 are ignored.  Returns ``(loss,
     tokens counted)``.  The label's logit is gathered, where JAX sums
     against a one-hot: the same value, without a (B, S, V) one-hot.
-    Under a mesh the logits' vocab dim is gathered first (JAX constrains
-    its one-hot to the vocab on ``model``, :297-302; DTensor's rule for a
-    gather along a sharded dim does not hold here)."""
+    Under a mesh whose ``model`` axis splits the vocab (JAX :294-307 keeps
+    it split and constrains its one-hot there) the log-normalizer and the
+    label's logit come from each rank's shard
+    (``parallel.ctx.logz_and_pick``: reductions over ``model``), so no
+    rank holds the whole vocab; with the vocab whole the code is the
+    unsharded one."""
     mask = (labels >= 0).float()
     lbl = labels.clamp_min(0).long()
-    logits = ctx.constrain(logits.float(), ctx.dp_axes(), None, None)
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, lbl[..., None])[..., 0]
+    logits = logits.float()
+    if ctx.vocab_split(logits) is not None:
+        logz, ll = ctx.logz_and_pick(logits, lbl)
+    else:
+        logits = ctx.constrain(logits, ctx.dp_axes(), None, None)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, lbl[..., None])[..., 0]
     nll = (logz - ll) * mask
     zl = z_loss_w * logz.square() * mask
     denom = mask.sum().clamp_min(1.0)

@@ -22,6 +22,7 @@ import math
 import torch
 
 from repro_torch.core import pdot
+from repro_torch.parallel import ctx
 from .layers import NEG_INF, rmsnorm, rope, sdpa
 from .modules import dense_init, zeros
 
@@ -171,6 +172,28 @@ def mla_decode(p, x, cfg, cache, cache_index: int):
     return out, cache
 
 
+def _write_token(dst, page, off, new):
+    """``dst[page, off] = new`` in place, for a pool leaf (NP, ps, r) that
+    a mesh may split (``serving.engine._pool_spec`` puts the page-offset
+    dim on ``model``): each rank writes the rows whose offset it holds,
+    and sends the others to its slot (0, 0), the scrap page's, so that
+    every shape stays static and the decode graph captures the write."""
+    if not ctx.is_dtensor(dst):
+        dst[page, off] = new.to(dst.dtype)
+        return
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    local = dst.to_local()
+    shape, start = compute_local_shape_and_global_offset(
+        dst.shape, dst.device_mesh, dst.placements)
+    mine = ((page >= start[0]) & (page < start[0] + shape[0])
+            & (off >= start[1]) & (off < start[1] + shape[1]))
+    zero = torch.zeros_like(page)
+    new = ctx.full(new)[:, start[2]:start[2] + shape[2]]
+    local[torch.where(mine, page - start[0], zero),
+          torch.where(mine, off - start[1], zero)] = new.to(dst.dtype)
+
+
 def mla_decode_paged(p, x, cfg, pool, block_tables, lengths):
     """Absorbed decode against the paged latent cache (serving engine).
 
@@ -189,8 +212,8 @@ def mla_decode_paged(p, x, cfg, pool, block_tables, lengths):
     rows = torch.arange(B, device=x.device)
     page = block_tables[rows, (lengths // ps).long()].long()
     off = (lengths % ps).long()
-    pool["c_kv"][page, off] = c_kv_t[:, 0].to(pool["c_kv"].dtype)
-    pool["k_rope"][page, off] = k_rope_t[:, 0].to(pool["k_rope"].dtype)
+    _write_token(pool["c_kv"], page, off, c_kv_t[:, 0])
+    _write_token(pool["k_rope"], page, off, k_rope_t[:, 0])
     q_c = pdot("bshk,rhk->bshr", q_nope, p["w_uk"], cfg.policy)
     bt = block_tables.long()
     ckg = pool["c_kv"][bt].reshape(B, maxp * ps, pool["c_kv"].shape[-1])

@@ -67,7 +67,13 @@ def _softplus(x):
 
 
 def _causal_conv(x, w, b):
-    """Depthwise causal conv, width K: y_t = sum_k x_{t-K+1+k} * w_k."""
+    """Depthwise causal conv, width K: y_t = sum_k x_{t-K+1+k} * w_k; under
+    a mesh on each rank's channel and batch shards
+    (``parallel.ctx.per_channel``)."""
+    return ctx.per_channel(_causal_conv_local, x, w, b)
+
+
+def _causal_conv_local(x, w, b):
     K, S = w.shape[0], x.shape[1]
     pad = F.pad(x, (0, 0, K - 1, 0))
     y = sum(pad[:, k:k + S] * w[k] for k in range(K))
@@ -101,7 +107,8 @@ def ssd_layer(p, x, cfg):
     A = -torch.exp(p["A_log"].float())                          # (H,) < 0
     dts = _softplus(dt.float() + p["dt_bias"])                  # (B, S, H)
     xbar = ctx.reshape(xs, (B, S, H, P)) * dts[..., None]
-    cum = torch.cumsum(ctx.reshape(dts * A, (B, nc, Q, G, rep)), dim=2)
+    cum = ctx.along(lambda t: torch.cumsum(t, dim=2),
+                    ctx.reshape(dts * A, (B, nc, Q, G, rep)), 2)
 
     Bc = ctx.reshape(Bm, (B, nc, Q, G, N))
     Cc = ctx.reshape(Cm, (B, nc, Q, G, N))

@@ -132,16 +132,10 @@ def local_like(x, ref):
     ``ref.to_local()``."""
     if not is_dtensor(ref):
         return x
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    mesh, off = ref.device_mesh, ref.ndim - x.ndim
-    if not is_dtensor(x):
-        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
-    placements = tuple(Shard(p.dim - off) if p.is_shard() else p
-                       for p in ref.placements)
-    if tuple(x.placements) != placements:
-        x = x.redistribute(mesh, placements)
-    return x.to_local()
+    from torch.distributed.tensor import Shard
+    off = ref.ndim - x.ndim
+    return local_in(x, ref.device_mesh, tuple(
+        Shard(p.dim - off) if p.is_shard() else p for p in ref.placements))
 
 
 def is_sharded(x) -> bool:
@@ -264,3 +258,173 @@ def full(x):
     """The whole tensor of a DTensor (gathered on every rank), else
     ``x``."""
     return x.full_tensor() if is_dtensor(x) else x
+
+
+def local_in(t, mesh, placements, grad_placements=None):
+    """The local shard of ``t`` (a DTensor, or a plain tensor taken as
+    replicated) under ``placements``; its gradient comes back in
+    ``grad_placements`` (default ``placements``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    if tuple(t.placements) != tuple(placements):
+        t = t.redistribute(mesh, placements)
+    return t.to_local(grad_placements=grad_placements)
+
+
+def per_channel(fn, x, *weights):
+    """``fn(x, *weights)`` for an op that is local along its last
+    (channel) dim and its leading (batch) dim: ``x`` (B, S, C) and weights
+    whose last dim is C.  On DTensors each rank runs ``fn`` on its shards:
+    the batch kept split where ``x`` splits it, the channels split over
+    ``model`` where it divides C, everything else whole; a weight's
+    gradient is then a partial sum over the batch's mesh dims.  This is
+    the SSD layer's causal convolution: DTensor's rule for its padding
+    gives a spec of the wrong length on a two-dim mesh (torch 2.11), and
+    a depthwise convolution along S needs no communication.  Plain
+    operands go to ``fn`` as they are."""
+    if not (is_dtensor(x) or any(is_dtensor(w) for w in weights)):
+        return fn(x, *weights)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = next(t for t in (x, *weights) if is_dtensor(t)).device_mesh
+    names = axis_names(mesh)
+    C = x.shape[-1]
+    xp, wp, wg = [], [], []
+    for m, name in enumerate(names):
+        n = mesh.size(m)
+        cur = x.placements[m] if is_dtensor(x) else Replicate()
+        if cur.is_shard() and cur.dim == 0 and n > 1:
+            xp.append(Shard(0))
+            wp.append(Replicate())
+            wg.append(Partial())
+        elif name == "model" and n > 1 and C % n == 0:
+            xp.append(Shard(x.ndim - 1))
+            wp.append(Shard(-1))
+            wg.append(Shard(-1))
+        else:
+            xp.append(Replicate())
+            wp.append(Replicate())
+            wg.append(Replicate())
+
+    def local(t, placements, grad):
+        last = [Shard(t.ndim - 1) if p.is_shard() and p.dim == -1 else p
+                for p in (*placements, *grad)]
+        return local_in(t, mesh, last[:len(placements)],
+                        last[len(placements):])
+
+    out = fn(local(x, xp, xp), *(local(w, wp, wg) for w in weights))
+    shape = torch.Size(tuple(x.shape))
+    return DTensor.from_local(out, mesh, xp, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def along(fn, x, dim: int):
+    """``fn(x)`` for an op that acts along ``dim`` alone and keeps the
+    shape (a ``cumsum``): on a DTensor, ``fn`` runs on the local shard,
+    any split of ``dim`` made whole first, and the result keeps that
+    layout.  DTensor has no rule for the backward of ``cumsum`` (a
+    ``flip``) in torch 2.11; a local step needs none."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Replicate
+    d = dim % x.ndim
+    pl = tuple(Replicate() if p.is_shard() and p.dim % x.ndim == d else p
+               for p in x.placements)
+    if pl != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, pl,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+# ------------------------------------------------- vocab-parallel loss
+
+def vocab_split(x) -> int | None:
+    """The one mesh dim of more than one rank that splits ``x``'s last
+    dim (the logits' vocab, on ``model``), or None: a plain tensor, a
+    whole last dim, or a last dim split over several mesh dims."""
+    if not is_dtensor(x):
+        return None
+    dims = [m for m, p in enumerate(x.placements)
+            if p.is_shard() and p.dim in (-1, x.ndim - 1)
+            and x.device_mesh.size(m) > 1]
+    return dims[0] if len(dims) == 1 else None
+
+
+def logz_and_pick(logits, labels):
+    """``(logsumexp(logits, -1), logits[..., labels])`` for f32 logits
+    whose vocab dim is split over one mesh dim (:func:`vocab_split`),
+    computed from each rank's shard: the row maxima and the exponential
+    sums are all-reduced over that mesh dim, and the label's logit is
+    gathered on the rank that holds its column (0 elsewhere) and summed
+    over it.  JAX sums against a one-hot constrained to the vocab on
+    ``model``; this gathers instead, so no rank holds a one-hot, and the
+    backward writes the local shard's gradient straight into one buffer
+    of the logits' local size.  Both results are DTensors of
+    ``labels.shape`` in the logits' batch layout, whole over the vocab's
+    mesh dim."""
+    return _LogzPick.apply(logits, labels)
+
+
+def _row_placements(x):
+    """``x``'s placements with the last dim's shards made whole."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if p.is_shard() and p.dim in (-1, x.ndim - 1)
+                 else p for p in x.placements)
+
+
+def _rows_out(local, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(
+        local, mesh, placements, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
+
+
+class _LogzPick(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, logits, labels):
+        import torch.distributed as dist
+        mesh, m = logits.device_mesh, vocab_split(logits)
+        group = mesh.get_group(m)
+        rows = _row_placements(logits)
+        local = logits.to_local()
+        V = logits.shape[-1]
+        per = -(-V // mesh.size(m))              # torch.chunk's split
+        lo = mesh.get_local_rank(m) * per
+        idx = local_in(labels, mesh, rows).long() - lo
+        here = (idx >= 0) & (idx < local.shape[-1])
+        idx = torch.where(here, idx, torch.zeros_like(idx))
+        top = local.amax(dim=-1)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        sums = (local - top[..., None]).exp_().sum(dim=-1)
+        dist.all_reduce(sums, group=group)
+        logz = top + torch.log(sums)
+        pick = torch.where(here, local.gather(-1, idx[..., None])[..., 0],
+                           torch.zeros_like(logz))
+        dist.all_reduce(pick, group=group)
+        fctx.save_for_backward(local, logz, idx, here)
+        fctx.layout = (mesh, tuple(logits.placements), rows,
+                       tuple(logits.shape), tuple(logits.stride()))
+        shape = tuple(labels.shape)
+        return (_rows_out(logz, mesh, rows, shape),
+                _rows_out(pick, mesh, rows, shape))
+
+    @staticmethod
+    def backward(fctx, g_logz, g_pick):
+        from torch.distributed.tensor import DTensor
+        local, logz, idx, here = fctx.saved_tensors
+        mesh, placements, rows, shape, stride = fctx.layout
+        g = (local - logz[..., None]).exp_()
+        if g_logz is not None:
+            g.mul_(local_in(g_logz, mesh, rows)[..., None])
+        else:
+            g.zero_()
+        if g_pick is not None:
+            gp = local_in(g_pick, mesh, rows) * here
+            g.scatter_add_(-1, idx[..., None], gp[..., None])
+        return DTensor.from_local(g, mesh, placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=stride), None

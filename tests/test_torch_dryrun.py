@@ -183,3 +183,55 @@ def test_every_shape_traces_on_a_2x2_fake_world(arch, fake_world):
         assert rec["bottleneck"] in ("compute", "memory", "collective")
         assert rec["memory"]["peak_size_in_bytes"] >= \
             rec["memory"]["argument_size_in_bytes"] > 0
+
+
+# ------------------------------------------------- the vocab-parallel loss
+
+def test_train_step_allocates_no_global_logits(fake_world):
+    """qwen3's smoke train step on a (2, 2) fake world: the loss keeps the
+    logits' vocab split over ``model`` in its forward and backward, so no
+    local op makes a tensor of the global (B, S, V) f32 size (the loss's
+    label gather used to make one of zeros in its backward).  The largest
+    allocation left is kernel 1's N plan for the unembedding's input
+    gradient (JAX's plan: the logits' gradient whole over the vocab, the
+    size of a local (B / data, S, V) tensor).  The vocab is widened to 8192
+    so that the logits, not a weight, are the step's largest tensors, as
+    they are at full width."""
+    from repro_torch.launch.step import lower_cell
+    cfg = get_smoke_config("qwen3-0.6b").replace(vocab_size=8192)
+    shape = SHAPES["train_4k"].__class__("t", 64, 8, "train")
+    rec, kind = lower_cell(cfg, shape, fake_world((2, 2)))
+    assert kind == "train"
+    B, S, V = shape.global_batch, shape.seq_len, cfg.padded_vocab
+    big = rec["largest_allocation"]
+    assert big["bytes"] < 4 * B * S * V, big
+    assert big["bytes"] <= 4 * (B // 2) * S * V, big
+
+
+def test_cross_entropy_allocates_at_most_the_local_logits_shard(
+        fake_world):
+    """``lm.cross_entropy`` and its backward on vocab-split logits (meta,
+    (16, 64, 4096) on a (2, 2) fake world): nothing larger than the local
+    (B / data, S, V / model) shard, and no all-gather: the vocab stays
+    split, only (B / data, S) rows are all-reduced."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models.lm import cross_entropy
+    from repro_torch.parallel import ctx
+    mesh = fake_world((2, 2))
+    B, S, V = 16, 64, 4096
+    logits = DTensor.from_local(
+        _meta(B // 2, S, V // 2), mesh, [Shard(0), Shard(2)],
+        run_check=False).requires_grad_()
+    labels = DTensor.from_local(
+        torch.empty((B // 2, S), dtype=torch.int64, device="meta"), mesh,
+        [Shard(0), Replicate()], run_check=False)
+    counter = CostCounter()
+    counter.add_arguments([logits, labels])
+    with ctx.use_mesh(mesh), counter:
+        loss, _ = cross_entropy(logits, labels)
+        (g,) = torch.autograd.grad(loss, logits)
+    res = analyze(counter)
+    assert tuple(g.placements) == (Shard(0), Shard(2))
+    assert res["largest_allocation"]["bytes"] <= 4 * (B // 2) * S * (V // 2)
+    assert res["counts"].get("all-gather", 0) == 0

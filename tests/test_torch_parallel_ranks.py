@@ -17,7 +17,10 @@ never share a port) each run, on ``(1, 2)`` and ``(2, 1)`` meshes:
     relative and every gradient within 1e-3 of its ``max|g|``, with the
     parameters (``(1, 2)``) or the batch (``(2, 1)``) really split;
   * ``compressed_psum`` across the ranks: the f32 sum of the two ranks'
-    bf16-rounded values, bitwise, and each rank's residual.
+    bf16-rounded values, bitwise, and each rank's residual;
+  * in a second battery, every non-dense family's train step on both
+    meshes (:func:`_family_train`) and the vocab-parallel
+    ``lm.cross_entropy`` (:func:`_vocab_parallel_loss`).
 
 The unsharded references are computed in each rank on the same seeded
 inputs.  No JAX here: ``tests/test_torch_parallel.py`` holds the one-rank
@@ -175,6 +178,117 @@ def _train(mesh, cfg, params, kind):
             float(b.abs().max()), 1e-30)
 
 
+MOE_GRAD_REL = 2.0 ** -8
+
+
+def _family_train(mesh, cfg, params, kind):
+    """:func:`_train` for any family, on a 4-row batch of
+    ``data.pipeline`` (frames and patches for the enc-dec and VLM
+    families): the loss within 1e-5 relative of the unsharded loss, every
+    gradient within 1e-3 of its ``max|g|``.  The MoE family's gradients
+    are held at 2^-8: its dispatch and combine products run the ``bf16``
+    policy, whose backward rounds the cotangent to bf16, so any reordered
+    f32 sum upstream moves a gradient by up to a bf16 rounding (scaling
+    the unsharded loss by 1 + 2^-20 alone moves granite's and deepseek's
+    smoke gradients by 5e-4 of their ``max|g|``, qwen3's by 3e-7); 2^-8
+    is the MoE layer's own gate on the card."""
+    from repro_torch.data.pipeline import DataConfig, device_batch
+    from repro_torch.models import get_model
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    seq = 2 * cfg.ssm_chunk if cfg.family in ("ssm", "hybrid") else 32
+    batch = device_batch(cfg, DataConfig(seed=3, global_batch=4,
+                                         seq_len=seq), 0, "cpu")
+    model = get_model(cfg)
+
+    def grads(p, b):
+        p = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = model.loss_fn(p, b)
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(p))
+
+    ref_loss, ref_g = grads(params, batch)
+    sharded = shd.shard_tree(params, shd.to_shardings(
+        shd.param_specs(params, mesh, cfg), mesh))
+    bsh = shd.shard_tree(batch, shd.to_shardings(
+        shd.batch_specs(cfg, mesh, batch), mesh))
+    if kind == "params":
+        assert any(leaf.to_local().shape != leaf.shape
+                   for leaf in tree_leaves(sharded))
+    else:
+        assert bsh["tokens"].to_local().shape[0] == 2
+    with ctx.use_mesh(mesh, shd.batch_axes(cfg, mesh)):
+        loss, g = grads(sharded, bsh)
+    loss = float(ctx.full(loss))
+    assert abs(loss - float(ref_loss)) <= 1e-5 * abs(float(ref_loss)), \
+        (cfg.name, kind)
+    rel = MOE_GRAD_REL if cfg.family == "moe" else 1e-3
+    for a, b in zip(g, ref_g):
+        a = ctx.full(a)
+        assert float((a - b).abs().max()) <= rel * max(
+            float(b.abs().max()), 1e-30), (cfg.name, kind)
+
+
+def _vocab_parallel_loss(mesh):
+    """``lm.cross_entropy`` on logits whose vocab is split over two ranks
+    (and, on ``(2, 1)``, whose batch is): the loss within 1e-6 relative of
+    the unsharded loss, the logits' gradient within 1e-6 of ``max|g|``,
+    and the gradient left split as the logits are."""
+    from repro_torch.models.lm import cross_entropy
+    from repro_torch.parallel import ctx
+    from repro_torch.parallel import sharding as shd
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(4, 8, 384, generator=g) * 3
+    labels = torch.randint(0, 384, (4, 8), generator=g)
+    labels[0, :3] = -1
+    x = logits.clone().requires_grad_()
+    ref, _ = cross_entropy(x, labels)
+    (ref_g,) = torch.autograd.grad(ref, x)
+    placements = shd.to_placements(shd.P("data", None, "model"), mesh)
+    xd = shd.distribute(logits, mesh, placements).requires_grad_()
+    with ctx.use_mesh(mesh):
+        split = ctx.vocab_split(xd) is not None
+        loss, _ = cross_entropy(xd, labels)
+        (gd,) = torch.autograd.grad(loss, xd)
+    assert split == (mesh.size(1) > 1)
+    assert tuple(gd.placements) == placements
+    loss = float(ctx.full(loss.detach()))
+    assert abs(loss - float(ref)) <= 1e-6 * abs(float(ref))
+    assert float((ctx.full(gd) - ref_g).abs().max()) <= \
+        1e-6 * float(ref_g.abs().max())
+
+
+def _families(rank, store_path, world):
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store_path}",
+                            rank=rank, world_size=world)
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch import numerics
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import get_model
+        mesh12 = init_device_mesh("cpu", (1, 2),
+                                  mesh_dim_names=("data", "model"))
+        mesh21 = init_device_mesh("cpu", (2, 1),
+                                  mesh_dim_names=("data", "model"))
+        with numerics.use(interpret=True):
+            _vocab_parallel_loss(mesh12)
+            _vocab_parallel_loss(mesh21)
+            for arch in FAMILIES:
+                cfg = get_smoke_config(arch)
+                params = get_model(cfg).init(0, device="cpu")
+                _family_train(mesh12, cfg, params, "params")
+                _family_train(mesh21, cfg, params, "batch")
+    finally:
+        dist.destroy_process_group()
+
+
+FAMILIES = ("granite-moe-1b-a400m", "deepseek-v3-671b", "mamba2-130m",
+            "zamba2-1.2b", "seamless-m4t-large-v2", "internvl2-2b")
+
+
 def _battery(rank, store_path, world):
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -216,16 +330,27 @@ def _battery(rank, store_path, world):
         dist.destroy_process_group()
 
 
-def test_two_rank_gloo_battery(tmp_path):
+def _spawn(fn, tmp_path):
     import torch.multiprocessing as mp
     store = str(tmp_path / "store")
     env = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"
     try:
-        mp.start_processes(_battery, args=(store, 2), nprocs=2, join=True,
+        mp.start_processes(fn, args=(store, 2), nprocs=2, join=True,
                            start_method="spawn")
     finally:
         if env is None:
             os.environ.pop("OMP_NUM_THREADS")
         else:
             os.environ["OMP_NUM_THREADS"] = env
+
+
+def test_two_rank_gloo_battery(tmp_path):
+    _spawn(_battery, tmp_path)
+
+
+def test_two_rank_family_train_steps_and_vocab_parallel_loss(tmp_path):
+    """Every non-dense family's smoke train step on ``(1, 2)`` (parameters
+    split) and ``(2, 1)`` (batch split), and the vocab-parallel loss on
+    both meshes."""
+    _spawn(_families, tmp_path)
