@@ -9,8 +9,17 @@ step.  :func:`make_sharded_train_step` runs the same step on DTensor state
 under a mesh (JAX :89-117): every product and attention call then runs per
 shard through ``kernels/shmap.py``.  JAX's ``lower_cell`` (XLA lowering
 for the dry run) is not here.
+
+Under a ``repro_torch.obs`` tracer the train step records three spans,
+each with its device edges on the card (``obs/trace.py``):
+``train.forward`` (``model.loss_fn``) and ``train.backward``
+(``torch.autograd.grad``, with remat's recompute) once per microbatch, and
+``train.optimizer`` (the gradients' reduction and the AdamW update) once
+per step.  With no tracer it records nothing.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,6 +27,7 @@ from repro_torch import numerics
 from repro_torch.configs import SHAPES
 from repro_torch.models import get_model
 from repro_torch.models.modules import tree_leaves, tree_map
+from repro_torch.obs.trace import current as _current_tracer
 from repro_torch.optim import adamw
 from repro_torch.parallel import ctx
 from repro_torch.parallel import sharding as shd
@@ -40,14 +50,17 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, num_microbatches: int = 1,
     before the update."""
     model = get_model(cfg)
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, span):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, metrics = model.loss_fn(p, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(p))
+        with span("train.forward"):
+            loss, metrics = model.loss_fn(p, batch)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, tree_leaves(p))
         return grads, {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state, batch):
         params = state["params"]
+        span = _phase_spans(params)
         if num_microbatches > 1:
             n = len(batch["tokens"])
             if n % num_microbatches:
@@ -55,23 +68,35 @@ def make_train_step(cfg, opt_cfg: adamw.OptConfig, num_microbatches: int = 1,
                                  f"{num_microbatches} microbatches")
             micro = [dict(zip(batch, mb)) for mb in zip(*(
                 v.chunk(num_microbatches) for v in batch.values()))]
-            grads, metrics = grads_of(params, micro[0])
+            grads, metrics = grads_of(params, micro[0], span)
             for mb in micro[1:]:
-                g, m = grads_of(params, mb)
+                g, m = grads_of(params, mb, span)
                 grads = [a + b for a, b in zip(grads, g)]
                 metrics = {k: metrics[k] + m[k] for k in metrics}
             grads = [g / num_microbatches for g in grads]
             metrics = {k: v / num_microbatches for k, v in metrics.items()}
         else:
-            grads, metrics = grads_of(params, batch)
-        if reduce_grads is not None:
-            grads = reduce_grads(grads, tree_leaves(params))
-        new_params, new_opt, om = adamw.apply_updates(
-            params, _unflatten(params, grads), state["opt"], opt_cfg)
+            grads, metrics = grads_of(params, batch, span)
+        with span("train.optimizer"):
+            if reduce_grads is not None:
+                grads = reduce_grads(grads, tree_leaves(params))
+            new_params, new_opt, om = adamw.apply_updates(
+                params, _unflatten(params, grads), state["opt"], opt_cfg)
         metrics.update(om)
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
+
+
+def _phase_spans(params):
+    """``span(name)`` for the phases of one train step: the active
+    tracer's span, with device edges when the parameters are on the card,
+    or a no-op context when no tracer is installed."""
+    tr = _current_tracer()
+    if tr is None:
+        return lambda name: contextlib.nullcontext()
+    on_card = tree_leaves(params)[0].is_cuda
+    return lambda name: tr.span(name, cat="train", device=on_card)
 
 
 def _reduce_once(grads, params):

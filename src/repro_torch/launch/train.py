@@ -15,7 +15,9 @@ a ``ValueError`` that names the first leaf that differs.  It runs on
 (repeatable) sets fields of the numerics config the run uses; the backward
 runs under it too.  ``--trace`` / ``--metrics-out`` export the run's spans
 and metrics snapshot (``repro_torch.obs``) and print the dispatch-explain
-summary.  ``--mesh-model N`` trains under a ``(world / N, N)`` mesh
+summary; the spans are each step's ``train.forward``, ``train.backward``
+and ``train.optimizer`` (``launch/step.py``), with their ``device_us``
+edges on the card.  ``--mesh-model N`` trains under a ``(world / N, N)`` mesh
 (``train.loop.train(mesh=)``: parameters sharded by
 ``parallel.sharding.param_specs``, batches on the data axes, every kernel
 per shard), in the world ``torchrun`` gives or in this process alone; rank

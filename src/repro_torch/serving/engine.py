@@ -321,13 +321,16 @@ class Engine:
     # Everything below is gated on an active repro_torch.obs tracer: with
     # none there are no spans, no clock reads and no histogram writes.
 
-    def _span(self, name: str, **args):
+    def _span(self, name: str, device: bool = False, **args):
         """A tracer span around one engine phase, or a no-op context
-        yielding a throwaway args dict when tracing is off."""
+        yielding a throwaway args dict when tracing is off.  ``device``:
+        the phase queues work on the card, so the span records its device
+        edges when the engine runs on one."""
         tr = _current_tracer()
         if tr is None:
             return contextlib.nullcontext(dict(args))
-        return tr.span(name, cat="engine", **args)
+        return tr.span(name, cat="engine",
+                       device=device and self.device.type == "cuda", **args)
 
     @staticmethod
     def _observe_latency(name: str, seconds: float):
@@ -426,7 +429,8 @@ class Engine:
             padded = max(1, -(-len(req.full_sequence) // ps)) * ps
             groups.setdefault(padded, []).append(req)
         for padded, reqs in sorted(groups.items()):
-            with self._span("prefill", batch=len(reqs), padded=padded):
+            with self._span("prefill", device=True, batch=len(reqs),
+                            padded=padded):
                 self._prefill_group(padded, reqs)
 
     def _prefill_group(self, padded: int, reqs: list[Request]):
@@ -583,7 +587,8 @@ class Engine:
         padded = max(1, -(-plen // ps)) * ps
         start = req.prefill_done
         C = self.chunk_tokens or (padded - start)
-        with self._span("prefill.chunk", rid=req.rid, start=start, chunk=C):
+        with self._span("prefill.chunk", device=True, rid=req.rid,
+                        start=start, chunk=C):
             # the whole pages this chunk writes: [start, min(start + C,
             # padded)); a last chunk's padding past the prompt's pages is
             # never written
@@ -732,7 +737,7 @@ class Engine:
         in-flight record.  Each sampled request draws its uniform here; the
         mirrors are copied into this step's staging buffer, so they are free
         to change once this returns."""
-        with self._span("decode", batch=len(running)):
+        with self._span("decode", device=True, batch=len(running)):
             for req in running:
                 self.uniforms[req.slot] = draw_uniform(req.params,
                                                        req.generator)

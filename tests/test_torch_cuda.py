@@ -1437,3 +1437,29 @@ def test_wrappers_on_a_one_rank_nccl_mesh_equal_the_unsharded_kernels(
     finally:
         if owned:
             dist.destroy_process_group()
+
+
+def test_device_edged_span_times_the_card(dev):
+    """A ``device=True`` span around a sleeping kernel: its device edges
+    lie at or after the span's host start, and their distance is that of
+    a separate event pair around the same kernel (within 1 % or 20 us)."""
+    import time
+
+    from repro_torch.obs.trace import Tracer
+    torch.cuda.synchronize()                 # CUDA in use, as a program's
+    tr = Tracer()
+    with tr.span("anchor", device=True):     # the first takes the anchor
+        pass
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    time.sleep(0.05)
+    with tr.span("sleep", device=True):
+        a.record()
+        torch.cuda._sleep(40_000_000)        # ~20 ms of cycles
+        b.record()
+    _, ev = tr.chrome()["traceEvents"]
+    start, end = ev["args"]["device_us"]
+    assert 0 <= start < end
+    ref = a.elapsed_time(b) * 1e3
+    assert ref > 5e3
+    assert abs((end - start) - ref) <= max(0.01 * ref, 20.0)

@@ -299,6 +299,106 @@ def test_export_equals_jax_on_a_synthetic_clock(tmp_path, monkeypatch):
         obs.export(str(tmp_path / "none.json"))
 
 
+class _StandInCuda:
+    """The device side of device-edged spans on a synthetic device clock:
+    each ``record`` returns the next of ``times`` (device seconds), each
+    ``idle`` the next of ``idle``."""
+
+    def __init__(self, times, ready=True, idle=()):
+        self.times, self.ok, self.idles = iter(times), ready, iter(idle)
+        self.syncs = 0
+
+    def ready(self):
+        return self.ok
+
+    def idle(self):
+        return next(self.idles)
+
+    def record(self):
+        return next(self.times)
+
+    def synchronize(self):
+        self.syncs += 1
+
+    @staticmethod
+    def seconds(a, b):
+        return b - a
+
+
+def test_device_edges_resolve_onto_the_tracers_clock():
+    """The anchor's reading (just before its event) maps the device clock
+    onto the host's; a span a second or more after the anchor takes a new
+    one where the stream is idle; ``device_us`` is microseconds from the
+    span's own ``ts``; one synchronize resolves every pending span, and a
+    second export waits for nothing."""
+    host = iter([0.0,            # the tracer's t0
+                 1.0,            # "decode" enters
+                 2.0,            # the first anchor's reading
+                 2.2,            # "decode" exits
+                 2.5, 2.5,       # the next enters, under a second after
+                 2.8,            # the anchor, and exits
+                 6.0,            # "prefill" enters
+                 6.0,            # 4 s since the anchor: the stream is idle
+                 6.5,            # the second anchor's reading
+                 7.0,            # "prefill" exits
+                 8.0, 9.0,       # a span without the flag
+                 10.0, 10.0,     # "decode" enters: the stream is busy
+                 11.0])          # and exits
+    cuda = _StandInCuda([100.0,            # the first anchor
+                         100.5, 103.0,     # the first decode's edges
+                         103.0, 103.5,     # the next one's, queued
+                         104.4,            # the second anchor
+                         104.5, 104.75,    # prefill's edges
+                         108.0, 108.5],    # the last decode's edges
+                        idle=[True, False])
+    tr = Tracer(clock=host.__next__, cuda=cuda)
+    for _ in range(2):
+        with tr.span("decode", cat="engine", device=True, batch=2):
+            pass
+    with tr.span("prefill", device=True) as a:
+        a["padded"] = 16
+    with tr.span("host"):
+        pass
+    with tr.span("decode", cat="engine", device=True, batch=1):
+        pass
+    assert cuda.syncs == 1
+    assert all("device_us" not in e["args"] for e in tr.events)
+    dec, dec2, pre, host_only, dec3 = tr.chrome()["traceEvents"]
+    assert cuda.syncs == 2
+    assert dec["ts"] == 1e6 and dec["dur"] == pytest.approx(1.2e6)
+    # device 100.5 s is host 2.0 + 0.5 = 2.5 s: 1.5 s after ts
+    assert dec["args"] == {"batch": 2, "device_us": [1.5e6, 4e6]}
+    assert dec2["args"]["device_us"] == pytest.approx([2.5e6, 3e6])
+    # on the second anchor: device 104.5 s is host 6.5 + 0.1 = 6.6 s
+    assert pre["args"] == {"padded": 16,
+                           "device_us": pytest.approx([0.6e6, 0.85e6])}
+    assert host_only["args"] == {}
+    # still on the second anchor: 108.0 s is host 10.1 s
+    assert dec3["args"]["device_us"] == pytest.approx([0.1e6, 0.6e6])
+    tr.chrome()
+    assert cuda.syncs == 2
+
+
+def test_device_flag_without_cuda_exports_the_same_bytes(tmp_path):
+    """A span that asks for device edges where none can be recorded (no
+    CUDA here; a stand-in that is not ready) exports the bytes of a span
+    without the flag, as JSON and as JSONL."""
+    def script(tr, **flag):
+        with tr.span("decode", cat="engine", batch=2, **flag):
+            tr.instant("tick")
+
+    plain = Tracer(clock=iter(range(100)).__next__)
+    script(plain)
+    for cuda in (None, _StandInCuda([], ready=False)):
+        flagged = Tracer(clock=iter(range(100)).__next__, cuda=cuda)
+        script(flagged, device=True)
+        for name in ("t.json", "t.jsonl"):
+            a, b = tmp_path / f"plain_{name}", tmp_path / f"flag_{name}"
+            plain.export(str(a))
+            flagged.export(str(b))
+            assert a.read_bytes() == b.read_bytes()
+
+
 # ====================================================== dispatch explain
 
 def test_rules_are_the_ports_slugs_and_documented():
@@ -706,3 +806,88 @@ def test_serve_cli_traces_and_dumps_metrics(tmp_path, capsys):
     assert len([e for e in evs if e["ph"] == "e"]) == 2
     snap = json.loads(open(m_path).read())
     assert snap["histograms"]["serving/latency/ttft_s"]["count"] == 2
+
+
+# ============================================================ train step
+
+def _train_setup(cfg, B=4):
+    from repro_torch.data.pipeline import DataConfig, host_batch
+    from repro_torch.optim import adamw
+    params = get_model(cfg).init(0, "cpu")
+    opt = adamw.OptConfig(lr=1e-3, warmup_steps=1)
+    state = {"params": params, "opt": adamw.init_state(params, opt)}
+    batch = {k: torch.from_numpy(v) for k, v in host_batch(
+        cfg, DataConfig(seed=0, global_batch=B, seq_len=8), 1).items()}
+    return state, batch, opt
+
+
+def _reference_step(cfg, opt, state, batch):
+    """The train step's arithmetic written out: one microbatch."""
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.optim import adamw
+    p = tree_map(lambda t: t.detach().requires_grad_(), state["params"])
+    loss, _ = get_model(cfg).loss_fn(p, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(p))
+    it = iter(grads)
+    new_params, new_opt, _ = adamw.apply_updates(
+        state["params"], tree_map(lambda _: next(it), state["params"]),
+        state["opt"], opt)
+    return {"params": new_params, "opt": new_opt}
+
+
+def _bitwise_equal(a, b):
+    from repro_torch.models.modules import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    assert all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def test_train_step_without_a_tracer_records_nothing(monkeypatch):
+    from repro_torch.launch.step import make_train_step
+    cfg = get_smoke_config(ARCH)
+    state, batch, opt = _train_setup(cfg)
+    opened = []
+    monkeypatch.setattr(Tracer, "span", lambda self, *a, **k: opened.append(
+        a) or pytest.fail("span opened with no tracer"))
+    assert current() is None
+    new, _ = make_train_step(cfg, opt)(state, batch)
+    assert opened == []
+    _bitwise_equal(new, _reference_step(cfg, opt, state, batch))
+
+
+@pytest.mark.parametrize("micro", [1, 2])
+def test_train_step_spans_under_a_tracer(micro):
+    """Forward and backward once per microbatch, then the optimizer, in
+    that order, on the host alone (no device edges on the CPU); the state
+    is the untraced step's bit for bit."""
+    from repro_torch.launch.step import make_train_step
+    cfg = get_smoke_config(ARCH)
+    state, batch, opt = _train_setup(cfg)
+    step = make_train_step(cfg, opt, num_microbatches=micro)
+    off, met_off = step(state, batch)
+    with trace() as tr:
+        on, met_on = step(state, batch)
+    names = [e["name"] for e in tr.events]
+    assert names == ["train.forward", "train.backward"] * micro + [
+        "train.optimizer"]
+    assert all(e["ph"] == "X" and e["cat"] == "train"
+               and e["args"] == {} for e in tr.events)
+    fwd, bwd = tr.events[:2]
+    assert fwd["ts"] + fwd["dur"] <= bwd["ts"]
+    _bitwise_equal(on, off)
+    assert all(torch.equal(met_on[k], met_off[k]) for k in met_off)
+    if micro == 1:
+        _bitwise_equal(off, _reference_step(cfg, opt, state, batch))
+
+
+def test_train_cli_trace_exports_the_step_spans(tmp_path, capsys):
+    from repro_torch.launch import train as train_cli
+    tr_path = str(tmp_path / "train.json")
+    train_cli.main(["--arch", ARCH, "--smoke", "--steps", "2", "--batch",
+                    "2", "--seq", "8", "--ckpt-every", "100", "--ckpt-dir",
+                    str(tmp_path / "ckpt"), "--device", "cpu", "--trace",
+                    tr_path])
+    assert "telemetry: trace ->" in capsys.readouterr().out
+    evs = json.loads(open(tr_path).read())["traceEvents"]
+    assert [e["name"] for e in evs if e["ph"] == "X"] == [
+        "train.forward", "train.backward", "train.optimizer"] * 2
