@@ -68,23 +68,58 @@
 //   short prefills): bound by bytes.  The whole f32 weight is read from
 //   device memory once (N K 4 bytes at 3.35 TB/s), so the roles are
 //   swapped: C^T = B^T A^T with mma.sync.m16n8k16, the weight as the
-//   16-row operand, 8 slots as the n8 operand.  A block owns 16 weight
-//   rows (output columns) over all of K for one group of 8 slots: at M <= 8
-//   N 1024 gives 64 blocks, the unembed 9,496.  Each further group of 8
-//   slots adds a block a band, adjacent in the grid, so the band comes
-//   from device memory once and from L2 after.  One n8 half a block keeps
-//   the registers low enough for four blocks an SM with B^T, what its
-//   shared memory allows (a block with two halves had three and lost 17 %
-//   at the decode unembed).  The f32 weight band and the
-//   block's f32 activations stream through a cp.async ring of four
-//   128-deep stages (24 KB of weight in flight a block); each of the 8
-//   warps takes 16 k of a stage, splits its fragments' f32 values in
-//   registers and runs the kept products.  The warps' group accumulators
-//   are summed in shared memory in a fixed order, so there is no
-//   cross-block reduction, no atomic and no second kernel.  Both weight
-//   layouts are read in place; the k order inside a 16-deep step is chosen
-//   per layout so that shared-memory reads are conflict-free, the same for
-//   weight and activations (a sum over k does not depend on it).
+//   16-row operand, a group of 8 slots as the n8 operand.  A block owns 16
+//   weight rows (output columns) over all of K for G groups of 8 slots (a
+//   chunk of the launch's slots): for each 16-deep step each warp loads its
+//   weight fragment once, splits it into its terms in registers once, and
+//   runs the kept products against every group it holds, one accumulator
+//   set (NS x 4 floats) a group.  So the band is copied from L2 or device
+//   memory, loaded and split once for all G groups, not once a group.  At
+//   M <= 8 (G 1) the kernel is the one-group kernel it was, ring and grid
+//   included: N 1024 gives 64 blocks, the unembed 9,496.
+//   * Groups a block, from M, N, the batch and the SM count alone (fold):
+//     the most, up to FOLD (4: the registers), whose grid still gives
+//     every SM a block; a band's chunks then share the groups evenly (5
+//     groups: 3 + 2).  Narrow products keep their blocks: qwen2.5-14b's k
+//     and v (N 1024, 64 bands) stay at one group a block at M 32, where 4
+//     groups (64 blocks) took 0.0526 ms against 0.0394; its other decode
+//     products take 4 groups at M 32 and two chunks of 4 at M 64.
+//   * Each output element is summed in the order it was with one group a
+//     block: each warp keeps its 16 k of a 128-deep stage and the term
+//     order, and the warps' sums are added in warp order.  So a launch
+//     gives the bits of the one-group kernel at every M, and a slot's row
+//     does not depend on the other slots of the launch.
+//   * The f32 weight band and the block's f32 activations (all its groups)
+//     stream through one cp.async ring of 128-deep stages: four stages at
+//     one group, three at more.  Shared memory a block, at 8 G slots:
+//     B as stored (K, N) 12.3 KB of weight and 4.2 G KB of activations a
+//     stage, at G 4 29.2 KB a stage and 87.6 KB a block; B^T 9.2 KB of
+//     weight, at G 4 78.3 KB a block.  A four-stage ring at G 4 (116.7 KB
+//     with B as stored) leaves one block an SM and took 71.6 ms against
+//     60.7 over a qwen2.5-14b decode step's products at M 32.
+//   * Registers are capped by the blocks an SM (min_blocks): at one group
+//     B^T 4 blocks (64 registers), B as stored 2 (128; three would allow
+//     80, where x6 and x10 spill, and the decode gate measured within 2 %
+//     at two and three); at more groups 2 (128).  x6 at G 4 holds 48
+//     accumulators, 12 weight-term registers and 6 activation-term
+//     registers of the group at hand: ptxas gives 124 (B as stored) and 128
+//     (B^T) with no spill; off the decode path x10 at G 4 (B as stored)
+//     spills 48 bytes and x6 at G 3 12 bytes.  Blocks resident an SM
+//     (tcec_matmul_grid), B as stored / B^T: M 4 2 / 4, M 32 2 / 2.
+//   * Measured (scripts/kernel1_ablation.py, qwen2.5-14b's decode products
+//     with B as stored, weights cold, x6): one decode step's sum 96.9 ->
+//     60.7 ms at M 32, 51.9 -> 40.6 at M 16, 190.8 -> 106.5 at M 64, M 8
+//     unchanged (32.7 / 32.6); at most 2 groups a block gives 67.3 at M
+//     32.  32-row blocks (16 warps, the activations copied once for twice
+//     the weight rows) gave 59.7-61.4 against 61.0 and were not kept: the
+//     split, product and add work of a group, not its L2 bytes, sets the
+//     pace once the weight is split once.
+//   The warps' group accumulators are summed in shared memory in a fixed
+//   order, each group by one warp, so there is no cross-block reduction, no
+//   atomic and no second kernel.  Both weight layouts are read in place;
+//   the k order inside a 16-deep step is chosen per layout so that
+//   shared-memory reads are conflict-free, the same for weight and
+//   activations (a sum over k does not depend on it).
 //
 // The threshold: timed on the card (scripts/kernel1_ablation.py), path S
 //   is the faster of the two on the sum of one qwen3-0.6b forward's
@@ -93,6 +128,7 @@
 //   M 128-192 (o, down).  So the threshold is the rule of path -1 only:
 //   the dispatcher passes the path that kernels/tuning.py measured fastest
 //   for the product's shape bucket, or this rule where it did not measure.
+#include <atomic>
 #include <cstdint>
 #include <mutex>
 #include <type_traits>
@@ -403,55 +439,66 @@ namespace skinny {
 constexpr int WARPS = 8, THREADS = 32 * WARPS;
 constexpr int BN = 16;                 // weight rows (output columns) a block
 constexpr int BKS = 16 * WARPS;        // k a stage: 16 per warp
-constexpr int DEPTH = 4;               // stages in the cp.async ring
 constexpr int LDW_T = BKS + 16;        // staged (N, K) weight: a row of k
 constexpr int LDW_N = 24;              // staged (K, N) weight: a row of 16 n
 constexpr int LDX = BKS + 4;           // staged activations: a row of k
-constexpr int SLOTS = 8;               // slots a block: the mma's n8
+constexpr int SLOTS = 8;               // slots a group: the mma's n8
+constexpr int FOLD = 4;                // groups a block at most (the registers)
 
 __host__ __device__ constexpr int weight_floats(int tb) {
   return tb ? BN * LDW_T : BKS * LDW_N;
 }
-__host__ __device__ constexpr int stage_floats(int tb, int M) {
-  return weight_floats(tb) + M * LDX;
+__host__ __device__ constexpr int stage_floats(int tb, int rows) {
+  return weight_floats(tb) + rows * LDX;
 }
-__host__ __device__ constexpr size_t smem_bytes(int tb, int M) {
-  return size_t(DEPTH) * stage_floats(tb, M) * 4;
-}
+// Stages in the cp.async ring: four for one group, three for more (two
+// blocks an SM; four would leave one at (K, N) B and 4 groups).
+__host__ __device__ constexpr int depth(int G) { return G == 1 ? 4 : 3; }
 // Blocks an SM, to which the registers are capped (ptxas otherwise takes
-// up to twice as many).  B^T: four, what the shared memory of 8 slots
-// allows (53.8 KB a block).  A (K, N) B: two; its shared memory would allow
-// three (66.0 KB a block), but x6 and x10 spill in 80 registers, and the
-// decode gate measured within 2 % at two blocks and at three.
-__host__ __device__ constexpr int min_blocks(int tb) { return tb ? 4 : 2; }
-static_assert(min_blocks(1) * (smem_bytes(1, SLOTS) + 1024) <= 228 * 1024 &&
-                  min_blocks(0) * (smem_bytes(0, SLOTS) + 1024) <= 228 * 1024,
-              "the blocks an SM fit its shared memory");
+// up to twice as many).  One group: B^T four, what the shared memory of 8
+// slots allows (53.8 KB a block); a (K, N) B two (its shared memory would
+// allow three, 66.0 KB a block, but x6 and x10 spill in 80 registers, and
+// the decode gate measured within 2 % at two blocks and at three).  More
+// groups: two.
+__host__ __device__ constexpr int min_blocks(int tb, int G) {
+  return G > 1 ? 2 : tb ? 4 : 2;
+}
+// The ring, or the warps' sums that replace it at the end if larger.
+__host__ __device__ constexpr size_t smem_bytes(int tb, int G, int NS,
+                                                int rows) {
+  return size_t(4) * (depth(G) * stage_floats(tb, rows) > WARPS * G * NS * 4 * 32
+                          ? depth(G) * stage_floats(tb, rows)
+                          : WARPS * G * NS * 4 * 32);
+}
 
 // A block: weight rows n0.. (output columns) over all of K, for slots m0..
-// m0 + 7.  mma fragments, lane l (g = l / 4, t = l % 4): the weight A
-// operand holds rows g and g + 8 at positions 2t, 2t+1 (a0, a1) and 2t+8,
-// 2t+9 (a2, a3); the slots' B operand holds slot g at the same positions;
-// D holds rows g, g + 8 at slots 2t, 2t+1.  Positions map to the k of the
-// warp's 16: B^T reads kw + 4t .. 4t+3 (one float4 a row), a (K, N) B reads
-// kw + t + 4e, e = 0..3 (conflict-free columns with rows 24 floats apart).
-template <int NS, int TB>
-__global__ void __launch_bounds__(THREADS, min_blocks(TB))
+// m0 + 8 G - 1, G groups of 8.  mma fragments, lane l (g = l / 4, t = l %
+// 4): the weight A operand holds rows g and g + 8 at positions 2t, 2t+1
+// (a0, a1) and 2t+8, 2t+9 (a2, a3); a group's B operand holds its slot g
+// at the same positions; D holds rows g, g + 8 at slots 2t, 2t+1.
+// Positions map to the k of the warp's 16: B^T reads kw + 4t .. 4t+3 (one
+// float4 a row), a (K, N) B reads kw + t + 4e, e = 0..3 (conflict-free
+// columns with rows 24 floats apart).
+template <int NS, int TB, int G>
+__global__ void __launch_bounds__(THREADS, min_blocks(TB, G))
 skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
               const float* __restrict__ bias, float* __restrict__ C, int M,
               int N, int K, long long sb, int ldb, int vec, float scale,
               float inv, float out_scale, int activation) {
   constexpr int NP = NS * (NS + 1) / 2;
-  constexpr int WF = weight_floats(TB);
+  constexpr int WF = weight_floats(TB), DEPTH = depth(G), GS = G * SLOTS;
+  static_assert(min_blocks(TB, G) * (smem_bytes(TB, G, NS, GS) + 1024) <=
+                    228 * 1024,
+                "the blocks an SM fit its shared memory");
   extern __shared__ __align__(128) float sm[];
   const long long z = blockIdx.y;
-  // the blocks of one weight band are adjacent, one a group of slots
-  const int groups = (M + SLOTS - 1) / SLOTS;
-  const int m0 = SLOTS * (blockIdx.x % groups), MS = min(SLOTS, M - m0);
+  // the blocks of one weight band are adjacent, one a chunk of G groups
+  const int chunks = (M + GS - 1) / GS;
+  const int m0 = GS * (blockIdx.x % chunks), MS = min(GS, M - m0);
   A += (z * M + m0) * K;
   B += z * sb;
   C += (z * M + m0) * N;
-  const int n0 = blockIdx.x / groups * BN, tid = threadIdx.x;
+  const int n0 = blockIdx.x / chunks * BN, tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int SF = stage_floats(TB, MS);
   const int nst = (K + BKS - 1) / BKS;
@@ -509,11 +556,13 @@ skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
     cp_async_commit();
   };
 
-  float acc[NS][4];
+  float acc[G][NS][4];
 #pragma unroll
-  for (int i = 0; i < NS; ++i)
+  for (int j = 0; j < G; ++j)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j][i][c] = 0.0f;
 
 #pragma unroll
   for (int s = 0; s < DEPTH - 1; ++s) copy(s);
@@ -524,7 +573,7 @@ skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
     copy(s + DEPTH - 1);
     const float* w = sm + (s % DEPTH) * SF;
     const float* x = w + WF;
-    // the weight fragment (rows g, g + 8) and its terms
+    // the weight fragment (rows g, g + 8) and its terms, once for every group
     float wv[2][4];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -544,65 +593,71 @@ skinny_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
       for (int i = 0; i < NS; ++i) wa[i][q] = tw[i];
     }
-    // the slots' fragment (slot g) and its terms (slots past MS are zeros)
-    float xv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (g < MS) {
-      if (TB) {
-        const float4 v = *reinterpret_cast<const float4*>(x + g * LDX + kw + 4 * t);
-        xv[0] = v.x; xv[1] = v.y; xv[2] = v.z; xv[3] = v.w;
-      } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) xv[e] = x[g * LDX + kw + t + 4 * e];
+    for (int j = 0; j < G; ++j) {
+      if (j > 0 && SLOTS * j >= MS) break;   // the block's last groups may be empty
+      // the group's fragment (slot g) and its terms (slots past MS are zeros)
+      const int m = SLOTS * j + g;
+      float xv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (m < MS) {
+        if (TB) {
+          const float4 v = *reinterpret_cast<const float4*>(x + m * LDX + kw + 4 * t);
+          xv[0] = v.x; xv[1] = v.y; xv[2] = v.z; xv[3] = v.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xv[e] = x[m * LDX + kw + t + 4 * e];
+        }
       }
-    }
-    uint32_t xb[NS][2];
+      uint32_t xb[NS][2];
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      uint32_t tx[NS];
-      split2<NS>(xv[2 * q], xv[2 * q + 1], scale, tx);
+      for (int q = 0; q < 2; ++q) {
+        uint32_t tx[NS];
+        split2<NS>(xv[2 * q], xv[2 * q + 1], scale, tx);
 #pragma unroll
-      for (int i = 0; i < NS; ++i) xb[i][q] = tx[i];
-    }
-    // every kept term product into a zeroed fragment, added in f32
+        for (int i = 0; i < NS; ++i) xb[i][q] = tx[i];
+      }
+      // every kept term product into a zeroed fragment, added in f32
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int i = term_i(p), gg = term_g(p);
-      float d[4];
-      mma16816(d, wa[gg - i], xb[i]);
+      for (int p = 0; p < NP; ++p) {
+        const int i = term_i(p), gg = term_g(p);
+        float d[4];
+        mma16816(d, wa[gg - i], xb[i]);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[gg][c] += d[c];
+        for (int c = 0; c < 4; ++c) acc[j][gg][c] += d[c];
+      }
     }
   }
 
-  // sum the warps' group accumulators in warp order, then fold and store
+  // sum the warps' group accumulators in warp order, then fold and store,
+  // each group by one warp
   cp_async_wait<0>();
   __syncthreads();
-  float* red = sm;   // [warp][group][c][lane]
+  float* red = sm;   // [warp][group][term group][c][lane]
 #pragma unroll
-  for (int i = 0; i < NS; ++i)
+  for (int j = 0; j < G; ++j)
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      red[((warp * NS + i) * 4 + c) * 32 + lane] = acc[i][c];
+    for (int i = 0; i < NS; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        red[(((warp * G + j) * NS + i) * 4 + c) * 32 + lane] = acc[j][i][c];
   __syncthreads();
-  if (warp != 0) return;
+  if (warp >= G) return;
+  const int j = warp;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const int m = 2 * t + (c & 1), col = n0 + g + 8 * (c >> 1);
+    const int m = SLOTS * j + 2 * t + (c & 1), col = n0 + g + 8 * (c >> 1);
     if (m >= MS || col >= N) continue;
     float sum[NS];
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
       sum[i] = 0.0f;
       for (int v = 0; v < WARPS; ++v)
-        sum[i] += red[((v * NS + i) * 4 + c) * 32 + lane];
+        sum[i] += red[(((v * G + j) * NS + i) * 4 + c) * 32 + lane];
     }
     C[(long long)m * N + col] = finish<NS>([&](int i) { return sum[i]; }, inv,
                                            out_scale, bias, col, activation);
   }
 }
-
-static_assert(WARPS * 4 * 4 * 32 <= DEPTH * weight_floats(1),
-              "the warps' sums fit in the ring");
 
 }  // namespace skinny
 
@@ -614,6 +669,7 @@ struct Plan {
   int threads;
   size_t bytes;
   size_t max_bytes;   // the most dynamic shared memory the kernel takes
+  int groups;         // path S: groups of 8 slots a block (path W: 0)
 };
 
 // Allow the kernel its shared memory, once per kernel and device.
@@ -632,29 +688,67 @@ cudaError_t prepare(const Plan& p) {
   return err;
 }
 
+// The SMs of the current device, asked once a device.
+int sm_count() {
+  static std::atomic<int> known[64];
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  n = known[dev].load(std::memory_order_relaxed);
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                       dev) == cudaSuccess)
+    known[dev].store(n, std::memory_order_relaxed);
+  return n;
+}
+
+// Path S's groups of 8 slots a block over `bands` weight bands (see the
+// note above): the most, up to FOLD, whose grid still gives every SM a
+// block; the chunks of a band then share the groups evenly.
+int fold(int M, int bands) {
+  using namespace skinny;
+  const int groups = (M + SLOTS - 1) / SLOTS;
+  if (groups == 1) return 1;
+  const int sms = sm_count();
+  int G = groups < FOLD ? groups : FOLD;
+  while (G > 1 && bands * ((groups + G - 1) / G) < sms) --G;
+  const int chunks = (groups + G - 1) / G;
+  return (groups + chunks - 1) / chunks;
+}
+
+template <int NS, int TB>
+Kernel skinny_for(int G) {
+  using skinny::skinny_kernel;
+  switch (G) {
+    case 2: return skinny_kernel<NS, TB, 2>;
+    case 3: return skinny_kernel<NS, TB, 3>;
+    case 4: return skinny_kernel<NS, TB, 4>;
+    default: return skinny_kernel<NS, TB, 1>;
+  }
+}
+
 // path: 0 path S, 1 path W, -1 by M (path S up to SKINNY_MAX_M).
 template <int NS>
 Plan plan_for(int M, int N, int batch, int tb, int path) {
   if (path < 0 ? M <= SKINNY_MAX_M : path == 0) {
     using namespace skinny;
-    Kernel k = tb ? skinny_kernel<NS, 1> : skinny_kernel<NS, 0>;
-    const int groups = (M + SLOTS - 1) / SLOTS;
-    return {k, dim3(groups * ((N + BN - 1) / BN), batch), THREADS,
-            smem_bytes(tb, M < SLOTS ? M : SLOTS), smem_bytes(tb, SLOTS)};
+    const int bands = (N + BN - 1) / BN, G = fold(M, batch * bands);
+    const int rows = M < G * SLOTS ? M : G * SLOTS;
+    Kernel k = tb ? skinny_for<NS, 1>(G) : skinny_for<NS, 0>(G);
+    return {k, dim3((M + G * SLOTS - 1) / (G * SLOTS) * bands, batch), THREADS,
+            smem_bytes(tb, G, NS, rows), smem_bytes(tb, G, NS, G * SLOTS), G};
   }
   Kernel k = tb ? wide::wide_kernel<NS, 1> : wide::wide_kernel<NS, 0>;
   return {k,
           dim3((M + wide::BM - 1) / wide::BM, (N + wide::BN - 1) / wide::BN, batch),
-          wide::THREADS, wide::Layout<NS>::bytes, wide::Layout<NS>::bytes};
+          wide::THREADS, wide::Layout<NS>::bytes, wide::Layout<NS>::bytes, 0};
 }
 
 Plan plan(int M, int N, int batch, int tb, int n_splits, int path) {
-  if (path < -1 || path > 1) return {nullptr, dim3(), 0, 0, 0};
+  if (path < -1 || path > 1) return {nullptr, dim3(), 0, 0, 0, 0};
   switch (n_splits) {
     case 2: return plan_for<2>(M, N, batch, tb, path);
     case 3: return plan_for<3>(M, N, batch, tb, path);
     case 4: return plan_for<4>(M, N, batch, tb, path);
-    default: return {nullptr, dim3(), 0, 0, 0};
+    default: return {nullptr, dim3(), 0, 0, 0, 0};
   }
 }
 
@@ -688,7 +782,8 @@ extern "C" int tcec_matmul_launch(const void* a, const void* b,
 // The largest M that takes path S (decode); larger M takes path W.
 extern "C" int tcec_matmul_skinny_max() { return SKINNY_MAX_M; }
 
-// The grid of a launch: out[0] blocks, out[1] blocks resident an SM.
+// The grid of a launch: out[0] blocks, out[1] blocks resident an SM,
+// out[2] path S's groups of 8 slots a block (0 on path W).
 extern "C" int tcec_matmul_grid(int M, int N, int batch, int trans_b,
                                 int n_splits, int path, int* out) {
   const Plan p = plan(M, N, batch, trans_b, n_splits, path);
@@ -696,6 +791,7 @@ extern "C" int tcec_matmul_grid(int M, int N, int batch, int trans_b,
   const cudaError_t err = prepare(p);
   if (err != cudaSuccess) return err;
   out[0] = p.grid.x * p.grid.y * p.grid.z;
+  out[2] = p.groups;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], p.kernel,
                                                        p.threads, p.bytes);
 }

@@ -18,10 +18,12 @@ each kept pass as an f32 ``torch.matmul`` of the upcast terms (exact
 products), per-group sums, smallest-first fold, epilogue.  The CPU tests run
 it; on the card ``chip_smoke.py`` holds the kernel against it.
 
-``launches`` counts kernel launches (one per :func:`launch`), and
-``epilogue_launches`` those of them that fused an activation, by its name.
-The autotuner's measurement launches go through :func:`enqueue`, which
-counts nothing here (``tuning.measure_launches`` counts them).
+``launches`` counts kernel launches (one per :func:`launch`),
+``epilogue_launches`` those of them that fused an activation, by its name,
+and ``folded_launches`` those on path S whose blocks each hold more than
+one group of 8 slots (:func:`groups_per_block`).  The autotuner's
+measurement launches go through :func:`enqueue`, which counts nothing here
+(``tuning.measure_launches`` counts them).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ EPILOGUE_ACTIVATIONS = {
 ACTIVATION_IDS = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "tanh": 4}
 
 launches = 0
+folded_launches = 0
 epilogue_launches = {name: 0 for name in ACTIVATION_IDS if name}
 # (n_splits, scale_bits) of each policy name the kernel took
 _SPLITS: dict[str, tuple[int, int]] = {}
@@ -209,12 +212,20 @@ def launch(a, b, policy="tcec_bf16x6", bias=None, activation=None,
     """Launch the CUDA kernel on f32 CUDA operands: ``a`` contiguous,
     ``b`` any tensor whose rows or columns are contiguous, read in place
     (:func:`b_layout`).  ``path``: 0 path S, 1 path W, None the rule by M.
-    Counted in ``launches`` (and ``epilogue_launches``)."""
-    global launches
+    Counted in ``launches`` (and ``epilogue_launches``,
+    ``folded_launches``)."""
+    global launches, folded_launches
     out = enqueue(a, b, policy, bias, activation, out_scale, path)
     launches += 1
     if activation is not None:
         epilogue_launches[activation] += 1
+    M = a.shape[-2]
+    if M > tiles()["skinny"][0] and out.numel() and (
+            M <= skinny_max() if path is None else path == 0):
+        batch = a.shape[0] if a.ndim == 3 else 1
+        if groups_per_block(M, b.shape[-1], batch, b_layout(b)[0], policy,
+                            path) > 1:
+            folded_launches += 1
     return out
 
 
@@ -341,16 +352,34 @@ def path(M: int) -> str:
     return "skinny" if M <= skinny_max() else "wgmma"
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(M, N, batch, trans_b, n_splits, path):
+    """The C entry's plan of a launch: blocks, blocks resident an SM, and
+    path S's groups of 8 slots a block (0 on path W)."""
+    fn = _build.library("tcec_matmul").tcec_matmul_grid
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    _build.check("tcec_matmul", fn(M, N, batch, int(trans_b), n_splits,
+                                   -1 if path is None else path, out))
+    return tuple(out)
+
+
 def grid(M: int, N: int, batch: int = 1, trans_b: bool = False,
          policy="tcec_bf16x6", path: int | None = None):
     """``(blocks, blocks resident per SM)`` of a launch at these shapes, on
     ``path`` (0 path S, 1 path W, None the rule by M)."""
     pol = get_policy(policy)
     check_policy(pol)
-    fn = _build.library("tcec_matmul").tcec_matmul_grid
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 2)()
-    _build.check("tcec_matmul", fn(M, N, batch, int(trans_b), pol.n_splits,
-                                   -1 if path is None else path, out))
-    return out[0], out[1]
+    return _plan(M, N, batch, bool(trans_b), pol.n_splits, path)[:2]
+
+
+def groups_per_block(M: int, N: int, batch: int = 1, trans_b: bool = False,
+                     policy="tcec_bf16x6", path: int | None = None) -> int:
+    """Path S's groups of 8 slots a block at these shapes, as the C entry
+    plans them from M, N, the batch and the layout (0 on path W): more
+    than one where a block splits each weight fragment once for several
+    groups."""
+    pol = get_policy(policy)
+    check_policy(pol)
+    return _plan(M, N, batch, bool(trans_b), pol.n_splits, path)[2]

@@ -1002,7 +1002,7 @@ class _DecodeGraph:
     The kernels' Python wrappers run only at capture, so their launch
     counters see nothing of a replay: the increase each counter showed
     during capture (``launches``, kernel 3's ``f32_launches`` and kernel
-    1's ``epilogue_launches``) is
+    1's ``folded_launches`` and ``epilogue_launches``) is
     reset there (the capture launched nothing) and added at every replay.
     The warm-up's launches are real and stay counted.
     """
@@ -1019,6 +1019,7 @@ class _DecodeGraph:
                                     pin_memory=True)
         self.done = torch.cuda.Event()
         self._counters = ((tcec_matmul, "launches"),
+                          (tcec_matmul, "folded_launches"),
                           (tcec_attention, "launches"),
                           (tcec_paged_attention, "launches"),
                           (tcec_paged_attention, "f32_launches"))

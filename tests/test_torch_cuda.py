@@ -43,8 +43,9 @@ def _tune_cache(tmp_path_factory):
     numerics.reload_env_defaults()
 
 
-# M up to 64 takes the decode path, a block for each group of 8 slots (M
-# 1, 4 and 8 fill one group, 9, 16, 17 and 64 take two or more); 65 and 130
+# M up to 64 takes the decode path, at these narrow N a block for each
+# group of 8 slots (M 1, 4 and 8 fill one group, 9, 16, 17 and 64 take two
+# or more; wider N fold groups into a block, tested below); 65 and 130
 # take the wgmma path (one ragged 128-row tile, or two).  test_matmul_paths
 # checks that 64 is the source's threshold.  B's rows start 16 bytes apart,
 # so that both paths copy in masked 16-byte chunks, when its row length is
@@ -92,15 +93,94 @@ def test_matmul_paths(dev):
     assert tcec_matmul.path(m + 1) == "wgmma"
     blocks, per_sm = tcec_matmul.grid(1024, 1024)
     assert blocks == 8 * 16 and per_sm >= 1
-    # path S: a block for each 16 weight rows and each group of 8 slots
-    assert tcec_matmul.grid(9, 1000)[0] == 2 * 63
-    # a forced path's grid is its tile's (tcec_matmul.tiles(), read from
-    # the source): path S past the threshold, path W below it
+    assert tcec_matmul.groups_per_block(1024, 1024) == 0     # path W
+    # path S: a block for each band of 16 weight rows and each chunk of
+    # groups of 8 slots, as _plan gives them (the card's SMs decide; on 132
+    # SMs 63 bands keep a block a group, 256 take two groups)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for M, N in ((9, 1000), (9, 4096)):
+        groups, blocks = _plan(M, N, 1, sms)
+        assert tcec_matmul.grid(M, N) == (blocks, tcec_matmul.grid(M, N)[1])
+        assert tcec_matmul.groups_per_block(M, N) == groups
+    # a forced path's grid: path W's by its tile (tcec_matmul.tiles(), read
+    # from the source), path S's by _plan, past the threshold too
     for M in (4, 65, 1024):
-        for name, p in (("skinny", 0), ("wgmma", 1)):
-            bm, bn, _ = tcec_matmul.tiles()[name]
-            assert tcec_matmul.grid(M, 1000, 2, path=p)[0] == \
-                -(-M // bm) * -(-1000 // bn) * 2
+        bm, bn, _ = tcec_matmul.tiles()["wgmma"]
+        assert tcec_matmul.grid(M, 1000, 2, path=1)[0] == \
+            -(-M // bm) * -(-1000 // bn) * 2
+        assert tcec_matmul.groups_per_block(M, 1000, 2, path=1) == 0
+        groups, blocks = _plan(M, 1000, 2, sms)
+        assert tcec_matmul.grid(M, 1000, 2, path=0)[0] == blocks
+        assert tcec_matmul.groups_per_block(M, 1000, 2, path=0) == groups
+    # folded_launches counts path S launches whose blocks hold more than
+    # one group: none at M 4, one at M 32 over 192 bands
+    w = torch.rand(1024, 3072, device=dev)
+    before = tcec_matmul.folded_launches
+    tcec_matmul.launch(torch.rand(4, 1024, device=dev), w)
+    assert tcec_matmul.folded_launches == before
+    tcec_matmul.launch(torch.rand(32, 1024, device=dev), w)
+    assert _plan(32, 3072, 1, sms)[0] > 1
+    assert tcec_matmul.folded_launches == before + 1
+
+
+def _plan(M, N, batch, sms):
+    """Path S's groups of 8 slots a block and blocks, the rule of
+    ``csrc/tcec_matmul.cu::fold`` restated: the most groups, up to 4,
+    whose grid still gives each SM a block, spread evenly over a band's
+    chunks."""
+    groups, bands = -(-M // 8), batch * -(-N // 16)
+    G = min(4, groups)
+    while G > 1 and bands * -(-groups // G) < sms:
+        G -= 1
+    chunks = -(-groups // G)
+    return -(-groups // chunks), chunks * bands
+
+
+# Path S folds a launch's groups of 8 slots into the blocks that own the
+# weight bands, and splits each weight fragment once for them all: a
+# group's rows are still bitwise those of a launch of that group alone (one
+# group a block, M <= 8), with the epilogue, both layouts, x3 / x6 / x10.
+# Every M here folds at these N (137 bands or more); K 300 is copied in
+# 16-byte chunks (ragged to 128), K 90 element by element.
+@pytest.mark.parametrize("policy", ["tcec_bf16x3", "tcec_bf16x6",
+                                    "tcec_bf16x10"])
+@pytest.mark.parametrize("M", [9, 17, 32, 33, 64])
+@pytest.mark.parametrize("N,K", [(2200, 300), (2190, 90)])
+@pytest.mark.parametrize("trans_b", [False, True])
+@pytest.mark.parametrize("batch", [None, 2])
+def test_matmul_folded_groups_bitwise_as_alone(dev, policy, M, N, K, trans_b,
+                                               batch):
+    g = torch.Generator(device=dev).manual_seed(M + N + K)
+    bsh = () if batch is None else (batch,)
+    a = torch.rand(*bsh, M, K, generator=g, device=dev) * 2 - 1
+    b = (torch.rand(*bsh, N, K, generator=g, device=dev) * 2 - 1).mT \
+        if trans_b else torch.rand(*bsh, K, N, generator=g, device=dev) * 2 - 1
+    bias = torch.rand(N, generator=g, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups, blocks = _plan(M, N, batch or 1, sms)
+    assert groups > 1
+    assert tcec_matmul.groups_per_block(M, N, batch or 1, trans_b,
+                                        policy) == groups
+    assert tcec_matmul.grid(M, N, batch or 1, trans_b, policy)[0] == blocks
+    out = tcec_matmul.launch(a, b, policy, bias=bias, activation="gelu")
+    for m0 in range(0, M, 8):
+        alone = tcec_matmul.launch(a[..., m0:m0 + 8, :].contiguous(), b,
+                                   policy, bias=bias, activation="gelu")
+        assert torch.equal(out[..., m0:m0 + 8, :], alone)
+
+
+# qwen2.5-14b's decode at 32 slots, weights stored (K, N): k / v (64 bands,
+# the fewest of its products) and the unembedding (9,504 bands, folded).
+@pytest.mark.parametrize("N", [1024, 152064])
+def test_matmul_decode_widths_match_plain(dev, N):
+    M, K = 32, 5120
+    g = torch.Generator(device=dev).manual_seed(N)
+    a = torch.rand(M, K, generator=g, device=dev) * 2 - 1
+    b = torch.rand(K, N, generator=g, device=dev) * 2 - 1
+    out = tcec_matmul.launch(a, b)
+    ref = tcec_matmul.tcec_matmul_plain(a, b)
+    assert bool(((out - ref).abs() <= 8 * K * U24 * (a.abs() @ b.abs()))
+                .all())
 
 
 # Forced paths at M the rule never gives them: path S past 64 (more groups
@@ -482,6 +562,29 @@ def test_decode_graph_counts_launches(dev):
         eng.step()
         assert [m.launches - n for m, n in zip(mods, before)] == [
             7 * L + 1, 0, L]
+
+
+def test_decode_graph_counts_folded_launches(dev):
+    """``folded_launches`` is counted as ``launches`` is, once a replay:
+    at 4 slots nothing folds; at 32 the unembedding of a 4096-token vocab
+    (256 bands) does, and no other product of the smoke config."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine, SamplingParams
+    cfg = get_smoke_config("qwen3-0.6b").replace(vocab_size=4096)
+    params = get_model(cfg).init(seed=0, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for slots in (4, 32):
+        folded = int(_plan(slots, 4096, 1, sms)[0] > 1)
+        assert folded == (slots == 32)
+        eng = Engine(cfg, params, max_slots=slots, num_pages=65,
+                     page_size=4, max_pages_per_slot=16, device=dev)
+        eng.add_request([1, 2, 3], SamplingParams(max_tokens=5))
+        eng.step()                # prefill, warm-up, capture, one replay
+        for _ in range(3):
+            before = tcec_matmul.folded_launches
+            eng.step()
+            assert tcec_matmul.folded_launches == before + folded
 
 
 def test_decode_graph_non_finite_slot_fails_only_that_slot(dev):
