@@ -1,6 +1,8 @@
-"""The comparisons that decide ``correct``, against the plain reference of
-``portbench/reference/``.  Each returns ``{name: value}``; the cell's
-limits file (``portbench/limits/<cell>.json``) gives each its limit.
+"""The comparisons that decide ``correct``, against the plain reference
+under ``portbench/reference/`` that the configuration's family module
+names (``portbench/families/<family>.py``).  Each returns ``{name:
+value}``; the cell's limits file (``portbench/limits/<cell>.json``) gives
+each its limit.
 
 Serving: the served tokens of a sample of finished requests, drawn from the
 seed with the longest among them.  The reference runs each prompt with its
@@ -23,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .reference import dense_lm
+from . import spec
 
 
 def sample_finished(sent: list, seed: int, want_tokens: int,
@@ -58,10 +60,10 @@ def _rows(prompt, tokens, device):
 
 def served_gap(w, conf, samples, device) -> float:
     """The widest gap of a served token below the reference's best."""
-    worst = 0.0
+    logits, worst = spec.family(conf["family"]).logits, 0.0
     for prompt, tokens in samples:
         seq, rows, tok, P = _rows(prompt, tokens, device)
-        ref = dense_lm.logits(w, conf, seq, rows, bf16_cache_from=P)
+        ref = logits(w, conf, seq, rows, bf16_cache_from=P)
         gap = ref.max(-1).values - ref.gather(-1, tok[:, None])[:, 0]
         worst = max(worst, float(gap.max()))
     return worst
@@ -70,12 +72,11 @@ def served_gap(w, conf, samples, device) -> float:
 def control_gap(w, conf, samples, device) -> float:
     """The control: at the same positions, the gap of the token that the
     reference computed in bf16 puts first."""
-    worst = 0.0
+    logits, worst = spec.family(conf["family"]).logits, 0.0
     for prompt, tokens in samples:
         seq, rows, tok, P = _rows(prompt, tokens, device)
-        ref = dense_lm.logits(w, conf, seq, rows, bf16_cache_from=P)
-        low = dense_lm.logits(w, conf, seq, rows, bf16_cache_from=P,
-                              precision="bf16")
+        ref = logits(w, conf, seq, rows, bf16_cache_from=P)
+        low = logits(w, conf, seq, rows, bf16_cache_from=P, precision="bf16")
         pick = low.argmax(-1)
         gap = ref.max(-1).values - ref.gather(-1, pick[:, None])[:, 0]
         worst = max(worst, float(gap.max()))

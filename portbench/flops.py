@@ -1,5 +1,6 @@
 """The yardstick's arithmetic: each kernel's operations and bytes from its
-launch shapes, and a model's FLOPs from its configuration.
+launch shapes, and a model's FLOPs from its configuration, by the counts of
+its family's module (``portbench/families/<family>.py``).
 
 Operations are the f32 product's: ``2 M N K`` for a matrix product and the
 two attention products for attention, whatever number of bf16 term
@@ -8,6 +9,8 @@ output written once.  Every size comes from the configuration file or from
 a launch's shapes, never from the program's own counters.
 """
 from __future__ import annotations
+
+from . import spec
 
 F32 = 4
 
@@ -67,44 +70,29 @@ def paged_work(live: list, Hkv: int, rep: int, hd: int, hdv: int, ps: int,
 
 # ----------------------------------------------------------- the model
 
-def block_matmul_params(conf: dict) -> int:
-    """Weights one token multiplies by in the layer stack (no embedding,
-    no unembedding)."""
-    D, H, Hkv = (conf["hidden_size"], conf["num_attention_heads"],
-                 conf["num_key_value_heads"])
-    hd, F = conf["head_dim"], conf["intermediate_size"]
-    per_layer = D * H * hd * 2 + D * Hkv * hd * 2 + 3 * D * F
-    return conf["num_hidden_layers"] * per_layer
-
-
-def attn_flops_per_pair(conf: dict) -> float:
-    """Forward attention FLOPs of one (query, key) pair over every layer
-    and head."""
-    return (2.0 * conf["num_hidden_layers"] * conf["num_attention_heads"]
-            * 2 * conf["head_dim"])
-
-
 def prefill_flops(conf: dict, prompt_len: int) -> float:
     """A prompt's forward: every prompt token through the stack, causal
     attention, and the one logit row the first token needs."""
-    P = prompt_len
-    return (2.0 * block_matmul_params(conf) * P
-            + attn_flops_per_pair(conf) * P * (P + 1) / 2
-            + 2.0 * conf["hidden_size"] * conf["vocab_size"])
+    fam, P = spec.family(conf["family"]), prompt_len
+    return (2.0 * fam.matmul_params(conf) * P
+            + fam.attn_flops_per_pair(conf) * P * (P + 1) / 2
+            + 2.0 * fam.logit_params(conf))
 
 
 def decode_flops(conf: dict, attended: int) -> float:
     """One decode token attending ``attended`` keys (its own included)."""
-    return (2.0 * block_matmul_params(conf)
-            + attn_flops_per_pair(conf) * attended
-            + 2.0 * conf["hidden_size"] * conf["vocab_size"])
+    fam = spec.family(conf["family"])
+    return (2.0 * fam.matmul_params(conf)
+            + fam.attn_flops_per_pair(conf) * attended
+            + 2.0 * fam.logit_params(conf))
 
 
 def train_flops(conf: dict, batch: int, seq: int) -> float:
     """6 N D plus attention: forward and backward (three times the
     forward) of ``batch`` sequences of ``seq`` tokens, N the weights a
     token multiplies by (the unembedding included)."""
-    n = block_matmul_params(conf) + conf["hidden_size"] * conf["vocab_size"]
+    fam = spec.family(conf["family"])
+    n = fam.matmul_params(conf) + fam.logit_params(conf)
     tokens = batch * seq
-    return (6.0 * n * tokens
-            + 3.0 * attn_flops_per_pair(conf) * batch * seq * (seq + 1) / 2)
+    pair = fam.attn_flops_per_pair(conf)
+    return 6.0 * n * tokens + 3.0 * pair * batch * seq * (seq + 1) / 2

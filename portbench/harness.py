@@ -24,17 +24,6 @@ import torch
 from . import check, measure, spec, traffic, weights
 from .trace import Profiler, Recorder, idle_gaps, request_events, spans_of
 
-# the port's configuration field of each key of a configuration file
-PORT_FIELDS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model",
-               "vocab_size": "vocab_size",
-               "num_attention_heads": "n_heads",
-               "num_key_value_heads": "n_kv_heads", "head_dim": "head_dim",
-               "intermediate_size": "d_ff", "rope_theta": "rope_theta",
-               "rms_norm_eps": "norm_eps",
-               "tie_word_embeddings": "tie_embeddings",
-               "attention_bias": "qkv_bias", "qk_norm": "qk_norm",
-               "hidden_act": "activation", "policy": "policy"}
-
 
 @dataclass
 class Run:
@@ -69,26 +58,21 @@ class Run:
 # seconds of the profiled window of a traced run
 TRACE_S = 20.0
 
-# keys that set no size, which the run takes from the file where the
-# port's registry holds another value
-RUN_AS_FILE = ("rms_norm_eps",)
-
 
 def port_config(conf: dict, cfg=None):
-    """The port's registry configuration the file names, held to the
-    file: the keys of ``RUN_AS_FILE`` are set from the file, any other
-    field that differs stops the run."""
+    """The port's configuration the file names (default: the registry's
+    entry ``registry``), held to the file by the module of its family
+    (``portbench/families/<family>.py``); the port's family and the
+    file's have to be one."""
     if cfg is None:
         from repro_torch.configs import get_config
         cfg = get_config(conf["registry"])
-    cfg = dataclasses.replace(cfg, **{PORT_FIELDS[k]: conf[k]
-                                      for k in RUN_AS_FILE})
-    bad = {k: (conf[k], getattr(cfg, f)) for k, f in PORT_FIELDS.items()
-           if conf[k] != getattr(cfg, f)}
-    if cfg.family != "dense" or bad:
-        raise RuntimeError(f"{cfg.name}: the port's configuration differs "
-                           f"from the benchmark's file: {bad}")
-    return cfg
+    fam = spec.family(cfg.family)
+    if conf["family"] != cfg.family:
+        raise RuntimeError(f"{cfg.name}: the port's family {cfg.family!r} "
+                           f"differs from the benchmark's file: "
+                           f"{conf['family']!r}")
+    return fam.port_config(conf, cfg)
 
 
 def _params(conf, cfg, seed, device):
@@ -204,6 +188,11 @@ def _train(cell, seed, seconds, trace, device, cfg, run, fault=None,
     if bad:
         raise RuntimeError(f"the port's default OptConfig differs from the "
                            f"mix's: {bad}")
+    ref_steps = getattr(spec.family(conf["family"]), "train_steps", None)
+    if ref_steps is None:
+        raise RuntimeError(f"portbench/families/{conf['family']}.py has no "
+                           f"train_steps: the family has no training "
+                           f"reference")
     V = conf["vocab_size"]
     run.phase("imports")
     params = _params(conf, cfg, seed, device)
@@ -269,13 +258,12 @@ def _train(cell, seed, seconds, trace, device, cfg, run, fault=None,
     del state, met, batch
     _free()
     w0 = weights.make(conf, seed, device)
-    from .reference import train as ref_train
     batches = [traffic.train_batch(mix, seed, j, V, device) for j in (1, 2, 3)]
-    ref = ref_train.steps(weights.leaves(w0), conf, batches, mix)
+    ref = ref_steps(weights.leaves(w0), conf, batches, mix)
     info = {}
     if control:
-        low = ref_train.steps(weights.leaves(w0), conf, batches, mix,
-                              precision="bf16")
+        low = ref_steps(weights.leaves(w0), conf, batches, mix,
+                        precision="bf16")
         info["control"] = check.train_gaps(low, ref)
     del w0, batches
     _free()

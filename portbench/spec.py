@@ -1,8 +1,10 @@
 """A cell of ``BENCHMARK.json`` and everything the harness finds by its
 names: the configuration file, the traffic mix, the limits of the
-correctness check, and the reader of each metric the cell reports."""
+correctness check, the reader of each metric the cell reports, and the
+module of the configuration's model family."""
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from dataclasses import dataclass
@@ -10,6 +12,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
+FAMILIES = HERE / "families"
 
 
 @dataclass
@@ -59,3 +62,41 @@ def reader(metric: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def family(name: str):
+    """The module ``portbench/families/<name>.py`` of a model family, which
+    holds everything the benchmark decides by family:
+
+    - ``port_config(conf, cfg) -> cfg``: the port's configuration ``cfg``
+      held to the configuration file ``conf`` (or built from its keys);
+      a difference it does not allow raises;
+    - ``layout(conf)``: ``{path: (shape, std)}`` of every leaf of the
+      port's parameter tree (``a/b/c``), in the order the weights are
+      drawn (``portbench/weights.py``);
+    - ``logits(w, conf, tokens, rows, *, precision, bf16_cache_from)``:
+      the family's plain reference under ``portbench/reference/``;
+    - ``train_steps(flat0, conf, batches, mix, precision)``: the
+      reference's training steps; a family without it has no training
+      cell;
+    - ``matmul_params(conf)``, ``attn_flops_per_pair(conf)`` and
+      ``logit_params(conf)``: the weights one token multiplies by in the
+      layer stack, the forward attention FLOPs of one (query, key) pair
+      over every layer, and the weights of one logit row, from which
+      ``portbench/flops.py`` counts a model's FLOPs.
+
+    Raises where the module is missing, naming the file."""
+    path = FAMILIES / f"{name}.py"
+    if not path.is_file():
+        raise RuntimeError(f"the benchmark has no module for the family "
+                           f"{name!r}: it needs portbench/families/{name}.py")
+    return _module(path)
+
+
+@functools.cache
+def _module(path: Path):
+    spec = importlib.util.spec_from_file_location(
+        f"portbench.families.{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -6,10 +6,9 @@ seed gives the same tensors on every run.  The program and the reference
 are handed the same tensors; after the program's state is freed the
 reference draws them again from the seed.
 
-The layout is the port's dense family (``models/lm.py``): ``embed``
-(padded vocab, d), ``ln_f``, ``dense_blocks`` with a leading layer axis,
-``unembed`` (d, padded vocab) unless the embeddings are tied.  A norm's
-weight is ``1 + scale``.  :func:`check_layout` holds this layout to the
+The layout is the port's parameter tree of the configuration's family, as
+its module ``portbench/families/<family>.py`` gives it (``layout``; the
+first is ``families/dense.py``).  :func:`check_layout` holds it to the
 port's own before a run starts.
 """
 from __future__ import annotations
@@ -18,36 +17,17 @@ import math
 
 import torch
 
+from . import spec
+
 
 def padded_vocab(conf: dict) -> int:
     return -(-conf["vocab_size"] // 128) * 128
 
 
 def layout(conf: dict) -> dict:
-    """``{path: (shape, std)}`` of every leaf; ``path`` is ``a/b/c``."""
-    L, D = conf["num_hidden_layers"], conf["hidden_size"]
-    H, Hkv = conf["num_attention_heads"], conf["num_key_value_heads"]
-    hd, F, V = conf["head_dim"], conf["intermediate_size"], padded_vocab(conf)
-    b = "dense_blocks"
-    out = {"embed": ((V, D), 0.02), "ln_f": ((D,), 0.1),
-           f"{b}/ln1": ((L, D), 0.1), f"{b}/ln2": ((L, D), 0.1),
-           f"{b}/attn/wq": ((L, D, H, hd), D ** -0.5),
-           f"{b}/attn/wk": ((L, D, Hkv, hd), D ** -0.5),
-           f"{b}/attn/wv": ((L, D, Hkv, hd), D ** -0.5),
-           f"{b}/attn/wo": ((L, H, hd, D), (H * hd) ** -0.5)}
-    if conf["attention_bias"]:
-        out.update({f"{b}/attn/bq": ((L, H, hd), 0.1),
-                    f"{b}/attn/bk": ((L, Hkv, hd), 0.1),
-                    f"{b}/attn/bv": ((L, Hkv, hd), 0.1)})
-    if conf["qk_norm"]:
-        out.update({f"{b}/attn/q_norm": ((L, hd), 0.1),
-                    f"{b}/attn/k_norm": ((L, hd), 0.1)})
-    out.update({f"{b}/mlp/w_gate": ((L, D, F), D ** -0.5),
-                f"{b}/mlp/w_up": ((L, D, F), D ** -0.5),
-                f"{b}/mlp/w_down": ((L, F, D), F ** -0.5)})
-    if not conf["tie_word_embeddings"]:
-        out["unembed"] = ((D, V), D ** -0.5)
-    return out
+    """``{path: (shape, std)}`` of every leaf; ``path`` is ``a/b/c``.  The
+    configuration's family module gives it (``portbench/families/``)."""
+    return spec.family(conf["family"]).layout(conf)
 
 
 def _seed(seed: int) -> int:
